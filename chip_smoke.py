@@ -4,16 +4,31 @@
 1. device   the card's name, power limit and count; no CUDA -> exit 1
 2. build    nvcc builds every kernel of ops/kernels/csrc/ from this checkout
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-            fp32 and bf16, at the serving path's shapes (the flash kernel
+            fp32 and bf16, at the main paths' shapes (the flash forward
             through the fused_multihead_attention op); times from CUDA
-            events beside each kernel's bound and F.scaled_dot_product_attention
-4. slice    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
+            events beside each kernel's bound and its library yardstick
+            (F.scaled_dot_product_attention, forward or backward alone;
+            aten native_layer_norm_backward)
+4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
             bitwise to predictor.run and within 1e-3 of the same export run
             on the CPU; the short kernel launched 12 times per request
-5. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+5. train    BERT-base masked-LM pretraining (fp32, Adam 1e-4, dropout 0.1,
+            b 8, s 128, max_preds 20): every step launches 12 short
+            forward, 12 short backward and 26 LayerNorm backward kernels;
+            the loss falls over 5 steps on one batch; at base width with 2
+            layers, 3 steps on the card agree with the same 3 steps on the
+            CPU; step time, tokens/s, peak memory and one profiled step
+6. long     one fused_multihead_attention training step at s 2048 through
+            append_backward: one flash forward and one flash backward
+            launch, dQ / dK / dV within 1e-4 of the plain backward
+7. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
+
+Each main path (serve, train, long) runs with every launch count set to 0
+just before it and read just after; a kernel of the path that was not
+launched fails the run.
 
 A failed phase raises and the script exits non-zero without the last line.
 Run from the root of a checkout:
@@ -51,7 +66,18 @@ CARD_PEAKS = {
     "H200": (4.8e12, 67e12, 989e12),
 }
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, same card
-REQUESTS = 4  # BERT-base /predict requests in the main path's run
+REQUESTS = 4  # BERT-base /predict requests in the serving path's run
+TRAIN_STEPS = 5  # BERT-base steps on one batch in the training path's run
+PARITY_STEPS = 3  # card vs CPU steps of the 2-layer BERT at base width
+LR = 1e-4
+# card vs CPU after PARITY_STEPS Adam steps: the losses within a relative
+# 1e-4; a parameter within 2 * LR * PARITY_STEPS, since Adam's first steps
+# move an element by about LR * sign(grad) and a grad at rounding noise
+# level may take either sign on the two devices; and all but 1e-3 of all
+# elements within 1e-5
+LOSS_RTOL = 1e-4
+PARAM_ATOL = 2 * LR * PARITY_STEPS
+CLOSE_ATOL, CLOSE_FRAC = 1e-5, 1e-3
 
 
 def require(cond, msg):
@@ -74,14 +100,42 @@ def attention_bound_ms(shape, dtype, bias, causal, peaks):
     esz = 4 if dtype == "float32" else 2
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * esz + b * h * sq * 4
     nbytes += b * sk * 4 if bias else 0
-    if causal:  # query i sees keys j <= i + sk - sq
-        pairs = sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
-    else:
-        pairs = sq * sk
-    flops = 4.0 * b * h * pairs * d
+    flops = 4.0 * b * h * live_pairs(sq, sk, causal) * d
     bw, fp32, bf16 = peaks
     t_bytes = nbytes / bw
     t_ops = flops / (fp32 if dtype == "float32" else bf16)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def live_pairs(sq, sk, causal):
+    if causal:  # query i sees keys j <= i + sk - sq
+        return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+    return sq * sk
+
+
+def attention_bwd_bound_ms(shape, dtype, bias, causal, peaks):
+    """Least time for the backward: max(bytes of q, k, v, dO, dQ, dK, dV,
+    lse, delta and bias over the memory rate, 10 d FLOPs per live pair of
+    every head (S = QK^T again, dP, dV, dQ, dK) over the dtype's peak)."""
+    b, h, sq, sk, d = shape
+    esz = 4 if dtype == "float32" else 2
+    nbytes = (3 * b * h * sq * d + 4 * b * h * sk * d) * esz + 2 * b * h * sq * 4
+    nbytes += b * sk * 4 if bias else 0
+    flops = 10.0 * b * h * live_pairs(sq, sk, causal) * d
+    bw, fp32, bf16 = peaks
+    t_bytes, t_ops = nbytes / bw, flops / (fp32 if dtype == "float32" else bf16)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ln_bwd_bound_ms(n, k, dtype, peaks):
+    """Least time for the LayerNorm backward: max(x, dy, dx, mean, rstd,
+    scale, dscale, dbias once each over the memory rate, 11 FLOPs an
+    element (normalize, scale, two row sums, dx, two column sums) over
+    the fp32 peak)."""
+    esz = 4 if dtype == "float32" else 2
+    nbytes = 3 * n * k * esz + 2 * n * 4 + 3 * k * 4
+    bw, fp32, _ = peaks
+    t_bytes, t_ops = nbytes / bw, 11.0 * n * k / fp32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -108,13 +162,18 @@ def main():
     from paddle_tpu_torch import layers
     from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
     from paddle_tpu_torch.inference.server import InferenceServer
-    from paddle_tpu_torch.models.bert import BertConfig, bert_encoder
+    from paddle_tpu_torch.models.bert import (
+        BertConfig, bert_encoder, bert_flops_per_token, build_bert_pretrain)
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_attention_plain)
+        attention_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain
     from paddle_tpu_torch.ops.kernels.mha_short import (
-        short_attention, short_attention_plain)
+        short_attention, short_attention_bwd, short_attention_bwd_plain,
+        short_attention_plain)
+    from paddle_tpu_torch.scope import to_numpy
 
     # ---- 1. device ------------------------------------------------------
     if rehearsal:
@@ -281,7 +340,114 @@ def main():
             require(err <= TOL[dtype], f"{name} dropout {dtype}: max abs err {err}")
             print(f"[kernels] {name} dropout 0.2 {dtype}: max abs err {err:.3e}")
 
-    # ---- 4. slice: BERT-base served over HTTP ---------------------------
+    def sdpa_bwd_ms(q, k, v, bias, causal, layout, dout):
+        """The backward alone of F.scaled_dot_product_attention on the same
+        inputs: torch.autograd.grad on its output (yardstick only)."""
+        if layout == "bshd":
+            q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sq, sk = q.shape[2], k.shape[2]
+        mask = torch.zeros(q.shape[0], 1, sq, sk, device=dev)
+        if bias is not None:
+            mask = mask + bias[:, None, None, :]
+        if causal:
+            live = torch.ones(sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
+            mask = mask.masked_fill(~live, -1e30)
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask.to(q.dtype))
+        return timed_ms(lambda: torch.autograd.grad(out, (q, k, v), dout,
+                                                    retain_graph=True))
+
+    # the backward kernels, each at its main path's shape: D at BERT's
+    # training shape (with dropout 0.1), in bhsd and causal sq > sk too;
+    # E at the long-sequence step's; C at the encoder's rows and mlm.ln's
+    if rehearsal:
+        bwd_checks = [("mha_short_bwd", (2, 4, 32, 32, 16), "bshd", True, False, 0.1),
+                      ("mha_short_bwd", (2, 4, 32, 32, 16), "bhsd", True, False, 0.1),
+                      ("mha_short_bwd", (1, 2, 20, 13, 16), "bshd", False, True, 0.0),
+                      ("flash_bwd", (1, 2, 600, 600, 16), "bhsd", True, True, 0.0)]
+        ln_checks = [(64, 64), (10, 64)]
+    else:
+        bwd_checks = [("mha_short_bwd", (8, 12, 128, 128, 64), "bshd", True, False, 0.1),
+                      ("mha_short_bwd", (8, 12, 128, 128, 64), "bhsd", True, False, 0.1),
+                      ("mha_short_bwd", (2, 12, 100, 77, 64), "bshd", False, True, 0.0),
+                      ("flash_bwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, 0.0)]
+        ln_checks = [(1024, 768), (160, 768)]
+    bwd_fns = {"mha_short_bwd": (short_attention, short_attention_bwd,
+                                 short_attention_bwd_plain),
+               "flash_bwd": (flash_attention, flash_attention_bwd, flash_attention_bwd_plain)}
+    for name, shape, layout, bias_kind, causal, dropout in bwd_checks:
+        fwd, wrapper, plain = bwd_fns[name]
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, bias = attn_inputs(shape, layout, dtype, bias_kind)
+            # dO scaled so the bf16 grads stay below 2, where one bf16 ulp
+            # is under the 2e-2 tolerance
+            dout = (0.25 * torch.randn(q.shape, generator=gen, device=dev)).to(q.dtype)
+            kw = dict(causal=causal, dropout=dropout, seed=4321, layout=layout)
+            out, lse = fwd(q, k, v, bias=bias, **kw)
+            delta = attention_delta(out, dout, layout)
+            args_ = (q, k, v, bias, dout, lse, delta)
+            before = kernels.launch_counts()[name]
+            got = wrapper(*args_, **kw)
+            if not rehearsal:
+                torch.cuda.synchronize()
+                require(kernels.launch_counts()[name] == before + 1,
+                        f"{name}: the run did not launch the kernel")
+            ref = plain(*args_, **kw)
+            err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+            require(err <= TOL[dtype], f"{name} {shape} {dtype}: max abs err {err} > "
+                    f"tol {TOL[dtype]}")
+            ms = timed_ms(lambda: wrapper(*args_, **kw))
+            plain_ms = timed_ms(lambda: plain(*args_, **kw))
+            lib_ms = sdpa_bwd_ms(q, k, v, bias, causal, layout, dout)
+            bound, bound_by = attention_bwd_bound_ms(shape, dtype, bias_kind, causal, peaks)
+            print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} bias={bias_kind} "
+                  f"causal={causal} dropout={dropout}: max_abs_err {err:.3e} (tol "
+                  f"{TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{lib_ms:.4f} (sdpa backward) bound_ms {bound:.4f} ({bound_by})")
+            results.setdefault(name, []).append(dict(
+                shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+    for n, k in ln_checks:
+        for dtype in ("float32", "bfloat16"):
+            x = (2 * torch.randn(n, k, generator=gen, device=dev) + 0.5).to(getattr(torch, dtype))
+            dy = torch.randn(n, k, generator=gen, device=dev).to(x.dtype)
+            xf = x.float()
+            mean = xf.mean(1)
+            rstd = torch.rsqrt(xf.var(1, unbiased=False) + 1e-5)
+            scale = torch.rand(k, generator=gen, device=dev) + 0.5
+            args_ = (x, dy, mean, rstd, scale)
+            before = kernels.launch_counts()["layer_norm_bwd"]
+            got = ln_bwd(*args_)
+            if not rehearsal:
+                torch.cuda.synchronize()
+                require(kernels.launch_counts()["layer_norm_bwd"] == before + 1,
+                        "layer_norm_bwd: the run did not launch the kernel")
+            ref = ln_bwd_plain(*args_)
+            # dx at the dtype's tolerance; dscale / dbias sum n rows in fp32
+            err = float((got[0].float() - ref[0].float()).abs().max())
+            err_sums = max(float((g - r).abs().max() / max(1.0, float(r.abs().max())))
+                           for g, r in zip(got[1:], ref[1:]))
+            require(err <= TOL[dtype] and err_sums <= TOL["float32"],
+                    f"layer_norm_bwd n={n} k={k} {dtype}: max abs err {err}, "
+                    f"dscale/dbias rel err {err_sums}")
+            ms = timed_ms(lambda: ln_bwd(*args_))
+            plain_ms = timed_ms(lambda: ln_bwd_plain(*args_))
+            # the library call with the stats its own forward saves
+            w, bb = scale.to(x.dtype), torch.zeros(k, device=dev, dtype=x.dtype)
+            _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [k], w, bb, 1e-5)
+            lib_ms = timed_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, x, [k], lmean, lrstd, w, bb, [True, True, True]))
+            bound, bound_by = ln_bwd_bound_ms(n, k, dtype, peaks)
+            print(f"[kernels] layer_norm_bwd n={n} k={k} {dtype}: max_abs_err {err:.3e} "
+                  f"(tol {TOL[dtype]}), dscale/dbias rel err {err_sums:.3e}; ms {ms:.4f} "
+                  f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+                  f"(native_layer_norm_backward) bound_ms {bound:.4f} ({bound_by})")
+            results.setdefault("layer_norm_bwd", []).append(dict(
+                shape=(n, k), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+
+    # ---- 4. serve: BERT-base over HTTP ----------------------------------
     if not rehearsal:  # peak memory of the serving path, not of phase 3
         torch.cuda.reset_peak_memory_stats()
     cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
@@ -323,7 +489,7 @@ def main():
     long_in = attn_inputs(long_shape, "bhsd", "float32", True)
     long_run = op_runner(long_shape, "float32", True, *long_in)
 
-    # the main path's run: every count from 0, N requests, then one
+    # the serving path's run: every count from 0, N requests, then one
     # long-sequence program through the same op (the flash branch, which
     # BERT's max_position of 512 never reaches)
     replies, latencies = [], []
@@ -346,6 +512,7 @@ def main():
     if not rehearsal:
         torch.cuda.synchronize()
     launches = kernels.launch_counts()
+    path_launches = {"serve": launches}
     srv.shutdown()
     server_thread.join(30)
     print(f"[slice] launches over {len(requests)} requests + 1 long-sequence run: {launches}")
@@ -384,26 +551,182 @@ def main():
           f"tokens/s over the request loop; max_memory_allocated "
           f"{peak_mem / 2**20:.0f} MiB; card {smi}")
     if not rehearsal:
-        profile_request(torch, pred, requests[0])
+        profile_step(torch, lambda: pred.run(dict(requests[0])), "one predictor.run")
+    del pred, cpu_pred
 
-    # ---- 5. result ------------------------------------------------------
-    sources = {"mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
-                                 "paddle_tpu/ops/pallas/mha_short.py:383"),
-               "flash_fwd": ("paddle_tpu_torch/ops/kernels/csrc/flash_fwd.cu",
-                             "paddle_tpu/ops/pallas/flash_attention.py:79")}
+    # ---- 5. train: BERT-base masked-LM pretraining -----------------------
+    tb, ts, tp = (2, 32, 5) if rehearsal else (8, 128, 20)
+    train_cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    feed = bert_pretrain_feed(np, np.random.RandomState(args.seed), train_cfg, tb, ts, tp)
+
+    def pretrain(cfg):
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        main_p.random_seed = startup_p.random_seed = args.seed + 2
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            handles = build_bert_pretrain(cfg, tb, ts, mlm_only=True, max_preds=tp)
+            fluid.optimizer.Adam(LR).minimize(handles["loss"])
+        return main_p, startup_p, handles["loss"]
+
+    main_t, startup_t, loss_t = pretrain(train_cfg)
+    scope_t = fluid.Scope()
+    exe_t = fluid.Executor(fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0))
+    t0 = time.perf_counter()
+    exe_t.run(startup_t, scope=scope_t)
+    n_ops = len(main_t.global_block().ops)
+    print(f"[train] BERT hidden {train_cfg.hidden_size} x {train_cfg.num_layers} layers, "
+          f"b {tb} s {ts} max_preds {tp}, Adam({LR}), dropout "
+          f"{train_cfg.hidden_dropout}: {n_ops} ops; startup {time.perf_counter() - t0:.1f} s")
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    want = {"mha_short_fwd": train_cfg.num_layers, "mha_short_bwd": train_cfg.num_layers,
+            "layer_norm_bwd": 2 * train_cfg.num_layers + 2, "flash_fwd": 0, "flash_bwd": 0}
+    # the training path's run: every count from 0, TRAIN_STEPS steps on
+    # one batch (each returns the loss to the host, which synchronises)
+    losses, step_ms, per_step = [], [], []
+    kernels.reset_launch_counts()
+    for _ in range(TRAIN_STEPS):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        loss = exe_t.run(main_t, feed=dict(feed), fetch_list=[loss_t], scope=scope_t)[0]
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.reshape(-1)[0]))
+        per_step.append({n: c - before[n] for n, c in kernels.launch_counts().items()})
+    launches = kernels.launch_counts()
+    path_launches["train"] = launches
+    peak_train = torch.cuda.max_memory_allocated() if not rehearsal else 0
+    print(f"[train] losses {losses}")
+    print(f"[train] launches over {TRAIN_STEPS} steps: {launches}")
+    require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    require(exe_t.recomputed_forwards == [], "an __auto_grad__ re-ran a forward: "
+            f"{exe_t.recomputed_forwards}")
+    if not rehearsal:
+        require(all(c == want for c in per_step),
+                f"launches per step {per_step}, want {want} in every step")
+    tokens = tb * ts
+    p50_ms = statistics.median(step_ms[1:])
+    flops_step = bert_flops_per_token(train_cfg, ts, tp) * tokens
+    print(f"[train] step time p50 {p50_ms:.2f} ms over steps 2-{TRAIN_STEPS} (first "
+          f"{step_ms[0]:.2f} ms); {tokens / p50_ms * 1e3:.0f} tokens/s; "
+          f"{flops_step / 1e12:.3f} TFLOP/step (bert_flops_per_token), "
+          f"{flops_step / p50_ms / 1e9:.2f} TFLOP/s; max_memory_allocated "
+          f"{peak_train / 2**20:.0f} MiB (startup state + {TRAIN_STEPS} steps); card {smi}")
+    step = lambda: exe_t.run(main_t, feed=dict(feed), fetch_list=[loss_t],  # noqa: E731
+                             scope=scope_t)
+    if not rehearsal:
+        profile_step(torch, step, "one training step")
+    host_breakdown(step)
+    del scope_t
+
+    # card vs CPU: the same 2-layer program at base width, the same state
+    # and feeds, PARITY_STEPS steps on each
+    cfg2 = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    main_2, startup_2, loss_2 = pretrain(cfg2)
+    runs = []
+    for place in (fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0), fluid.CPUPlace()):
+        scope_2 = fluid.Scope()
+        exe_2 = fluid.Executor(place)
+        exe_2.run(startup_2, scope=scope_2)
+        if runs:  # the CPU starts from the card's startup state
+            fluid.io.set_persistables_from_numpy(scope_2, runs[0][1], "cpu")
+        else:
+            state0 = {v.name: to_numpy(scope_2.get(v.name)) for v in main_2.list_vars()
+                      if v.persistable and scope_2.has(v.name)}
+        t0 = time.perf_counter()
+        ls = [float(exe_2.run(main_2, feed=dict(feed), fetch_list=[loss_2],
+                              scope=scope_2)[0].reshape(-1)[0]) for _ in range(PARITY_STEPS)]
+        secs = time.perf_counter() - t0
+        runs.append((ls, state0 if not runs else None, scope_2, secs))
+    (card_l, _, card_scope, card_s), (cpu_l, _, cpu_scope, cpu_s) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+    worst, worst_name, n_far, n_all = 0.0, "", 0, 0
+    for v in main_2.list_vars():
+        if not v.persistable or not cpu_scope.has(v.name):
+            continue
+        d = np.abs(to_numpy(card_scope.get(v.name)) - to_numpy(cpu_scope.get(v.name)))
+        n_far += int((d > CLOSE_ATOL).sum())
+        n_all += d.size
+        if d.size and float(d.max()) > worst:
+            worst, worst_name = float(d.max()), v.name
+    print(f"[train] card vs CPU, {cfg2.num_layers} layers at width {cfg2.hidden_size}, "
+          f"{PARITY_STEPS} steps ({card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU): "
+          f"losses {card_l} vs {cpu_l}, max rel diff {loss_rel:.3e} (tol {LOSS_RTOL}); "
+          f"persistables max abs diff {worst:.3e} ({worst_name}; tol {PARAM_ATOL}), "
+          f"{n_far} of {n_all} elements beyond {CLOSE_ATOL} (tol {CLOSE_FRAC:.0e} of them)")
+    require(loss_rel <= LOSS_RTOL, f"card vs CPU losses differ by {loss_rel}")
+    require(worst <= PARAM_ATOL and n_far <= CLOSE_FRAC * n_all,
+            f"card vs CPU persistables: max abs diff {worst} ({worst_name}), "
+            f"{n_far} of {n_all} elements beyond {CLOSE_ATOL}")
+    del runs, card_scope, cpu_scope
+
+    # ---- 6. long: one attention training step at s 2048 ------------------
+    lb, lh, lsq, _, ld = long_shape
+    long_prog = fluid.Program()
+    with fluid.program_guard(long_prog, fluid.Program()), fluid.unique_name.guard():
+        qkv = [layers.data(n, [lb, lh, lsq, ld], append_batch_size=False,
+                           stop_gradient=False) for n in ("q", "k", "v")]
+        lbias = layers.data("bias", [lb, lsq], append_batch_size=False)
+        g = layers.data("g", [lb, lh, lsq, ld], append_batch_size=False)
+        lout = layers.fused_multihead_attention(
+            *qkv, key_bias=lbias, causal=True, sm_scale=1.0 / math.sqrt(ld),
+            attn_dropout=0.0, is_test=False, layout="bhsd")
+        lloss = layers.reduce_sum(layers.elementwise_mul(lout, g))
+        fluid.append_backward(lloss)
+    lq, lk, lv, lb_ = long_in
+    lg = torch.randn(lq.shape, generator=gen, device=dev)
+    lfetch = [lout.name] + [f"{n}@GRAD" for n in ("q", "k", "v")]
+    kernels.reset_launch_counts()
+    lgot = exe.run(long_prog, feed={"q": lq, "k": lk, "v": lv, "bias": lb_, "g": lg},
+                   fetch_list=lfetch, return_numpy=False)
+    if not rehearsal:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    path_launches["long"] = launches
+    print(f"[long] launches of one training step at b,h,s,d={lb, lh, lsq, ld}: {launches}")
+    if not rehearsal:
+        require(launches == {"mha_short_fwd": 0, "mha_short_bwd": 0, "flash_fwd": 1,
+                             "flash_bwd": 1, "layer_norm_bwd": 0},
+                f"the long-sequence step launched {launches}")
+    lkw = dict(bias=lb_, causal=True, layout="bhsd")
+    pout, plse = flash_attention_plain(lq, lk, lv, **lkw)
+    pgrads = flash_attention_bwd_plain(lq, lk, lv, lb_, lg, plse, attention_delta(pout, lg, "bhsd"),
+                                       causal=True, layout="bhsd")
+    long_errs = [float((a - b).abs().max()) for a, b in zip(lgot, (pout, *pgrads))]
+    print(f"[long] max abs err against the plain forward and backward (out, dq, dk, dv): "
+          f"{long_errs} (tol {TOL['float32']})")
+    require(max(long_errs) <= TOL["float32"], f"long-sequence step: errors {long_errs}")
+
+    # ---- 7. result ------------------------------------------------------
+    sources = {
+        "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
+                          "paddle_tpu/ops/pallas/mha_short.py:383"),
+        "mha_short_bwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_bwd.cu",
+                          "paddle_tpu/ops/pallas/mha_short.py:406"),
+        "flash_fwd": ("paddle_tpu_torch/ops/kernels/csrc/flash_fwd.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:79"),
+        "flash_bwd": ("paddle_tpu_torch/ops/kernels/csrc/flash_bwd.cu",
+                      "paddle_tpu/ops/pallas/flash_attention.py:227"),
+        "layer_norm_bwd": ("paddle_tpu_torch/ops/kernels/csrc/layer_norm_bwd.cu",
+                           "paddle_tpu/ops/pallas/layer_norm.py:23"),
+    }
+    for path, counts in path_launches.items():
+        print(f"[result] launches on the {path} path's run: {counts}")
     line = []
     for name, rows in results.items():
         main_row = next(r for r in rows if r["dtype"] == "float32")  # main-path shape
         line.append({
             "name": name, "route": "cuda", "source": sources[name][0],
-            "replaces": sources[name][1], "launches": launches[name],
-            "max_abs_err": main_row["err"], "max_err": main_row["err"],
-            "tol": TOL["float32"],
+            "replaces": sources[name][1],
+            "launches": sum(c[name] for c in path_launches.values()),
+            "max_abs_err": main_row["err"], "tol": TOL["float32"],
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "shape_bhqkd": list(main_row["shape"]), "dtype": "float32",
+            "shape": list(main_row["shape"]), "dtype": "float32",
         })
+    require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
+            "the result line must list every kernel")
     print(json.dumps({"kernels": line}))
     if rehearsal:
         print("[result] cpu rehearsal passed (no ok line: nothing ran on a card)")
@@ -414,16 +737,32 @@ def main():
     return 0
 
 
-def profile_request(torch, pred, feed):
-    """One predictor.run under torch.profiler: device time by kernel, and
-    the device's idle share of the request's wall time."""
+def bert_pretrain_feed(np, rs, cfg, b, s, max_preds):
+    """The feed recipe of the JAX package's benchmark (`_bert_feed` with
+    max_preds): random ids, a full input mask, max_preds distinct masked
+    positions per row, weights 1."""
+    return {
+        "src_ids": rs.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "sent_ids": rs.randint(0, cfg.type_vocab_size, (b, s)).astype("int64"),
+        "pos_ids": np.tile(np.arange(s), (b, 1)).astype("int64"),
+        "input_mask": np.ones((b, s), dtype="float32"),
+        "mask_label": rs.randint(0, cfg.vocab_size, (b, max_preds)).astype("int64"),
+        "mask_weight": np.ones((b, max_preds), "float32"),
+        "mask_pos": np.stack([rs.choice(s, max_preds, replace=False)
+                              for _ in range(b)]).astype("int64"),
+    }
+
+
+def profile_step(torch, fn, what):
+    """`fn` once under torch.profiler: device time by kernel, and the
+    device's idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    pred.run(dict(feed))
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.run(dict(feed))
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -436,11 +775,44 @@ def profile_request(torch, pred, feed):
     if not rows:
         print("[profile] torch.profiler shows no device time here")
         return
-    print(f"[profile] one predictor.run: wall {wall_ms:.2f} ms (under the "
+    print(f"[profile] {what}: wall {wall_ms:.2f} ms (under the "
           f"profiler), device busy {busy_ms:.2f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.2f}")
-    for ms, count, key in sorted(rows, reverse=True)[:8]:
+    for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {ms:8.3f} ms {100 * ms / busy_ms:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def host_breakdown(step):
+    """One call of `step` with the host time of each op the executor
+    lowers summed by op type (no device synchronisation between ops: the
+    time the host spends issuing each op's work)."""
+    from paddle_tpu_torch import executor
+
+    per_type = {}
+
+    def timed(fn):
+        def wrapper(ctx, op):
+            t0 = time.perf_counter()
+            try:
+                return fn(ctx, op)
+            finally:
+                ms, n = per_type.get(op.type, (0.0, 0))
+                per_type[op.type] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+        return wrapper
+
+    saved = executor.lower_op, executor.lower_forward_op
+    executor.lower_op, executor.lower_forward_op = (timed(f) for f in saved)
+    try:
+        t0 = time.perf_counter()
+        step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        executor.lower_op, executor.lower_forward_op = saved
+    ops_ms = sum(ms for ms, _ in per_type.values())
+    print(f"[host] one training step: wall {wall_ms:.2f} ms, of which {ops_ms:.2f} ms "
+          f"issuing {sum(n for _, n in per_type.values())} ops; by op type:")
+    for op_type, (ms, n) in sorted(per_type.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"[host]   {ms:8.2f} ms {100 * ms / wall_ms:5.1f}%  x{n:<4d} {op_type}")
 
 
 def _cpu_config(config_cls, model_dir):

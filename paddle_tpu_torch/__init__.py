@@ -1,21 +1,24 @@
 """paddle_tpu_torch — the PyTorch / CUDA port of paddle_tpu, for an NVIDIA
 H100. It keeps the JAX package's `fluid`-style surface, Program IR, op
 types and attrs, and on-disk formats, and runs a Program eagerly on torch
-tensors. The attention kernels that paddle_tpu wrote in Pallas for the
-TPU are hand-written CUDA here (ops/kernels/csrc/). It imports neither
-jax nor paddle_tpu.
+tensors. The attention and LayerNorm-backward kernels that paddle_tpu
+wrote in Pallas for the TPU are hand-written CUDA here
+(ops/kernels/csrc/). It imports neither jax nor paddle_tpu.
 
     import paddle_tpu_torch as fluid
-    from paddle_tpu_torch.models.bert import BertConfig, bert_encoder
-    ...
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    h = build_bert_pretrain(BertConfig.base(), 8, 128, mlm_only=True, max_preds=20)
+    fluid.optimizer.Adam(1e-4).minimize(h["loss"])
     exe = fluid.Executor()            # CUDAPlace(0); CPUPlace() for the CPU
     exe.run(fluid.default_startup_program())
-    fluid.io.save_inference_model(dirname, feeds, [hidden], exe)
+    loss, = exe.run(feed=feed, fetch_list=[h["loss"]])
 
-This package holds the ported slices so far: BERT encoder serving.
+This package holds the ported slices so far: BERT encoder serving and
+BERT masked-LM pretraining (fp32).
 """
 
-from . import inference, initializer, io, layers, models, param_attr
+from . import inference, initializer, io, layers, models, optimizer, param_attr
+from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor
 from .framework import (
     Program,

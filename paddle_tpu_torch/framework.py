@@ -28,6 +28,8 @@ __all__ = [
     "program_guard",
     "unique_name",
     "convert_dtype",
+    "is_float_dtype",
+    "grad_var_name",
     "core_op_role",
     "op_reads",
     "block_external_reads",
@@ -79,10 +81,26 @@ def convert_dtype(dtype) -> str:
     raise ValueError(f"unsupported dtype: {dtype!r}")
 
 
+FLOAT_DTYPES = ("float16", "bfloat16", "float32", "float64")
+
+
+def is_float_dtype(dtype) -> bool:
+    return convert_dtype(dtype) in FLOAT_DTYPES
+
+
 class core_op_role:
     Forward = 0
     Backward = 1
     Optimize = 2
+    LRSched = 16
+    Loss = 256
+
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +207,8 @@ class Parameter(Variable):
 
     def __init__(self, block, name, shape, dtype="float32", **kwargs):
         self.trainable = kwargs.pop("trainable", True)
+        # weight decay is a later slice (optimizer.apply_gradients raises)
+        self.regularizer = kwargs.pop("regularizer", None)
         kwargs.pop("persistable", None)
         super().__init__(
             block, name, shape=shape, dtype=dtype, persistable=True, **kwargs
@@ -360,6 +380,12 @@ class Block:
             raise KeyError(f"variable {name!r} not found in block {self.idx}")
         return v
 
+    def has_var_local(self, name) -> bool:
+        return name in self.vars
+
+    def all_parameters(self):
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def _find_var_recursive(self, name):
         blk = self
         while True:
@@ -400,6 +426,7 @@ class Program:
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
+        self._version = 0  # bumped by every mutation of the op list
         # PartitionSpec-style annotations (tuples of axis names) recorded
         # by models/bert.py; nothing reads them until a sharded slice
         self._sharding_specs: dict[str, tuple] = {}
@@ -418,6 +445,12 @@ class Program:
         for blk in self.blocks:
             yield from blk.vars.values()
 
+    def all_parameters(self):
+        return self.global_block().all_parameters()
+
+    def bump_version(self):
+        self._version += 1
+
     def clone(self, for_test: bool = False) -> "Program":
         """Deep copy. With for_test=True, backward/optimize ops are dropped
         and every op carrying an `is_test` attr gets it set."""
@@ -425,6 +458,7 @@ class Program:
         p.blocks = []
         p.current_block_idx = 0
         p.random_seed = self.random_seed
+        p._version = 0
         p._sharding_specs = dict(self._sharding_specs)
         p._amp_dtype = self._amp_dtype
         for blk in self.blocks:
@@ -496,6 +530,7 @@ class Program:
         p.blocks = []
         p.current_block_idx = 0
         p.random_seed = d.get("random_seed", 0)
+        p._version = 0
         p._sharding_specs = {}
         p._amp_dtype = d.get("amp_dtype")
         for bd in d["blocks"]:

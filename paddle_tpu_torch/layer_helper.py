@@ -45,7 +45,8 @@ class LayerHelper:
         initializer = attr.initializer or default_initializer
         name = attr.name or unique_name.generate(f"{self.prefix}.w")
         param = self.block.create_parameter(
-            name, shape, dtype=dtype, trainable=attr.trainable)
+            name, shape, dtype=dtype, trainable=attr.trainable,
+            regularizer=attr.regularizer)
         # mirrored in the startup program, with the op that fills it
         startup_block = self.startup_program.global_block()
         sp = startup_block.create_parameter(
@@ -61,13 +62,37 @@ class LayerHelper:
             stop_gradient=stop_gradient,
         )
 
+    def create_global_variable(self, shape, dtype, persistable=False, name=None,
+                               stop_gradient=True):
+        return self.main_program.global_block().create_var(
+            name=name or unique_name.generate(f"{self.prefix}.global"),
+            shape=shape,
+            dtype=dtype,
+            persistable=persistable,
+            stop_gradient=stop_gradient,
+        )
+
+    def create_or_get_global_variable(self, name, shape, dtype):
+        """Persistable non-parameter state (optimizer accumulators),
+        declared in both the main and the startup program."""
+        gb = self.main_program.global_block()
+        if name in gb.vars:
+            return gb.vars[name]
+        v = gb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
+                          stop_gradient=True)
+        self.startup_program.global_block().create_var(
+            name=name, shape=shape, dtype=dtype, persistable=True, stop_gradient=True)
+        return v
+
     def append_op(self, **kwargs):
-        return self.block.append_op(
+        op = self.block.append_op(
             kwargs["type"],
             kwargs.get("inputs"),
             kwargs.get("outputs"),
             kwargs.get("attrs"),
         )
+        self.main_program.bump_version()
+        return op
 
     def append_activation(self, input_var, act=None):
         act = act if act is not None else self.kwargs.get("act")

@@ -1,6 +1,6 @@
-"""The neural-net layers the BERT serving slice builds with. Each emits the
-same op types, slots and attrs as its `paddle_tpu/layers/nn.py`
-counterpart, so the two packages build identical Programs."""
+"""The neural-net layers the BERT slices build with. Each emits the same
+op types, slots and attrs as its `paddle_tpu/layers/nn.py` counterpart,
+so the two packages build identical Programs."""
 
 from __future__ import annotations
 
@@ -18,6 +18,15 @@ __all__ = [
     "scale",
     "fused_multihead_attention",
     "reshape",
+    "dropout",
+    "softmax_with_cross_entropy",
+    "matmul",
+    "gather",
+    "cumsum",
+    "reduce_sum",
+    "elementwise_sub",
+    "elementwise_mul",
+    "elementwise_div",
 ]
 
 
@@ -117,13 +126,23 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1, epsilon=1e-5,
     return helper.append_activation(out)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name, act=act)
-    out = _single_out(
-        helper, "elementwise_add", {"X": [x], "Y": [y]}, {"axis": axis},
-        shape=_elementwise_out_shape(x.shape, y.shape),
-    )
-    return helper.append_activation(out, act)
+def _ew_layer(op_type):
+    def f(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = _single_out(
+            helper, op_type, {"X": [x], "Y": [y]}, {"axis": axis},
+            shape=_elementwise_out_shape(x.shape, y.shape),
+        )
+        return helper.append_activation(out, act)
+
+    f.__name__ = op_type
+    return f
+
+
+elementwise_add = _ew_layer("elementwise_add")
+elementwise_sub = _ew_layer("elementwise_sub")
+elementwise_mul = _ew_layer("elementwise_mul")
+elementwise_div = _ew_layer("elementwise_div")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -188,3 +207,83 @@ def reshape(x, shape, act=None, name=None):
     )
     return helper.append_activation(out, act)
 
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype, x.shape)
+    mask = helper.create_variable_for_type_inference("uint8", x.shape, stop_gradient=True)
+    helper.append_op(
+        type="dropout",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={
+            "dropout_prob": dropout_prob,
+            "is_test": is_test,
+            "seed": seed if seed is not None else 0,
+            "dropout_implementation": dropout_implementation,
+        },
+    )
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, ignore_index=-100,
+                               numeric_stable_mode=True, return_softmax=False, axis=-1):
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(logits.dtype, logits.shape)
+    loss = helper.create_variable_for_type_inference(
+        logits.dtype, tuple(logits.shape[:-1]) + (1,))
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index, "axis": axis},
+    )
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    xs, ys = list(x.shape), list(y.shape)
+    if transpose_x and len(xs) >= 2:
+        xs[-1], xs[-2] = xs[-2], xs[-1]
+    if transpose_y and len(ys) >= 2:
+        ys[-1], ys[-2] = ys[-2], ys[-1]
+    return _single_out(
+        helper, "matmul", {"X": [x], "Y": [y]},
+        {"transpose_X": transpose_x, "transpose_Y": transpose_y, "alpha": alpha},
+        shape=tuple(xs[:-1]) + (ys[-1],),
+    )
+
+
+def gather(input, index, overwrite=True):
+    helper = LayerHelper("gather")
+    return _single_out(helper, "gather", {"X": [input], "Index": [index]},
+                       shape=(index.shape[0],) + tuple(input.shape[1:]))
+
+
+def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
+    helper = LayerHelper("cumsum", name=name)
+    return _single_out(helper, "cumsum", {"X": [x]},
+                       {"axis": axis, "exclusive": exclusive, "reverse": reverse},
+                       shape=x.shape)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    reduce_all = dim is None
+    dims = [0] if dim is None else (dim if isinstance(dim, (list, tuple)) else [dim])
+    if input.shape is None or reduce_all:
+        # a full reduce gives [1] (fluid convention), or all ones with keep_dim
+        shape = ((1,) * len(input.shape) or (1,)) if keep_dim and input.shape is not None \
+            else (1,)
+    else:
+        axes = {d % len(input.shape) for d in dims}
+        shape = tuple((1 if i in axes else s) for i, s in enumerate(input.shape)
+                      if keep_dim or i not in axes) or (1,)
+    return _single_out(helper, "reduce_sum", {"X": [input]},
+                       {"dim": dims, "keep_dim": keep_dim, "reduce_all": reduce_all},
+                       shape=shape)

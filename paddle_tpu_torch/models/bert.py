@@ -1,6 +1,7 @@
-"""BERT encoder, built through the port's layers exactly as
-`paddle_tpu/models/bert.py` builds it with its defaults (separate q/k/v
-projections, one fused attention op in the bshd layout), so both packages
+"""BERT encoder and masked-LM pretraining head, built through the port's
+layers exactly as `paddle_tpu/models/bert.py` builds them with its
+defaults (separate q/k/v projections, one fused attention op in the bshd
+layout, the MLM projection tied to the word embedding), so both packages
 emit the same Program op for op. The tensor-parallel PartitionSpec
 annotations of the JAX model are recorded on the Program
 (`_sharding_specs`, as tuples of axis names) and read by nothing yet:
@@ -13,9 +14,10 @@ import math
 from .. import layers
 from ..framework import default_main_program
 from ..initializer import Constant, TruncatedNormal
+from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 
-__all__ = ["BertConfig", "bert_encoder"]
+__all__ = ["BertConfig", "bert_encoder", "build_bert_pretrain", "bert_flops_per_token"]
 
 
 class BertConfig:
@@ -104,8 +106,15 @@ def _attention(x, attn_bias, cfg, name, is_test):
     return _fc(merged, cfg.hidden_size, name + ".out", cfg, tp_spec=("tp", None))
 
 
+def _dropout(x, cfg, is_test):
+    if cfg.hidden_dropout and not is_test:
+        x = layers.dropout(x, cfg.hidden_dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    return x
+
+
 def _encoder_layer(x, attn_bias, cfg, name, is_test):
-    attn = _attention(x, attn_bias, cfg, name + ".attn", is_test)
+    attn = _dropout(_attention(x, attn_bias, cfg, name + ".attn", is_test), cfg, is_test)
     x = layers.layer_norm(
         layers.elementwise_add(x, attn), begin_norm_axis=2,
         name=name + ".ln1",
@@ -113,8 +122,8 @@ def _encoder_layer(x, attn_bias, cfg, name, is_test):
     ffn1 = _fc(x, cfg.intermediate_size, name + ".ffn1", cfg,
                act={"type": "gelu", "approximate": True},
                tp_spec=(None, "tp"), bias_tp=("tp",))
-    ffn2 = _fc(ffn1, cfg.hidden_size, name + ".ffn2", cfg,
-               tp_spec=("tp", None))
+    ffn2 = _dropout(_fc(ffn1, cfg.hidden_size, name + ".ffn2", cfg,
+                        tp_spec=("tp", None)), cfg, is_test)
     return layers.layer_norm(
         layers.elementwise_add(x, ffn2), begin_norm_axis=2,
         name=name + ".ln2",
@@ -123,22 +132,18 @@ def _encoder_layer(x, attn_bias, cfg, name, is_test):
 
 def bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
                  is_test=False):
-    """Final hidden states [b, s, h]. Training programs (is_test=False
-    with dropout on) need the dropout op, which comes with the training
-    slice."""
-    if not is_test and (cfg.hidden_dropout or cfg.attention_dropout):
-        raise NotImplementedError(
-            "bert_encoder with dropout (is_test=False) needs the dropout op "
-            "and attention dropout, which come with the training slice")
+    """Final hidden states [b, s, h]; with is_test=False, hidden and
+    attention dropout as the config sets them."""
     init = TruncatedNormal(0.0, cfg.initializer_range)
     x, attn_bias = _bert_embedding(
-        input_ids, segment_ids, position_ids, input_mask, cfg, init)
+        input_ids, segment_ids, position_ids, input_mask, cfg, is_test, init)
     for i in range(cfg.num_layers):
         x = _encoder_layer(x, attn_bias, cfg, f"bert.layer{i}", is_test)
     return x
 
 
-def _bert_embedding(input_ids, segment_ids, position_ids, input_mask, cfg, init):
+def _bert_embedding(input_ids, segment_ids, position_ids, input_mask, cfg, is_test,
+                    init):
     word_emb = layers.embedding(
         input_ids, (cfg.vocab_size, cfg.hidden_size),
         param_attr=ParamAttr(name="bert.word_emb", initializer=init),
@@ -154,9 +159,99 @@ def _bert_embedding(input_ids, segment_ids, position_ids, input_mask, cfg, init)
     emb = layers.elementwise_add(
         layers.elementwise_add(word_emb, pos_emb), seg_emb
     )
-    emb = layers.layer_norm(emb, begin_norm_axis=2, name="bert.emb_ln")
+    emb = _dropout(layers.layer_norm(emb, begin_norm_axis=2, name="bert.emb_ln"),
+                   cfg, is_test)
     # additive key bias from the [b, s] mask: (mask - 1) * 1e4, i.e. 0 keep
     # and -1e4 drop, taken by the fused attention op as [b, s] directly
     attn_bias = layers.scale(input_mask, scale=1e4, bias=-1.0,
                              bias_after_scale=False)
     return emb, attn_bias
+
+
+def tied_logits(x, table_name, vocab_size, bias_name):
+    """logits = x @ table^T + b with an existing embedding parameter as the
+    table: no separate [h, V] parameter or optimizer state."""
+    table = default_main_program().global_block().var(table_name)
+    logits = layers.matmul(x, table, transpose_y=True)
+    helper = LayerHelper(bias_name.replace(".", "_"))
+    bias = helper.create_parameter(ParamAttr(name=bias_name), [vocab_size],
+                                   dtype="float32", is_bias=True)
+    return layers.elementwise_add(logits, bias)
+
+
+def build_bert_pretrain(cfg, batch_size, seq_len, is_test=False, mlm_only=False,
+                        max_preds=None):
+    """Declares the feeds and the masked-LM pretraining loss -> a dict of
+    handles (feeds, hidden, logits, mlm_loss, loss). Ids are [b, s] int64,
+    the mask and weights float32. The head scores only the masked
+    positions: feed `mask_pos` [b, max_preds] int64 positions in [0, s)
+    per row and `mask_label` / `mask_weight` [b, max_preds]; the gather is
+    flat over [b*s, h], with row offsets from an exclusive cumsum of a
+    batch-sized ones column. The MLM projection is the word embedding,
+    transposed. The NSP head (mlm_only=False) and the head over every
+    position (max_preds=None) come with a later slice."""
+    if not mlm_only or not max_preds:
+        raise NotImplementedError(
+            "build_bert_pretrain takes mlm_only=True and max_preds so far: the NSP "
+            "head (slice, pooler, tanh, mean) and the MLM head over every position "
+            "come with the next slice of the port")
+    data = layers.data
+    input_ids = data("src_ids", [batch_size, seq_len], dtype="int64",
+                     append_batch_size=False)
+    segment_ids = data("sent_ids", [batch_size, seq_len], dtype="int64",
+                       append_batch_size=False)
+    position_ids = data("pos_ids", [batch_size, seq_len], dtype="int64",
+                        append_batch_size=False)
+    input_mask = data("input_mask", [batch_size, seq_len], dtype="float32",
+                      append_batch_size=False)
+    mlm_labels = data("mask_label", [batch_size, max_preds], dtype="int64",
+                      append_batch_size=False)
+    mlm_weights = data("mask_weight", [batch_size, max_preds], dtype="float32",
+                       append_batch_size=False)
+    mask_pos = data("mask_pos", [batch_size, max_preds], dtype="int64",
+                    append_batch_size=False)
+
+    hidden = bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
+                          is_test)
+    ones = layers.fill_constant_batch_size_like(mask_pos, shape=[-1, 1],
+                                                dtype="int64", value=1)
+    row_id = layers.cumsum(ones, axis=0, exclusive=True)  # [b, 1]
+    flat_pos = layers.reshape(mask_pos + row_id * seq_len, [batch_size * max_preds])
+    flat = layers.reshape(hidden, [batch_size * seq_len, cfg.hidden_size])
+    picked = layers.gather(flat, flat_pos)  # [b * P, h]
+    trans = _fc(picked, cfg.hidden_size, "mlm.trans", cfg,
+                act={"type": "gelu", "approximate": True}, num_flatten_dims=1)
+    trans = layers.layer_norm(trans, begin_norm_axis=1, name="mlm.ln")
+    logits = tied_logits(trans, "bert.word_emb", cfg.vocab_size, "mlm.out_b")
+    labels = layers.reshape(mlm_labels, [batch_size * max_preds, 1])
+    per_tok = layers.softmax_with_cross_entropy(logits, labels)
+    w = layers.reshape(mlm_weights, [batch_size * max_preds, 1])
+    masked = layers.elementwise_mul(per_tok, w)
+    denom = layers.reduce_sum(w)
+    mlm_loss = layers.elementwise_div(
+        layers.reduce_sum(masked),
+        layers.elementwise_add(denom, layers.fill_constant([1], "float32", 1e-6)),
+    )
+    return {
+        "feeds": ["src_ids", "sent_ids", "pos_ids", "input_mask", "mask_label",
+                  "mask_weight", "mask_pos"],
+        "hidden": hidden,
+        "logits": logits,
+        "mlm_loss": mlm_loss,
+        "loss": mlm_loss,
+    }
+
+
+def bert_flops_per_token(cfg, seq_len=None, max_preds=None) -> float:
+    """Approximate training FLOPs per token, as the JAX package counts
+    them: 3x the forward's 2 * params mult-adds, plus QK^T and PV per token
+    when seq_len is given, and the vocab projection on max_preds / seq_len
+    of the tokens with masked positions."""
+    h, nl, ff, v = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size, cfg.vocab_size
+    per_layer = 2 * (4 * h * h + 2 * h * ff)
+    if seq_len:
+        per_layer += 2 * 2 * seq_len * h
+    embed_out = 2 * h * v
+    if max_preds and seq_len:
+        embed_out = embed_out * max_preds / seq_len
+    return 3.0 * (nl * per_layer + embed_out)

@@ -1,22 +1,63 @@
-"""The `fused_multihead_attention` lowering.
+"""The `fused_multihead_attention` lowering, forward and training.
 
 Where the JAX op chooses among the Pallas short kernel, the Pallas flash
 kernel and plain XLA by TPU-measured cutovers, this lowering has two
-paths and no third: the short kernel whenever sq, sk <= 512 (BERT's
-shapes), the flash kernel otherwise. Each kernel's wrapper runs its plain
-version for a CPU tensor and launches the CUDA kernel for a CUDA tensor.
+paths and no third: the short kernels whenever sq, sk <= 512 (BERT's
+shapes), the flash kernels otherwise. Each path is a
+`torch.autograd.Function` over its kernel pair: the forward launches the
+forward kernel and saves (q, k, v, bias, out, lse); the backward computes
+delta = rowsum(dO * O) in plain torch and launches the backward kernel.
+Each wrapper runs its plain version for a CPU tensor and launches the
+CUDA kernel for a CUDA tensor. Attention dropout draws its int32 seed
+from the threefry key of the op's output name, as the JAX op does
+(mha_short.py:567-570, flash_attention.py:634-636), so both packages
+drop the same pairs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels.flash_attention import flash_attention
-from .kernels.mha_short import short_attention, short_attention_viable
+from . import prng
+from .kernels.flash_attention import attention_delta, flash_attention, flash_attention_bwd
+from .kernels.mha_short import short_attention, short_attention_bwd, short_attention_viable
 from .registry import register_op
 
+_INT32_MAX = 2**31 - 1
 
-@register_op("fused_multihead_attention")
+
+def _kernel_pair_fn(fwd, bwd, name):
+    """A torch.autograd.Function whose forward is `fwd` and whose backward
+    is `bwd`; it returns no grad for the bias or the seed."""
+
+    class _Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
+            out, lse = fwd(q, k, v, bias=bias, causal=causal, sm_scale=sm_scale,
+                           dropout=dropout, seed=seed, layout=layout)
+            ctx.save_for_backward(q, k, v, bias, out, lse)
+            ctx.args = (causal, sm_scale, dropout, seed, layout)
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, bias, out, lse = ctx.saved_tensors
+            causal, sm_scale, dropout, seed, layout = ctx.args
+            delta = attention_delta(out, dout, layout)
+            dq, dk, dv = bwd(q, k, v, bias, dout, lse, delta, causal=causal,
+                             sm_scale=sm_scale, dropout=dropout, seed=seed,
+                             layout=layout)
+            return dq, dk, dv, None, None, None, None, None, None
+
+    _Attention.__name__ = _Attention.__qualname__ = name
+    return _Attention
+
+
+ShortAttention = _kernel_pair_fn(short_attention, short_attention_bwd, "ShortAttention")
+FlashAttention = _kernel_pair_fn(flash_attention, flash_attention_bwd, "FlashAttention")
+
+
+@register_op("fused_multihead_attention", no_grad_inputs=("KeyBias",))
 def _fused_mha(ctx, op):
     """Q/K/V: [b, nh, s, dh] (layout "bhsd") or [b, s, nh, dh] ("bshd");
     optional KeyBias: [b, sk] additive. Out matches the input layout."""
@@ -26,23 +67,16 @@ def _fused_mha(ctx, op):
     bias = ctx.in_(op, "KeyBias")
     causal = bool(op.attr("causal", False))
     dropout = float(op.attr("attn_dropout", 0.0))
-    is_test = op.attr("is_test", False)
+    if op.attr("is_test", False) or ctx.is_test:
+        dropout = 0.0
     sm_scale = op.attr("sm_scale", 0.0) or None
     layout = op.attr("layout", "bhsd") or "bhsd"
-    if is_test:
-        dropout = 0.0
+    seed = 0
     if dropout > 0.0:
-        raise NotImplementedError(
-            "fused_multihead_attention with attention dropout in training "
-            "comes with the training slice: its seed derives from the JAX "
-            "package's threefry key, which needs RNG parity")
+        seed = prng.randint(ctx.rng_for(op.output("Out")[0]), 1, 0, _INT32_MAX)[0]
     if bias is not None:
-        bias = bias.to(torch.float32).contiguous()
+        bias = bias.detach().to(torch.float32).contiguous()
     seq_axis = 1 if layout == "bshd" else 2
-    if short_attention_viable(q.shape[seq_axis], k.shape[seq_axis]):
-        out, _ = short_attention(q, k, v, bias=bias, causal=causal,
-                                 sm_scale=sm_scale, layout=layout)
-    else:
-        out, _ = flash_attention(q, k, v, bias=bias, causal=causal,
-                                 sm_scale=sm_scale, layout=layout)
-    ctx.out(op, "Out", out)
+    fn = (ShortAttention if short_attention_viable(q.shape[seq_axis], k.shape[seq_axis])
+          else FlashAttention)
+    ctx.out(op, "Out", fn.apply(q, k, v, bias, causal, sm_scale, dropout, seed, layout))

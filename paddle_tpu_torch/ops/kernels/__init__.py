@@ -8,7 +8,10 @@ version instead; given a CUDA tensor it launches the kernel or raises."""
 
 LAUNCHES = {
     "mha_short_fwd": 0,
+    "mha_short_bwd": 0,
     "flash_fwd": 0,
+    "flash_bwd": 0,
+    "layer_norm_bwd": 0,
 }
 
 

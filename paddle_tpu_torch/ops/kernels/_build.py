@@ -25,7 +25,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 # library name -> its source in csrc/
 SOURCES = {
     "mha_short_fwd": "mha_short_fwd.cu",
+    "mha_short_bwd": "mha_short_bwd.cu",
     "flash_fwd": "flash_fwd.cu",
+    "flash_bwd": "flash_bwd.cu",
+    "layer_norm_bwd": "layer_norm_bwd.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,15 +1,18 @@
-"""Attention forward over any sequence length: the wrapper of the blocked
-online-softmax CUDA kernel (csrc/flash_fwd.cu), its plain PyTorch version,
-and the launch plumbing both attention kernels share.
+"""Attention over any sequence length: the wrappers of the blocked
+online-softmax CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu), their
+plain PyTorch versions, and the launch plumbing the short and flash
+kernels share.
 
-Counterpart of `paddle_tpu/ops/pallas/flash_attention.py` (forward only;
-the backward kernels come with the training slice). Semantics: q
+Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Semantics: q
 [b, h, sq, d] (layout "bhsd") or [b, sq, h, d] ("bshd"), k / v likewise
 with sk, an optional additive [b, sk] float32 key bias, a bottom-right
 aligned causal mask (offset sk - sq), and dropout from the murmur hash of
 the global (batch*head, query, key) coordinates and an int32 seed — the
-same mask, bit for bit, as the Pallas kernels draw. Every function
+same mask, bit for bit, as the Pallas kernels draw. Every forward
 returns (out, lse): out in q's layout and dtype, lse [b, h, sq] float32.
+Every backward takes the forward's lse and delta = rowsum(dO * O)
+[b, h, sq] float32 and returns (dq, dk, dv) in the layout and dtypes of
+q, k, v.
 """
 
 from __future__ import annotations
@@ -28,21 +31,36 @@ MAX_HEAD_DIM = 128
 
 __all__ = [
     "NEG_INF",
+    "mul32",
+    "murmur_mix",
     "dropout_keep_mask",
     "attention_plain",
     "flash_attention_plain",
     "flash_attention",
+    "attention_bwd_plain",
+    "flash_attention_bwd_plain",
+    "flash_attention_bwd",
+    "attention_delta",
 ]
 
 _M32 = 0xFFFFFFFF
 
 
-def _mul32(x, c):
+def mul32(x, c):
     """(x * c) mod 2**32 for int64 tensors x < 2**32, without overflowing
     int64: split x into 16-bit halves."""
     lo = x & 0xFFFF
     hi = x >> 16
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & _M32
+
+
+def murmur_mix(x):
+    """The murmur3 finalizer on uint32 values held in an int64 tensor."""
+    x = x ^ (x >> 16)
+    x = mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = mul32(x, 0xC2B2AE35)
+    return x ^ (x >> 16)
 
 
 def dropout_keep_mask(seed, b, h, sq, sk, rate, device):
@@ -52,14 +70,9 @@ def dropout_keep_mask(seed, b, h, sq, sk, rate, device):
     bh = ar(b * h).view(b, h, 1, 1)
     qi = ar(sq).view(1, 1, sq, 1)
     ki = ar(sk).view(1, 1, 1, sk)
-    x = (_mul32(qi, 0x9E3779B1) ^ _mul32(ki, 0x85EBCA6B)
-         ^ ((int(seed) + _mul32(bh, 0xC2B2AE35)) & _M32))
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    x = x ^ (x >> 16)
-    return x >= _dropout_thresh(rate)
+    x = (mul32(qi, 0x9E3779B1) ^ mul32(ki, 0x85EBCA6B)
+         ^ ((int(seed) + mul32(bh, 0xC2B2AE35)) & _M32))
+    return murmur_mix(x) >= _dropout_thresh(rate)
 
 
 def _dropout_thresh(rate):
@@ -117,6 +130,52 @@ def attention_plain(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0
     return out.contiguous(), lse
 
 
+def attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=None,
+                        dropout=0.0, seed=0, layout="bhsd", div=True):
+    """The plain PyTorch backward both backward kernels are held against,
+    in float64 inside: p = exp(s - lse), dp = dO V^T, dropout on both with
+    the forward's mask, dV = (p_drop as dO's dtype)^T dO,
+    dS = (p (dp - delta) scale as q's dtype), dQ = dS K, dK = dS^T Q.
+    `div` selects the flash kernel's p / (1 - rate); without it kept
+    values are scaled by p * (1 / (1 - rate)), the short kernel's."""
+    b, h, sq, sk, d = _dims(q, k, layout)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if layout == "bshd":
+        q, k, v, dout = (t.permute(0, 2, 1, 3) for t in (q, k, v, dout))
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) * sm_scale
+    if bias is not None:
+        s = s + bias.double()[:, None, None, :]
+    if causal:
+        live = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(sk - sq)
+        s = s.masked_fill(~live, NEG_INF)
+    p = torch.exp(s - lse.double()[..., None])
+    dp = torch.matmul(dout.double(), v.double().transpose(-1, -2))
+    p_drop = p
+    if dropout > 0.0:
+        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device)
+        zero = torch.zeros((), dtype=p.dtype, device=p.device)
+        scaled = (lambda x: x / (1.0 - dropout)) if div else (
+            lambda x: x * (1.0 / (1.0 - dropout)))
+        p_drop = torch.where(keep, scaled(p), zero)
+        dp = torch.where(keep, scaled(dp), zero)
+    dv = torch.matmul(p_drop.to(dout.dtype).double().transpose(-1, -2), dout.double())
+    ds = (p * (dp - delta.double()[..., None]) * sm_scale).to(q.dtype).double()
+    dq = torch.matmul(ds, k.double())
+    dk = torch.matmul(ds.transpose(-1, -2), q.double())
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if layout == "bshd":
+        grads = tuple(g.permute(0, 2, 1, 3) for g in grads)
+    return tuple(g.contiguous() for g in grads)
+
+
+def attention_delta(out, dout, layout):
+    """delta = rowsum(dO * O) as [b, h, sq] float32, computed outside the
+    kernels as the JAX package computes it (mha_short.py:505-507)."""
+    delta = (out.float() * dout.float()).sum(-1)
+    return (delta.transpose(1, 2) if layout == "bshd" else delta).contiguous()
+
+
 def flash_attention_plain(q, k, v, bias=None, causal=False, sm_scale=None,
                           dropout=0.0, seed=0, layout="bhsd"):
     """Plain version of csrc/flash_fwd.cu (the JAX package's
@@ -142,13 +201,12 @@ def _kernel_fn(name):
     return fn
 
 
-def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
-    """Check the inputs, allocate out / lse and launch the CUDA kernel
-    `name` (mha_short_fwd or flash_fwd) on the current stream. Raises on
-    what the kernel does not take and on a failed launch."""
+def _check_inputs(name, q, k, v, bias, dropout, layout, more=()):
+    """Raise on what the CUDA kernel `name` does not take (`more`: further
+    tensors that must share q's device) -> (b, h, sq, sk, d)."""
     b, h, sq, sk, d = _dims(q, k, layout)
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError(f"{name}: q, k, v must be CUDA tensors on one device")
+    if not (q.is_cuda and all(t.device == q.device for t in (k, v, *more))):
+        raise ValueError(f"{name}: every tensor must be a CUDA tensor on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{name}: q, k, v must share dtype float32 or bfloat16, "
@@ -160,15 +218,26 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
         raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} is not supported")
     if not 0.0 <= dropout < 1.0:
         raise ValueError(f"{name}: dropout rate {dropout} is not in [0, 1)")
-    # kept values: the short kernel multiplies by 1/(1-p) and the flash
-    # kernel divides by 1-p, each as its Pallas counterpart does
-    drop_scale = 1.0 / (1.0 - dropout) if name == "mha_short_fwd" else 1.0 - dropout
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the head dim of q, k, v must be contiguous")
     if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (b, sk)
                              or not bias.is_contiguous() or bias.device != q.device):
         raise ValueError(f"{name}: bias must be a contiguous float32 [{b}, {sk}] "
                          "tensor on q's device")
+    return b, h, sq, sk, d
+
+
+def _drop_scale(name, dropout):
+    """Kept values: the short kernels multiply by 1/(1-p) and the flash
+    kernels divide by 1-p, each as its Pallas counterpart does."""
+    return 1.0 / (1.0 - dropout) if name.startswith("mha_short") else 1.0 - dropout
+
+
+def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
+    """Check the inputs, allocate out / lse and launch the CUDA kernel
+    `name` (mha_short_fwd or flash_fwd) on the current stream. Raises on
+    what the kernel does not take and on a failed launch."""
+    b, h, sq, sk, d = _check_inputs(name, q, k, v, bias, dropout, layout)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
@@ -182,13 +251,83 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
                 None if bias is None else bias.data_ptr(),
                 out.data_ptr(), lse.data_ptr(), int(q.dtype == torch.bfloat16),
                 b, h, sq, sk, d, strides, float(sm_scale), int(bool(causal)),
-                int(dropout > 0.0), float(drop_scale),
+                int(dropout > 0.0), float(_drop_scale(name, dropout)),
                 _dropout_thresh(dropout) if dropout > 0.0 else 0,
                 int(seed) & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
     return out, lse
+
+
+@functools.cache
+def _bwd_kernel_fn(name):
+    """The C entry point of backward library `name`, typed for ctypes."""
+    fn = getattr(load(name), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
+                      ctypes.c_uint, ctypes.c_void_p])
+    return fn
+
+
+def launch_attention_bwd(name, q, k, v, bias, dout, lse, delta, causal, sm_scale,
+                         dropout, seed, layout):
+    """Check the inputs, allocate dq / dk / dv and launch the backward
+    kernels `name` (mha_short_bwd or flash_bwd: a dQ pass and a dK / dV
+    pass) on the current stream. Raises on what they do not take and on a
+    failed launch."""
+    b, h, sq, sk, d = _check_inputs(name, q, k, v, bias, dropout, layout,
+                                    more=(dout, lse, delta))
+    if dout.dtype != q.dtype or dout.shape != q.shape:
+        raise ValueError(f"{name}: dout must be {q.dtype} {tuple(q.shape)}")
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be a contiguous float32 [{b}, {h}, {sq}]")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 21)(*(
+        x for t in (q, k, v, dout, dq, dk, dv) for x in _bsh_strides(t, layout)))
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    with torch.cuda.device(q.device):
+        rc = _bwd_kernel_fn(name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16), b, h, sq, sk, d, strides,
+            float(sm_scale), int(bool(causal)), int(dropout > 0.0),
+            float(_drop_scale(name, dropout)),
+            _dropout_thresh(dropout) if dropout > 0.0 else 0, int(seed) & 0xFFFFFFFF,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False,
+                              sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+    """Plain version of csrc/flash_bwd.cu."""
+    return attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal, sm_scale,
+                               dropout, seed, layout, div=True)
+
+
+def flash_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=None,
+                        dropout=0.0, seed=0, layout="bhsd"):
+    """Attention backward, any sequence length -> (dq, dk, dv). A CPU
+    tensor runs the plain version; a CUDA tensor launches
+    csrc/flash_bwd.cu."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal,
+                                         sm_scale, dropout, seed, layout)
+    return launch_attention_bwd("flash_bwd", q, k, v, bias, dout, lse, delta, causal,
+                                sm_scale, dropout, seed, layout)
 
 
 def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0,

@@ -1,6 +1,8 @@
-"""Elementwise / activation / matmul op lowerings of the serving slice:
-elementwise_add (fluid axis broadcast), scale, mul and gelu. The large
-`mul` products stay `torch.matmul`, as the JAX package leaves them to XLA."""
+"""Elementwise, activation, matmul, reduction and scan op lowerings:
+elementwise_add / sub / mul / div (fluid axis broadcast) with the linear
+grad op of add and sub, scale, mul, matmul, gelu, sum, reduce_sum and
+cumsum. The large `mul` / `matmul` products stay `torch.matmul`, as the
+JAX package leaves them to XLA."""
 
 from __future__ import annotations
 
@@ -22,14 +24,87 @@ def _broadcast_y(x, y, axis):
     return y.reshape(shape)
 
 
-@register_op("elementwise_add")
-def _elementwise_add(ctx, op):
-    x = ctx.in_(op, "X")
-    y = ctx.in_(op, "Y")
-    # Out takes X's dtype (elementwise_op.h convention)
-    if x.dtype != y.dtype and x.is_floating_point() and y.is_floating_point():
-        y = y.to(x.dtype)
-    ctx.out(op, "Out", x + _broadcast_y(x, y, op.attr("axis", -1)))
+def _ew(fn):
+    def lower(ctx, op):
+        x = ctx.in_(op, "X")
+        y = ctx.in_(op, "Y")
+        # Out takes X's dtype (elementwise_op.h convention)
+        if x.dtype != y.dtype and x.is_floating_point() and y.is_floating_point():
+            y = y.to(x.dtype)
+        out = fn(x, _broadcast_y(x, y, op.attr("axis", -1)))
+        scale = op.attr("Scale_out", 1.0)
+        if scale != 1.0:
+            out = out * scale
+        ctx.out(op, "Out", out)
+
+    return lower
+
+
+def _ew_linear_grad_maker(op_type):
+    """elementwise_add / _sub get their own grad op, as in the JAX package
+    (math_ops.py:67-93): the bias-grad reduce over Y's broadcast dims."""
+
+    def maker(op, grad_out_names, block, helpers):
+        if grad_out_names.get("Out", [None])[0] is None:
+            return None
+        return [{
+            "type": op_type + "_grad",
+            "inputs": {
+                "X": op.input("X"),
+                "Y": op.input("Y"),
+                "GRAD_Out": [grad_out_names["Out"][0]],
+            },
+            "outputs": {
+                "IGRAD_X": [helpers.grad_name(op.input("X")[0])],
+                "IGRAD_Y": [helpers.grad_name(op.input("Y")[0])],
+            },
+            "attrs": {
+                "axis": op.attr("axis", -1),
+                "Scale_out": op.attr("Scale_out", 1.0),
+            },
+        }]
+
+    return maker
+
+
+def _reduce_to_y(d, x, y, axis):
+    """The full-shape cotangent `d` summed down to y's shape under the
+    broadcast convention, accumulated in float32 (the caller casts)."""
+    if tuple(y.shape) == tuple(d.shape):
+        return d
+    yb_shape = _broadcast_y(x, y, axis).shape
+    red = tuple(i for i, yb in enumerate(yb_shape) if yb == 1 and d.shape[i] != 1)
+    out = d.float().sum(dim=red, keepdim=True) if red else d.float()
+    return out.reshape(y.shape)
+
+
+def _ew_add_sub_grad(sign):
+    def lower(ctx, op):
+        d = ctx.in_(op, "GRAD_Out")
+        x = ctx.in_(op, "X")
+        y = ctx.in_(op, "Y")
+        scale = op.attr("Scale_out", 1.0)
+        if scale != 1.0:
+            d = d * scale
+        ctx.out(op, "IGRAD_X", d.to(x.dtype))
+        dy = _reduce_to_y(d, x, y, op.attr("axis", -1))
+        ctx.out(op, "IGRAD_Y", (dy if sign > 0 else -dy).to(y.dtype))
+
+    return lower
+
+
+register_op("elementwise_add_grad", differentiable=False)(_ew_add_sub_grad(1))
+register_op("elementwise_sub_grad", differentiable=False)(_ew_add_sub_grad(-1))
+for _name, _fn in {
+    "elementwise_add": torch.add,
+    "elementwise_sub": torch.sub,
+    "elementwise_mul": torch.mul,
+    "elementwise_div": torch.div,
+}.items():
+    if _name in ("elementwise_add", "elementwise_sub"):
+        register_op(_name, grad=_ew_linear_grad_maker(_name))(_ew(_fn))
+    else:
+        register_op(_name)(_ew(_fn))
 
 
 @register_op("scale")
@@ -59,8 +134,69 @@ def _mul(ctx, op):
     ctx.out(op, "Out", out.reshape(x_lead + tuple(y.shape[yn:])))
 
 
+@register_op("matmul")
+def _matmul(ctx, op):
+    """Fluid matmul: transpose flags, alpha and batch broadcasting."""
+    x = ctx.in_(op, "X")
+    y = ctx.in_(op, "Y")
+    if x.dim() == 1:
+        x = x[None, :]
+    if y.dim() == 1:
+        y = y[:, None]
+    if op.attr("transpose_X", False):
+        x = x.transpose(-1, -2)
+    if op.attr("transpose_Y", False):
+        y = y.transpose(-1, -2)
+    out = torch.matmul(x, y)
+    alpha = op.attr("alpha", 1.0)
+    if alpha != 1.0:
+        out = out * alpha
+    ctx.out(op, "Out", out)
+
+
 @register_op("gelu")
 def _gelu(ctx, op):
     x = ctx.in_(op, "X")
     approximate = "tanh" if op.attr("approximate", False) else "none"
     ctx.out(op, "Out", torch.nn.functional.gelu(x, approximate=approximate))
+
+
+@register_op("sum")
+def _sum(ctx, op):
+    """Multi-input accumulate: the @PARTIAL grads of one variable."""
+    xs = ctx.ins(op, "X")
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    ctx.out(op, "Out", out)
+
+
+@register_op("reduce_sum")
+def _reduce_sum(ctx, op):
+    x = ctx.in_(op, "X")
+    dims = op.attr("dim", [0])
+    keep = op.attr("keep_dim", False)
+    if op.attr("reduce_all", False) or dims is None:
+        out = x.sum()
+        out = out.reshape((1,) * x.dim() if keep else (1,))  # fluid: [1]
+    else:
+        dims = dims if isinstance(dims, (list, tuple)) else [dims]
+        out = x.sum(dim=tuple(d % x.dim() for d in dims), keepdim=keep)
+    ctx.out(op, "Out", out)
+
+
+@register_op("cumsum")
+def _cumsum(ctx, op):
+    x = ctx.in_(op, "X")
+    axis = op.attr("axis", -1)
+    if op.attr("flatten", False):
+        x, axis = x.reshape(-1), 0
+    axis %= x.dim()
+    reverse = op.attr("reverse", False)
+    src = x.flip(axis) if reverse else x
+    out = src.cumsum(axis)
+    if op.attr("exclusive", False):
+        # one step along the scan direction, a zero at its start
+        out = torch.cat([torch.zeros_like(out.narrow(axis, 0, 1)),
+                         out.narrow(axis, 0, x.shape[axis] - 1)], dim=axis)
+    ctx.out(op, "Out", out.flip(axis) if reverse else out)

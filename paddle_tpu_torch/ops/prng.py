@@ -1,0 +1,98 @@
+"""Threefry-2x32 keys in plain Python integers, bit for bit the keys of the
+JAX package.
+
+The JAX package draws every random number of a training step from
+`jax.random` keys (threefry2x32, with `jax_threefry_partitionable` on, the
+default of jax 0.9): the executor's per-run key
+`fold_in(key(random_seed or 42), counter + 1)` (paddle_tpu/executor.py:
+889-891), the per-variable key `fold_in(run_key, crc32(name) & 0x7fffffff)`
+(ops/registry.py:250), the dropout seed words `key_data(key)`
+(nn_ops.py:733) and the attention kernels' int32 seed
+`randint(key, (1,), 0, 2**31 - 1, int32)` (mha_short.py:567-570,
+flash_attention.py:634-636). The port reproduces those few scalars on the
+host, so its dropout masks equal the JAX package's. A key is a tuple of
+two uint32 ints; nothing here touches a device.
+"""
+
+from __future__ import annotations
+
+import zlib
+
+__all__ = ["key", "fold_in", "split", "random_bits", "key_data", "randint",
+           "name_key"]
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, d):
+    return ((x << d) | (x >> (32 - d))) & _M32
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 block (20 rounds) on one pair of counter words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def key(seed: int):
+    """jax.random.key(seed): with 64-bit mode off the seed is an int32,
+    split into (high word, low word) = (0 or sign, seed mod 2**32)."""
+    s = int(seed) & _M32
+    s = s - (1 << 32) if s >= 1 << 31 else s  # the int32 the seed becomes
+    return (0, s & _M32)
+
+
+def fold_in(k, data: int):
+    """jax.random.fold_in: threefry of the key over the counter (0, data)."""
+    return threefry2x32(k[0], k[1], 0, int(data) & _M32)
+
+
+def split(k, num: int = 2):
+    """jax.random.split, partitionable form: key i is threefry over (0, i)."""
+    return [threefry2x32(k[0], k[1], 0, i) for i in range(num)]
+
+
+def random_bits(k, n: int):
+    """n 32-bit words of jax.random.bits, partitionable form: word i is the
+    xor of the two threefry outputs over the counter (0, i)."""
+    return [a ^ b for a, b in (threefry2x32(k[0], k[1], 0, i) for i in range(n))]
+
+
+def key_data(k):
+    """jax.random.key_data: the two uint32 words of the key."""
+    return (k[0], k[1])
+
+
+def randint(k, n: int, minval: int, maxval: int):
+    """jax.random.randint(k, (n,), minval, maxval, int32) as Python ints:
+    higher and lower bits from the two halves of a split key, folded into
+    the span through the multiplier 2**32 mod span, all in uint32
+    arithmetic as jax does it."""
+    if not -(1 << 31) <= minval <= maxval <= (1 << 31) - 1:
+        raise ValueError("randint: bounds must be int32 with minval <= maxval")
+    k1, k2 = split(k, 2)
+    higher, lower = random_bits(k1, n), random_bits(k2, n)
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    multiplier = (1 << 16) % span
+    multiplier = ((multiplier * multiplier) & _M32) % span
+    out = []
+    for hi, lo in zip(higher, lower):
+        offset = ((((hi % span) * multiplier) & _M32) + lo % span) & _M32
+        v = (minval + offset % span) & _M32
+        out.append(v - (1 << 32) if v >= 1 << 31 else v)
+    return out
+
+
+def name_key(run_key, name: str):
+    """LoweringContext.rng_for: the run key folded with the crc32 of a
+    variable name, so a forward op and its grad op draw the same bits."""
+    return fold_in(run_key, zlib.crc32(name.encode()) & 0x7FFFFFFF)

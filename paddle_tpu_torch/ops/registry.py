@@ -3,8 +3,15 @@
 Each registered op provides a lowering: a function that reads torch
 tensors from the LoweringContext and writes its outputs back. The
 executor runs a Block by lowering its ops one after another, eagerly —
-where the JAX package traces the same walk into one XLA computation. The
-generic vjp grad op (`__auto_grad__`) comes with the training slice.
+where the JAX package traces the same walk into one XLA computation.
+
+Backward ops come from `backward.append_backward`: custom grad ops where
+the forward op's OpDef names a grad maker, and otherwise the generic
+`__auto_grad__` op. In the JAX package `__auto_grad__` re-lowers the
+forward inside `jax.vjp` and XLA CSE merges the two copies
+(paddle_tpu/ops/registry.py:341-465). Eager torch has no CSE, so here it
+pulls the cotangents through the autograd graph that the forward op
+itself recorded (`lower_forward_op`, `_auto_grad_lower`).
 """
 
 from __future__ import annotations
@@ -12,14 +19,17 @@ from __future__ import annotations
 import torch
 
 from ..framework import convert_dtype
+from . import prng
 
 __all__ = [
+    "OpDef",
     "register_op",
     "get_op",
     "LoweringContext",
     "TORCH_DTYPE",
     "lower_op",
     "lower_block",
+    "lower_forward_op",
 ]
 
 # int64 stays int64 (embedding lookups want long ids); float64 runs as
@@ -42,21 +52,41 @@ def TORCH_DTYPE(dtype) -> torch.dtype:
     return _TORCH_DTYPES[convert_dtype(dtype)]
 
 
-_OP_REGISTRY: dict[str, object] = {}
+class OpDef:
+    """A registered op: its lowering and what `append_backward` needs to
+    know about its gradient (the same fields as the JAX package's OpDef)."""
+
+    def __init__(self, type, lower, grad=None, no_grad_inputs=(),
+                 stateful_outputs=(), differentiable=True, name_attrs=()):
+        self.type = type
+        self.lower = lower
+        # grad: None -> __auto_grad__; callable -> custom grad maker
+        # returning op descs; differentiable=False -> no grad at all
+        self.grad = grad
+        self.no_grad_inputs = frozenset(no_grad_inputs)
+        # output slots that alias persistable state; never differentiated
+        self.stateful_outputs = frozenset(stateful_outputs)
+        self.differentiable = differentiable
+        # attrs whose values are variable names (dropout_grad's rng_name)
+        self.name_attrs = tuple(name_attrs)
 
 
-def register_op(type):
-    """Decorator: @register_op("relu") def _(ctx, op): ..."""
+_OP_REGISTRY: dict[str, OpDef] = {}
+
+
+def register_op(type, **kwargs):
+    """Decorator: @register_op("relu") def _(ctx, op): ...; keyword
+    arguments are OpDef's (grad, no_grad_inputs, differentiable, ...)."""
 
     def deco(fn):
-        _OP_REGISTRY[type] = fn
+        _OP_REGISTRY[type] = OpDef(type, fn, **kwargs)
         return fn
 
     return deco
 
 
-def get_op(type):
-    """The lowering function of op `type`."""
+def get_op(type) -> OpDef:
+    """The OpDef of op `type`."""
     if type not in _OP_REGISTRY:
         raise NotImplementedError(f"op {type!r} has no registered torch lowering")
     return _OP_REGISTRY[type]
@@ -64,14 +94,25 @@ def get_op(type):
 
 class LoweringContext:
     """Name -> tensor bindings while a Block runs, on one device.
-    `generator` is the torch.Generator that random ops without a seed of
-    their own draw from."""
 
-    def __init__(self, program=None, device=None, generator=None):
+    `generator` is the torch.Generator the startup program's initializers
+    draw from. `rng_key` is the run's threefry key (ops/prng.py), from
+    which dropout derives its masks exactly as the JAX package does.
+    `tape` maps each forward op that recorded a graph (by its outputs) to
+    the leaves its graph starts from; `recomputed` collects the op types
+    whose `__auto_grad__` had to re-run the forward because it had none."""
+
+    def __init__(self, program=None, device=None, generator=None, rng_key=None,
+                 is_test=False):
         self.program = program
         self.device = torch.device(device or "cpu")
         self.values: dict[str, torch.Tensor] = {}
         self.generator = generator
+        self.rng_key = rng_key
+        self._rng_counter = 0
+        self.is_test = is_test
+        self.tape: dict[tuple, dict[str, torch.Tensor]] = {}
+        self.recomputed: set[str] = set()
 
     def get(self, name):
         if name not in self.values:
@@ -81,21 +122,50 @@ class LoweringContext:
             )
         return self.values[name]
 
+    def has(self, name):
+        return name in self.values
+
     def in_(self, op, slot, idx=0, default=None):
         names = op.input(slot)
         if len(names) <= idx:
             return default
         return self.get(names[idx])
 
+    def ins(self, op, slot):
+        return [self.get(n) for n in op.input(slot)]
+
     def out(self, op, slot, value, idx=0):
         names = op.output(slot)
         if names:
             self.values[names[idx]] = value
 
+    def _key(self):
+        if self.rng_key is None:
+            raise RuntimeError(
+                "op requires randomness but no rng key threaded — executor bug")
+        return self.rng_key
+
+    def next_rng(self):
+        self._rng_counter += 1
+        return prng.fold_in(self._key(), self._rng_counter)
+
+    def rng_for(self, name):
+        """Key derived from a variable name, not the lowering order: a
+        forward op and its grad op see the identical key
+        (paddle_tpu/ops/registry.py:240-252)."""
+        return prng.name_key(self._key(), name)
+
+    def child(self):
+        sub = LoweringContext(self.program, self.device, self.generator,
+                              self.rng_key, self.is_test)
+        sub._rng_counter = self._rng_counter + 1000
+        sub.recomputed = self.recomputed
+        return sub
+
 
 def lower_op(ctx: LoweringContext, op):
     try:
-        get_op(op.type)(ctx, op)
+        get_op(op.type).lower(ctx, op)
     except Exception as e:
         # a failing lowering names the op and the user's layer call that
         # created it
@@ -114,3 +184,145 @@ def lower_op(ctx: LoweringContext, op):
 def lower_block(ctx: LoweringContext, block):
     for op in block.ops:
         lower_op(ctx, op)
+
+
+# ---------------------------------------------------------------------------
+# the generic grad op
+# ---------------------------------------------------------------------------
+#
+# append_backward (backward.py) emits for forward op F an op
+#   type:    "__auto_grad__"
+#   attrs:   fwd_type, fwd_inputs, fwd_outputs, fwd_attrs
+#   inputs:  F's inputs under their slots prefixed "FWD_", and the grads
+#            of F's outputs under "GRAD_<slot>" ("" marks a missing one)
+#   outputs: input grads under "IGRAD_<slot>"
+
+
+class _FwdOpView:
+    """Duck-typed Operator for re-running a forward lowering."""
+
+    def __init__(self, type, inputs, outputs, attrs):
+        self.type = type
+        self.inputs = inputs
+        self.outputs = outputs
+        self.attrs = attrs
+
+    def input(self, slot):
+        return self.inputs.get(slot, [])
+
+    def output(self, slot):
+        return self.outputs.get(slot, [])
+
+    def attr(self, name, default=None):
+        return self.attrs.get(name, default)
+
+    def input_arg_names(self):
+        return [n for ns in self.inputs.values() for n in ns]
+
+    def output_arg_names(self):
+        return [n for ns in self.outputs.values() for n in ns]
+
+
+def _is_float(v):
+    return isinstance(v, torch.Tensor) and v.is_floating_point()
+
+
+def _tape_key(outputs):
+    return tuple((slot, tuple(names)) for slot, names in outputs.items())
+
+
+def lower_forward_op(ctx: LoweringContext, op):
+    """Lower a forward op of a training step under enable_grad, with each
+    input that requires grad cut from the graph of the op that produced
+    it: the op reads a fresh detached leaf, and the tape keeps the leaves.
+    So the op's graph is its own, from its leaves to its outputs, and its
+    `__auto_grad__` computes exactly this op's vector-Jacobian product:
+    without the cut, `torch.autograd.grad` to a parameter would also
+    follow every earlier op's path to that parameter."""
+    leaves = {}
+    for n in op.input_arg_names():
+        t = ctx.values.get(n) if n else None
+        if n not in leaves and isinstance(t, torch.Tensor) and t.requires_grad:
+            leaves[n] = t.detach().requires_grad_(True)
+    produced = set(op.output_arg_names())
+    saved = {n: ctx.values[n] for n in leaves}
+    ctx.values.update(leaves)
+    try:
+        with torch.enable_grad():
+            lower_op(ctx, op)
+    finally:
+        for n, t in saved.items():
+            if n not in produced:
+                ctx.values[n] = t
+    if leaves:
+        ctx.tape[_tape_key(op.outputs)] = leaves
+
+
+@register_op("__auto_grad__", differentiable=False)
+def _auto_grad_lower(ctx, op):
+    """Input grads of one forward op by `torch.autograd.grad` from the
+    op's outputs (as bound in the context) to its differentiable inputs,
+    with the cotangents the op names. The executor ran the forward under
+    `torch.enable_grad()`, so the graph is the one the forward recorded:
+    nothing is computed twice. Each op's graph is its own (its inputs are
+    where the traversal stops), so no traversal shares a node with
+    another's and the graph needs no retaining. Outputs without a
+    cotangent contribute nothing; an input the graph does not reach gets
+    zeros. If the forward ran without a graph, this op re-runs that one
+    forward under enable_grad, as the JAX package re-lowers it."""
+    fwd_type = op.attr("fwd_type")
+    fwd_inputs = op.attr("fwd_inputs")
+    fwd_outputs = op.attr("fwd_outputs")
+    opdef = get_op(fwd_type)
+
+    diff_in = []
+    for slot, names in fwd_inputs.items():
+        gnames = op.outputs.get(f"IGRAD_{slot}", [])
+        for i, n in enumerate(names):
+            if (n and i < len(gnames) and gnames[i]
+                    and slot not in opdef.no_grad_inputs and _is_float(ctx.get(n))):
+                diff_in.append((slot, i, n))
+    out_order = [(slot, i, n) for slot, names in fwd_outputs.items()
+                 if slot not in opdef.stateful_outputs
+                 for i, n in enumerate(names) if n]
+
+    leaves = ctx.tape.get(_tape_key(fwd_outputs), {})
+    ins = [leaves.get(n) for _, _, n in diff_in]
+    outs = [ctx.get(n) for _, _, n in out_order]
+    if any(t is None for t in ins) or not any(
+            _is_float(t) and t.requires_grad for t in outs):
+        ins = [ctx.get(n).detach().requires_grad_(True) for _, _, n in diff_in]
+        sub = ctx.child()
+        for names in fwd_inputs.values():
+            for n in names:
+                if n:
+                    sub.values[n] = ctx.get(n)
+        for (_, _, n), t in zip(diff_in, ins):
+            sub.values[n] = t
+        with torch.enable_grad():
+            opdef.lower(sub, _FwdOpView(fwd_type, fwd_inputs, fwd_outputs,
+                                        dict(op.attr("fwd_attrs") or {})))
+        outs = [sub.get(n) for _, _, n in out_order]
+        ctx.recomputed.add(fwd_type)
+
+    ys, cts = [], []
+    for (slot, i, _), y in zip(out_order, outs):
+        gnames = op.inputs.get(f"GRAD_{slot}", [])
+        gname = gnames[i] if i < len(gnames) else ""
+        if gname and ctx.has(gname) and _is_float(y) and y.requires_grad:
+            ys.append(y)
+            cts.append(ctx.get(gname).to(y.dtype).reshape(y.shape))
+    # a name in two input slots (add(x, x)) is one tensor: its whole grad
+    # goes to the last slot and the others get zeros, as in the JAX
+    # package, where the last binding of the name wins inside jax.vjp
+    last = {n: k for k, (_, _, n) in enumerate(diff_in)}
+    uniq = sorted(last.values())
+    grads = [None] * len(uniq)
+    if ys and uniq:
+        grads = torch.autograd.grad(ys, [ins[k] for k in uniq], cts,
+                                    allow_unused=True)
+    by_pos = dict(zip(uniq, grads))
+    for k, ((slot, i, _), x) in enumerate(zip(diff_in, ins)):
+        g = by_pos.get(k)
+        ctx.values[op.outputs[f"IGRAD_{slot}"][i]] = (
+            torch.zeros_like(x) if g is None else g)

@@ -1,5 +1,6 @@
-"""Shape and creation op lowerings: reshape2, fill_constant and
-the random initializers of the startup program. Random ops draw from an
+"""Shape, creation and indexing op lowerings: reshape2, fill_constant,
+fill_constant_batch_size_like, assign, gather and the random
+initializers of the startup program. Random ops draw from an
 explicit torch.Generator on the context's device: their values differ
 from the JAX package's threefry streams, so parity tests carry weights
 across by name (io.set_persistables_from_numpy)."""
@@ -30,12 +31,38 @@ def _reshape2(ctx, op):
     ctx.out(op, "XShape", x.new_empty((0,) + tuple(x.shape)))
 
 
-@register_op("fill_constant")
+@register_op("fill_constant", differentiable=False)
 def _fill_constant(ctx, op):
     dtype = TORCH_DTYPE(op.attr("dtype", "float32"))
     ctx.out(op, "Out", torch.full(tuple(op.attr("shape", [1])),
                                   op.attr("value", 0.0), dtype=dtype,
                                   device=ctx.device))
+
+
+@register_op("fill_constant_batch_size_like", differentiable=False)
+def _fill_constant_bsl(ctx, op):
+    ref = ctx.in_(op, "Input")
+    shape = list(op.attr("shape"))
+    shape[op.attr("output_dim_idx", 0)] = ref.shape[op.attr("input_dim_idx", 0)]
+    ctx.out(op, "Out", torch.full(tuple(shape), op.attr("value", 0.0),
+                                  dtype=TORCH_DTYPE(op.attr("dtype", "float32")),
+                                  device=ctx.device))
+
+
+@register_op("assign")
+def _assign(ctx, op):
+    """An alias of X, not a copy: no lowering on the port's paths writes a
+    tensor in place, so the two names may share one."""
+    ctx.out(op, "Out", ctx.in_(op, "X"))
+
+
+@register_op("gather", no_grad_inputs=("Index",))
+def _gather(ctx, op):
+    x = ctx.in_(op, "X")
+    index = ctx.in_(op, "Index").long()
+    if index.dim() == 2 and index.shape[1] == 1:
+        index = index.squeeze(1)
+    ctx.out(op, "Out", torch.index_select(x, op.attr("overwrite_axis", 0), index))
 
 
 def _op_generator(ctx, op):
@@ -54,7 +81,7 @@ def _empty_f32(ctx, op):
                        device=ctx.device)
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", differentiable=False)
 def _uniform_random(ctx, op):
     out = _empty_f32(ctx, op).uniform_(
         op.attr("min", -1.0), op.attr("max", 1.0),
@@ -62,7 +89,7 @@ def _uniform_random(ctx, op):
     ctx.out(op, "Out", out.to(TORCH_DTYPE(op.attr("dtype", "float32"))))
 
 
-@register_op("gaussian_random")
+@register_op("gaussian_random", differentiable=False)
 def _gaussian_random(ctx, op):
     out = _empty_f32(ctx, op).normal_(
         op.attr("mean", 0.0), op.attr("std", 1.0),
@@ -70,7 +97,7 @@ def _gaussian_random(ctx, op):
     ctx.out(op, "Out", out.to(TORCH_DTYPE(op.attr("dtype", "float32"))))
 
 
-@register_op("truncated_gaussian_random")
+@register_op("truncated_gaussian_random", differentiable=False)
 def _truncated_gaussian_random(ctx, op):
     """mean + std * N(0, 1) truncated to [-2, 2], by inverse-CDF sampling."""
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))

@@ -32,6 +32,9 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.inference.server\n"
         "import paddle_tpu_torch.models.bert, paddle_tpu_torch.ops.fused_ops\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.backward\n"
+        "import paddle_tpu_torch.ops.prng, paddle_tpu_torch.ops.optimizer_ops\n"
+        "import paddle_tpu_torch.ops.kernels.layer_norm, paddle_tpu_torch.layers.tensor\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.'))))\n"
     )
