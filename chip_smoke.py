@@ -8,7 +8,8 @@
             through the fused_multihead_attention op); times from CUDA
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
-            aten native_layer_norm_backward)
+            aten native_layer_norm_backward; the fused-block kernels'
+            unfused torch twins)
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -23,12 +24,26 @@
 6. long     one fused_multihead_attention training step at s 2048 through
             append_backward: one flash forward and one flash backward
             launch, dQ / dK / dV within 1e-4 of the plain backward
-7. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+7. fused    the fused-block A/B (tools/fused_block_pallas.py's, ported):
+            at each ResNet-50 b256 bottleneck 1x1 shape in bf16, both
+            kernels against their plain versions, then each kernel's time
+            against its unfused torch twin's
+8. resnet   ResNet-50 training, b 128, 224x224, Momentum(0.1, 0.9), 5 steps
+            on one batch, in fp32 and under bf16 AMP (contrib.
+            mixed_precision.decorate), as the JAX package's bench_resnet
+            runs it: finite losses that fall; step time, images/s, TFLOP/s,
+            peak memory, one profiled step and the host time by op type.
+            Then ResNet-50 at b 2, 3 steps, each from the same state on the
+            card and on the CPU: losses and every persistable agree. Then
+            the trained fp32 program's clone(for_test=True), exported with
+            save_inference_model, served by AnalysisPredictor at b 8 on the
+            card and on the CPU. The ResNet path runs none of the kernels
+9. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
-Each main path (serve, train, long) runs with every launch count set to 0
-just before it and read just after; a kernel of the path that was not
-launched fails the run.
+Each main path (serve, train, long, fused, resnet) runs with every launch
+count set to 0 just before it and read just after; a kernel of the path
+that was not launched fails the run.
 
 A failed phase raises and the script exits non-zero without the last line.
 Run from the root of a checkout:
@@ -78,6 +93,21 @@ LR = 1e-4
 LOSS_RTOL = 1e-4
 PARAM_ATOL = 2 * LR * PARITY_STEPS
 CLOSE_ATOL, CLOSE_FRAC = 1e-5, 1e-3
+# ResNet-50 (bench.py:bench_resnet): batch, steps on one batch, optimizer
+RN_BATCH, RN_STEPS, RN_LR, RN_MOMENTUM = 128, 5, 0.1, 0.9
+RN_PARITY_BATCH, RN_SERVE_BATCH = 2, 8
+# ResNet-50 b 2 card vs CPU, each step from the same state. The losses
+# within a relative 1e-4; the batch norms' running means and variances
+# (forward statistics) within 5e-4 of each one's largest magnitude; each
+# parameter and velocity within 0.15 of its norm. At b 2 the first step's
+# grads are ill-conditioned in fp32: two CPU implementations of the same
+# step (the JAX package's and this port's, from one state) gave losses
+# within 6e-6 and running stats within 4.2e-5, but velocities apart by up
+# to 5.4% of their norm (26% of their largest element) and parameters by
+# 4.8%, from summation order alone
+RN_LOSS_RTOL, RN_STAT_RTOL, RN_GRAD_NRTOL = 1e-4, 5e-4, 0.15
+# card vs CPU softmax outputs of the served eval program
+RN_SERVE_ATOL = 1e-4
 
 
 def require(cond, msg):
@@ -139,6 +169,22 @@ def ln_bwd_bound_ms(n, k, dtype, peaks):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def fused_block_bound_ms(kernel, m, k, n, dtype, peaks):
+    """Least time for a fused-block kernel: max(its inputs read once and
+    its outputs written once over the memory rate, 2 M K N FLOPs of the
+    product plus its elementwise work over the dtype's peak)."""
+    esz = 4 if dtype == "float32" else 2
+    if kernel == "fused_prologue_conv1x1":  # x, res, w, y; scale, shift
+        nbytes = (2 * m * k + k * n + m * n) * esz + 2 * k * 4
+        flops = 2.0 * m * k * n + 4.0 * m * k
+    else:  # x, w, y; sum, sumsq
+        nbytes = (m * k + k * n + m * n) * esz + 2 * n * 4
+        flops = 2.0 * m * k * n + 3.0 * m * n
+    bw, fp32, bf16 = peaks
+    t_bytes, t_ops = nbytes / bw, flops / (fp32 if dtype == "float32" else bf16)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -169,6 +215,9 @@ def main():
     from paddle_tpu_torch.ops.kernels.flash_attention import (
         attention_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models.resnet import RESNET50_TRAIN_FLOPS_PER_IMG, resnet
+    from paddle_tpu_torch.ops.kernels import fused_block as fb
     from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain
     from paddle_tpu_torch.ops.kernels.mha_short import (
         short_attention, short_attention_bwd, short_attention_bwd_plain,
@@ -447,7 +496,55 @@ def main():
                 shape=(n, k), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
 
+    # the fused-block kernels (#9, #10) at the A/B's shapes: the three
+    # ResNet-50 b256 bottleneck 1x1 shapes in bf16, and stage 4 in fp32
+    fb_shapes = ([(name, 1024, k, n) for name, _, k, n in fb.SHAPES] if rehearsal
+                 else fb.SHAPES)
+    fb_checks = [(shape, "bfloat16") for shape in fb_shapes] + [(fb_shapes[-1], "float32")]
+    for (sname, m, k, n), dtype in fb_checks:
+        x, scale, shift, res, w = fb.make_inputs(m, k, n, getattr(torch, dtype), dev, args.seed)
+        runs = {
+            "fused_prologue_conv1x1": (
+                lambda: fb.fused_prologue_conv1x1(x, scale, shift, res, w),
+                lambda: fb.fused_prologue_conv1x1_plain(x, scale, shift, res, w),
+                lambda: fb.prologue_twin(x, scale, shift, res, w)),
+            "conv1x1_with_stats": (
+                lambda: fb.conv1x1_with_stats(x, w),
+                lambda: fb.conv1x1_with_stats_plain(x, w),
+                lambda: fb.stats_twin(x, w)),
+        }
+        for name, (run, plain, twin) in runs.items():
+            before = kernels.launch_counts()[name]
+            got = run()
+            if not rehearsal:
+                torch.cuda.synchronize()
+                require(kernels.launch_counts()[name] == before + 1,
+                        f"{name}: the run did not launch the kernel")
+            ref = plain()
+            got, ref = (got, ref) if name == "conv1x1_with_stats" else ((got,), (ref,))
+            yerr = fb.y_err(got[0], ref[0])
+            serr = max((fb.sum_err(g, r) for g, r in zip(got[1:], ref[1:])), default=0.0)
+            err = float((got[0].float() - ref[0].float()).abs().max())
+            require(yerr <= 0 and serr <= fb.SUM_RTOL,
+                    f"{name} {sname} {dtype}: y beyond |a-b| <= {fb.Y_RTOL[x.dtype]:.2e}|b| + "
+                    f"{fb.Y_ATOL[x.dtype]} by {yerr}; sums rel err {serr} (tol {fb.SUM_RTOL})")
+            del got, ref
+            ms = timed_ms(run)
+            plain_ms = timed_ms(plain)
+            lib_ms = timed_ms(twin)
+            bound, bound_by = fused_block_bound_ms(name, m, k, n, dtype, peaks)
+            print(f"[kernels] {name} {sname} M,K,N={m},{k},{n} {dtype}: max_abs_err {err:.3e} "
+                  f"(each y within {fb.Y_RTOL[x.dtype]:.2e}|y| + {fb.Y_ATOL[x.dtype]}), sums "
+                  f"rel err {serr:.3e} (tol {fb.SUM_RTOL}); ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"library_ms {lib_ms:.4f} (unfused torch twin) bound_ms {bound:.4f} "
+                  f"({bound_by}); {2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+            results.setdefault(name, []).append(dict(
+                shape=(m, k, n), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+        del x, scale, shift, res, w
+
     # ---- 4. serve: BERT-base over HTTP ----------------------------------
+    zero_launches = {name: 0 for name in kernels.LAUNCHES}
     if not rehearsal:  # peak memory of the serving path, not of phase 3
         torch.cuda.reset_peak_memory_stats()
     cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
@@ -579,8 +676,8 @@ def main():
     if not rehearsal:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    want = {"mha_short_fwd": train_cfg.num_layers, "mha_short_bwd": train_cfg.num_layers,
-            "layer_norm_bwd": 2 * train_cfg.num_layers + 2, "flash_fwd": 0, "flash_bwd": 0}
+    want = dict(zero_launches, mha_short_fwd=train_cfg.num_layers,
+                mha_short_bwd=train_cfg.num_layers, layer_norm_bwd=2 * train_cfg.num_layers + 2)
     # the training path's run: every count from 0, TRAIN_STEPS steps on
     # one batch (each returns the loss to the host, which synchronises)
     losses, step_ms, per_step = [], [], []
@@ -685,8 +782,7 @@ def main():
     path_launches["long"] = launches
     print(f"[long] launches of one training step at b,h,s,d={lb, lh, lsq, ld}: {launches}")
     if not rehearsal:
-        require(launches == {"mha_short_fwd": 0, "mha_short_bwd": 0, "flash_fwd": 1,
-                             "flash_bwd": 1, "layer_norm_bwd": 0},
+        require(launches == dict(zero_launches, flash_fwd=1, flash_bwd=1),
                 f"the long-sequence step launched {launches}")
     lkw = dict(bias=lb_, causal=True, layout="bhsd")
     pout, plse = flash_attention_plain(lq, lk, lv, **lkw)
@@ -697,7 +793,192 @@ def main():
           f"{long_errs} (tol {TOL['float32']})")
     require(max(long_errs) <= TOL["float32"], f"long-sequence step: errors {long_errs}")
 
-    # ---- 7. result ------------------------------------------------------
+    del long_in, lgot, lq, lk, lv, lb_, lg, pout, plse, pgrads
+
+    # ---- 7. fused: the fused-block A/B ------------------------------------
+    # tools/fused_block_pallas.py:main, ported: per shape the checks first,
+    # then each kernel's time against its twin's
+    kernels.reset_launch_counts()
+    ab_rows = []
+    for row in fb.ab(fb_shapes, torch.bfloat16, dev, timer=timed_ms, seed=args.seed):
+        ab_rows.append(row)
+        print(f"[fused] {json.dumps(row)}")
+        counts = kernels.launch_counts()
+        require(counts["fused_prologue_conv1x1"] >= len(ab_rows)
+                and counts["conv1x1_with_stats"] >= len(ab_rows) or rehearsal,
+                f"the A/B of {row['shape']} did not launch both kernels: {counts}")
+    launches = kernels.launch_counts()
+    path_launches["fused"] = launches
+    print(f"[fused] launches over the A/B at {len(ab_rows)} shapes: {launches}")
+    if not rehearsal:
+        require(launches == dict(zero_launches, fused_prologue_conv1x1=launches[
+            "fused_prologue_conv1x1"], conv1x1_with_stats=launches["conv1x1_with_stats"]),
+                f"the A/B launched other kernels: {launches}")
+        for row in ab_rows:
+            print(f"[fused] {row['shape']}: prologue {row['prologue_ms']:.4f} ms against the "
+                  f"twin's {row['prologue_twin_ms']:.4f} ms ({row['prologue_twin_ms'] / row['prologue_ms']:.3f}x); "
+                  f"stats {row['stats_ms']:.4f} ms against {row['stats_twin_ms']:.4f} ms "
+                  f"({row['stats_twin_ms'] / row['stats_ms']:.3f}x); card {smi}")
+
+    # ---- 8. resnet: ResNet-50 training and serving -------------------------
+    rn_depth, rn_hw = (18, 32) if rehearsal else (50, 224)
+    rn_b = 4 if rehearsal else RN_BATCH
+    # lr 0.1 diverges at b 4 on 32x32 (tests/test_models.py:15-18); the
+    # rehearsal takes 0.05, the card bench.py's 0.1
+    rn_lr = 0.05 if rehearsal else RN_LR
+
+    def resnet_programs(b, amp):
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        main_p.random_seed = startup_p.random_seed = args.seed + 3
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            img = layers.data("img", [b, 3, rn_hw, rn_hw], append_batch_size=False)
+            label = layers.data("label", [b, 1], dtype="int64", append_batch_size=False)
+            pred, loss, _, _ = resnet(img, label, depth=rn_depth, class_num=1000)
+            opt = fluid.optimizer.Momentum(rn_lr, RN_MOMENTUM)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            opt.minimize(loss)
+        return main_p, startup_p, pred, loss
+
+    def resnet_feed(b, seed):
+        """bench.py's feed: images U[0, 1), labels in [0, 1000), on the card."""
+        rs = np.random.RandomState(seed)
+        return {"img": torch.from_numpy(rs.rand(b, 3, rn_hw, rn_hw).astype("float32")).to(dev),
+                "label": torch.from_numpy(rs.randint(0, 1000, (b, 1)).astype("int64")).to(dev)}
+
+    rn_feed = resnet_feed(rn_b, args.seed)
+    kernels.reset_launch_counts()
+    export_dir = ROOT / "build" / "chip_smoke" / "resnet50"
+    for amp in (False, True):
+        tag = "bf16 AMP" if amp else "fp32"
+        main_r, startup_r, pred_r, loss_r = resnet_programs(rn_b, amp)
+        scope_r = fluid.Scope()
+        exe_r = fluid.Executor(fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0))
+        exe_r.run(startup_r, scope=scope_r)
+        if not rehearsal:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(RN_STEPS):
+            t0 = time.perf_counter()
+            loss = exe_r.run(main_r, feed=dict(rn_feed), fetch_list=[loss_r], scope=scope_r)[0]
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss.reshape(-1)[0]))
+        peak_rn = torch.cuda.max_memory_allocated() if not rehearsal else 0
+        p50_ms = statistics.median(step_ms[1:])
+        n_ops = len(main_r.global_block().ops)
+        print(f"[resnet] ResNet-{rn_depth} {tag}, b {rn_b}, {rn_hw}x{rn_hw}, Momentum({rn_lr}, "
+              f"{RN_MOMENTUM}), {n_ops} ops: losses {losses}")
+        print(f"[resnet] {tag}: step time p50 {p50_ms:.2f} ms over steps 2-{RN_STEPS} (first "
+              f"{step_ms[0]:.2f} ms); {rn_b / p50_ms * 1e3:.1f} images/s; "
+              f"{RESNET50_TRAIN_FLOPS_PER_IMG * rn_b / p50_ms / 1e9:.2f} TFLOP/s "
+              f"(RESNET50_TRAIN_FLOPS_PER_IMG); max_memory_allocated {peak_rn / 2**20:.0f} MiB "
+              f"(startup state + {RN_STEPS} steps); card {smi}")
+        require(all(math.isfinite(x) for x in losses), f"ResNet {tag}: non-finite loss {losses}")
+        require(losses[-1] < losses[0], f"ResNet {tag}: the loss did not fall over "
+                f"{RN_STEPS} steps: {losses}")
+        require(exe_r.recomputed_forwards == [], "an __auto_grad__ re-ran a forward: "
+                f"{exe_r.recomputed_forwards}")
+        step = lambda: exe_r.run(main_r, feed=dict(rn_feed), fetch_list=[loss_r],  # noqa: E731
+                                 scope=scope_r)
+        if not rehearsal:
+            profile_step(torch, step, f"one ResNet-{rn_depth} {tag} training step")
+        host_breakdown(step)
+        if not amp:
+            # the trained fp32 program's eval clone; the export carries no
+            # AMP tag (bench.py:728-733)
+            # with the logits beside the softmax: saturated probabilities
+            # would agree between any two devices
+            eval_prog = main_r.clone(for_test=True)
+            logits_r = next(op.input("X")[0] for op in eval_prog.global_block().ops
+                            if op.type == "softmax")
+            shutil.rmtree(export_dir, ignore_errors=True)
+            with fluid.scope_guard(scope_r):
+                fluid.io.save_inference_model(
+                    str(export_dir), ["img"], [pred_r, eval_prog.global_block().var(logits_r)],
+                    exe_r, main_program=eval_prog)
+        del scope_r, exe_r, step
+
+    # card vs CPU: ResNet-50 at b 2, each of 3 steps from the same state
+    main_p, startup_p, _, loss_p = resnet_programs(RN_PARITY_BATCH, False)
+    p_feed = resnet_feed(RN_PARITY_BATCH, args.seed + 1)
+    p_feed_cpu = {n: t.cpu() for n, t in p_feed.items()}
+    scopes = {"card": fluid.Scope(), "cpu": fluid.Scope()}
+    exes = {"card": fluid.Executor(fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)),
+            "cpu": fluid.Executor(fluid.CPUPlace())}
+    exes["card"].run(startup_p, scope=scopes["card"])
+    exes["cpu"].run(startup_p, scope=scopes["cpu"])
+    persist = [v.name for v in main_p.list_vars() if v.persistable]
+    worst_loss, worst_stat, worst_grad = 0.0, (0.0, ""), (0.0, "")
+    for i in range(PARITY_STEPS):
+        state = {n: to_numpy(scopes["card"].get(n)) for n in persist if scopes["card"].has(n)}
+        fluid.io.set_persistables_from_numpy(scopes["cpu"], state, "cpu")
+        ls = {where: float(exes[where].run(main_p, feed=dict(p_feed if where == "card"
+                                                                 else p_feed_cpu),
+                                           fetch_list=[loss_p], scope=scopes[where])[0]
+                           .reshape(-1)[0]) for where in ("card", "cpu")}
+        loss_rel = abs(ls["card"] - ls["cpu"]) / abs(ls["cpu"])
+        stat, grad, grad_max = (0.0, ""), (0.0, ""), (0.0, "")
+        for n in persist:
+            a, c = to_numpy(scopes["card"].get(n)), to_numpy(scopes["cpu"].get(n))
+            if n.endswith((".mean", ".var")):
+                stat = max(stat, (float(np.abs(a - c).max() / max(float(np.abs(c).max()),
+                                                                  1e-12)), n))
+            else:
+                grad = max(grad, (float(np.linalg.norm(a - c) / max(float(np.linalg.norm(c)),
+                                                                    1e-12)), n))
+                grad_max = max(grad_max, (float(np.abs(a - c).max() / max(
+                    float(np.abs(c).max()), 1e-12)), n))
+        print(f"[resnet] card vs CPU, ResNet-{rn_depth} b {RN_PARITY_BATCH} step {i + 1} from "
+              f"the same state: losses {ls['card']} vs {ls['cpu']} (rel diff {loss_rel:.3e}, "
+              f"tol {RN_LOSS_RTOL}); running stats max|diff| / max|value| {stat[0]:.3e} "
+              f"({stat[1]}; tol {RN_STAT_RTOL}); parameters and velocities |diff| / |value| "
+              f"{grad[0]:.3e} ({grad[1]}; tol {RN_GRAD_NRTOL}), max|diff| / max|value| "
+              f"{grad_max[0]:.3e} ({grad_max[1]})")
+        worst_loss = max(worst_loss, loss_rel)
+        worst_stat, worst_grad = max(worst_stat, stat), max(worst_grad, grad)
+    require(worst_loss <= RN_LOSS_RTOL and worst_stat[0] <= RN_STAT_RTOL
+            and worst_grad[0] <= RN_GRAD_NRTOL,
+            f"ResNet card vs CPU: loss rel diff {worst_loss}, running stats {worst_stat}, "
+            f"parameters and velocities {worst_grad}")
+    del scopes, exes, state
+
+    # serving: the exported eval program through AnalysisPredictor at b 8
+    serve_feed = {"img": np.random.RandomState(args.seed + 2).rand(
+        RN_SERVE_BATCH, 3, rn_hw, rn_hw).astype("float32")}
+    rn_pred = create_paddle_predictor(AnalysisConfig(str(export_dir)) if not rehearsal
+                                      else _cpu_config(AnalysisConfig, export_dir))
+    rn_cpu_pred = create_paddle_predictor(_cpu_config(AnalysisConfig, export_dir))
+    outs, run_ms = None, []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        outs = rn_pred.run(dict(serve_feed))  # host numpy: synchronised
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    probs, logits = outs
+    cpu_probs, cpu_logits = rn_cpu_pred.run(dict(serve_feed))
+    serve_diff = float(np.abs(probs - cpu_probs).max())
+    logit_rel = float(np.abs(logits - cpu_logits).max() / np.abs(cpu_logits).max())
+    require(probs.shape == (RN_SERVE_BATCH, 1000) and bool(np.isfinite(probs).all())
+            and bool(np.isfinite(logits).all()), f"ResNet predictions {probs.shape}")
+    require(bool(np.allclose(probs.sum(1), 1.0, atol=1e-3)), "softmax rows do not sum to 1")
+    require(serve_diff <= RN_SERVE_ATOL and logit_rel <= RN_LOSS_RTOL,
+            f"ResNet serving card vs CPU: probabilities max abs diff {serve_diff}, logits "
+            f"max|diff| / max|logit| {logit_rel}")
+    print(f"[resnet] served the fp32 eval export at b {RN_SERVE_BATCH}: card vs CPU "
+          f"probabilities max abs diff {serve_diff:.3e} (tol {RN_SERVE_ATOL}), logits "
+          f"max|diff| / max|logit| {logit_rel:.3e} (tol {RN_LOSS_RTOL}; logits span "
+          f"{float(logits.min()):.3g}..{float(logits.max()):.3g}, largest probability per "
+          f"row {np.round(probs.max(1), 4).tolist()}); p50 predictor.run "
+          f"{statistics.median(run_ms[1:]):.2f} ms (first {run_ms[0]:.2f} ms); card {smi}")
+    if not rehearsal:
+        profile_step(torch, lambda: rn_pred.run(dict(serve_feed)), "one ResNet predictor.run")
+    del rn_pred, rn_cpu_pred
+    launches = kernels.launch_counts()
+    path_launches["resnet"] = launches
+    print(f"[resnet] launches over the ResNet path (training, card vs CPU, serving): {launches}")
+    require(launches == zero_launches, f"the ResNet path launched a kernel: {launches}")
+
+    # ---- 9. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -709,21 +990,29 @@ def main():
                       "paddle_tpu/ops/pallas/flash_attention.py:227"),
         "layer_norm_bwd": ("paddle_tpu_torch/ops/kernels/csrc/layer_norm_bwd.cu",
                            "paddle_tpu/ops/pallas/layer_norm.py:23"),
+        "fused_prologue_conv1x1": ("paddle_tpu_torch/ops/kernels/csrc/fused_block.cu",
+                                   "tools/fused_block_pallas.py:51"),
+        "conv1x1_with_stats": ("paddle_tpu_torch/ops/kernels/csrc/fused_block.cu",
+                               "tools/fused_block_pallas.py:88"),
     }
+    # the main path's row: the fused-block A/B runs bf16, the others fp32
+    main_dtype = {"fused_prologue_conv1x1": "bfloat16", "conv1x1_with_stats": "bfloat16"}
     for path, counts in path_launches.items():
         print(f"[result] launches on the {path} path's run: {counts}")
     line = []
     for name, rows in results.items():
-        main_row = next(r for r in rows if r["dtype"] == "float32")  # main-path shape
+        dtype = main_dtype.get(name, "float32")
+        main_row = next(r for r in rows if r["dtype"] == dtype)  # main-path shape
         line.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": sum(c[name] for c in path_launches.values()),
-            "max_abs_err": main_row["err"], "tol": TOL["float32"],
+            "max_abs_err": main_row["err"], "tol": TOL.get(dtype) if name not in main_dtype
+            else f"{fb.Y_RTOL[getattr(torch, dtype)]}|y| + {fb.Y_ATOL[getattr(torch, dtype)]}",
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
-            "shape": list(main_row["shape"]), "dtype": "float32",
+            "shape": list(main_row["shape"]), "dtype": dtype,
         })
     require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
             "the result line must list every kernel")
@@ -791,10 +1080,10 @@ def host_breakdown(step):
     per_type = {}
 
     def timed(fn):
-        def wrapper(ctx, op):
+        def wrapper(ctx, op, *rest):
             t0 = time.perf_counter()
             try:
-                return fn(ctx, op)
+                return fn(ctx, op, *rest)
             finally:
                 ms, n = per_type.get(op.type, (0.0, 0))
                 per_type[op.type] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)

@@ -13,11 +13,12 @@ wrote in Pallas for the TPU are hand-written CUDA here
     exe.run(fluid.default_startup_program())
     loss, = exe.run(feed=feed, fetch_list=[h["loss"]])
 
-This package holds the ported slices so far: BERT encoder serving and
-BERT masked-LM pretraining (fp32).
+This package holds the ported slices so far: BERT encoder serving, BERT
+masked-LM pretraining (fp32), and ResNet training (fp32 and bf16 AMP,
+`contrib.mixed_precision.decorate`) and serving.
 """
 
-from . import inference, initializer, io, layers, models, optimizer, param_attr
+from . import contrib, inference, initializer, io, layers, models, optimizer, param_attr
 from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor
 from .framework import (

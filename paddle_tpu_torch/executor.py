@@ -13,8 +13,9 @@ A training program (one with Backward- or Optimize-role ops) runs in two
 modes. Its forward ops run under `torch.enable_grad()`, with every
 trainable parameter and float feed bound as a detached
 `requires_grad_(True)` alias of the scope's tensor, so each forward op
-records its own autograd graph, cut from the graphs of the ops before it
-(`lower_forward_op`); the backward and optimizer ops run under
+whose grad is an `__auto_grad__` records its own autograd graph, cut from
+the graphs of the ops before it (`lower_forward_op`); a forward op with a
+grad op of its own records none. The backward and optimizer ops run under
 `torch.no_grad()`, and each `__auto_grad__` op pulls its cotangents
 through the graph its forward op recorded (ops/registry.py). The graph is
 dropped with the step: what the run writes back to the scope and returns
@@ -37,6 +38,7 @@ from .ops import prng
 from .ops.registry import (
     TORCH_DTYPE,
     LoweringContext,
+    graph_users,
     lower_block,
     lower_forward_op,
     lower_op,
@@ -68,18 +70,21 @@ def _is_inference_program(program) -> bool:
 
 def _run_training(ctx, block):
     """Forward-role ops record their graphs on requires-grad aliases of the
-    parameters and float feeds; Backward / Optimize ops run under no_grad."""
+    parameters and float feeds (those whose grads `__auto_grad__` pulls
+    through the graph; the others record none); Backward / Optimize ops run
+    under no_grad."""
     for name, t in list(ctx.values.items()):
         v = block._find_var_recursive(name)
         if v is not None and t.is_floating_point() and (
                 v.is_data or (isinstance(v, Parameter) and v.trainable)):
             ctx.values[name] = t.detach().requires_grad_(True)
+    users = graph_users(block)
     for op in block.ops:
         if (op.attrs.get("op_role") or 0) & _TRAIN_ROLES:
             with torch.no_grad():
                 lower_op(ctx, op)
         else:
-            lower_forward_op(ctx, op)
+            lower_forward_op(ctx, op, users)
 
 
 class Executor:

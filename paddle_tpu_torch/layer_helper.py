@@ -72,16 +72,21 @@ class LayerHelper:
             stop_gradient=stop_gradient,
         )
 
-    def create_or_get_global_variable(self, name, shape, dtype):
-        """Persistable non-parameter state (optimizer accumulators),
-        declared in both the main and the startup program."""
+    def create_or_get_global_variable(self, name, shape, dtype, initializer=None):
+        """Persistable non-parameter state (optimizer accumulators, batch
+        norm running stats), declared in both the main and the startup
+        program; `initializer` appends its fill op to the startup program."""
         gb = self.main_program.global_block()
         if name in gb.vars:
             return gb.vars[name]
         v = gb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
                           stop_gradient=True)
-        self.startup_program.global_block().create_var(
-            name=name, shape=shape, dtype=dtype, persistable=True, stop_gradient=True)
+        sb = self.startup_program.global_block()
+        sv = sb.create_var(name=name, shape=shape, dtype=dtype, persistable=True,
+                           stop_gradient=True)
+        if initializer is not None:
+            initializer(sv, sb)
+            self.startup_program.bump_version()
         return v
 
     def append_op(self, **kwargs):

@@ -1,13 +1,13 @@
-"""The neural-net layers the BERT slices build with. Each emits the same
-op types, slots and attrs as its `paddle_tpu/layers/nn.py` counterpart,
-so the two packages build identical Programs."""
+"""The neural-net layers the BERT and ResNet slices build with. Each emits
+the same op types, slots and attrs as its `paddle_tpu/layers/nn.py`
+counterpart, so the two packages build identical Programs."""
 
 from __future__ import annotations
 
 import numpy as np
 
 from ..framework import Variable
-from ..initializer import Constant, Xavier
+from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
 
 __all__ = [
@@ -27,6 +27,14 @@ __all__ = [
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
+    "conv2d",
+    "pool2d",
+    "batch_norm",
+    "softmax",
+    "cross_entropy",
+    "mean",
+    "topk",
+    "accuracy",
 ]
 
 
@@ -287,3 +295,172 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return _single_out(helper, "reduce_sum", {"X": [input]},
                        {"dim": dims, "keep_dim": keep_dim, "reduce_all": reduce_all},
                        shape=shape)
+
+
+# ---------------------------------------------------------------------------
+# the conv stack and the classifier head (ResNet)
+# ---------------------------------------------------------------------------
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _conv_out_dim(in_dim, k, pad, stride, dilation=1):
+    if in_dim in (-1, None):
+        return -1
+    eff = dilation * (k - 1) + 1
+    return (in_dim + 2 * pad - eff) // stride + 1
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1, groups=1,
+           param_attr=None, bias_attr=None, use_cudnn=True, act=None, name=None,
+           data_format="NCHW"):
+    """conv2d over NCHW input, OIHW filter initialized Normal(0,
+    sqrt(2 / fan_in)), then the optional bias and activation."""
+    helper = LayerHelper("conv2d", name=name, act=act)
+    ksize = _pair(filter_size)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    groups = groups or 1
+    c_in = input.shape[1]
+    fan_in = (c_in // groups) * ksize[0] * ksize[1]
+    w = helper.create_parameter(param_attr, [num_filters, c_in // groups] + ksize,
+                                dtype=input.dtype,
+                                default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out_shape = (
+        input.shape[0],
+        num_filters,
+        _conv_out_dim(input.shape[2], ksize[0], padding[0], stride[0], dilation[0]),
+        _conv_out_dim(input.shape[3], ksize[1], padding[1], stride[1], dilation[1]),
+    )
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups},
+    )
+    pre_act = helper.append_bias_op(out, bias_attr, num_filters, 1)
+    return helper.append_activation(pre_act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,
+           global_pooling=False, use_cudnn=True, ceil_mode=False, exclusive=True,
+           name=None):
+    helper = LayerHelper("pool2d", name=name)
+    ksize = _pair(pool_size)
+    stride = _pair(pool_stride)
+    padding = _pair(pool_padding)
+    if global_pooling:
+        out_shape = (input.shape[0], input.shape[1], 1, 1)
+    else:
+        def _o(i, k, p, s):
+            if i in (-1, None):
+                return -1
+            if ceil_mode:
+                return (i - k + 2 * p + s - 1) // s + 1
+            return (i - k + 2 * p) // s + 1
+
+        out_shape = (input.shape[0], input.shape[1],
+                     _o(input.shape[2], ksize[0], padding[0], stride[0]),
+                     _o(input.shape[3], ksize[1], padding[1], stride[1]))
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="pool2d",
+        inputs={"X": [input]},
+        outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": ksize, "strides": stride,
+               "paddings": padding, "global_pooling": global_pooling,
+               "ceil_mode": ceil_mode, "exclusive": exclusive},
+    )
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW", name=None,
+               moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """batch_norm with float32 scale (1) and bias (0) parameters and the
+    running mean (0) and variance (1) as persistable global vars, which
+    the op updates in training mode."""
+    helper = LayerHelper("batch_norm", name=name, act=act)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], dtype="float32",
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], dtype="float32", is_bias=True)
+    mean = helper.create_or_get_global_variable(
+        moving_mean_name or helper.prefix + ".mean", [c], "float32",
+        initializer=Constant(0.0))
+    variance = helper.create_or_get_global_variable(
+        moving_variance_name or helper.prefix + ".var", [c], "float32",
+        initializer=Constant(1.0))
+    saved_mean = helper.create_variable_for_type_inference("float32", (c,))
+    saved_var = helper.create_variable_for_type_inference("float32", (c,))
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias], "Mean": [mean],
+                "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout, "use_global_stats": use_global_stats},
+    )
+    return helper.append_activation(out)
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    helper = LayerHelper("softmax", name=name)
+    return _single_out(helper, "softmax", {"X": [input]}, {"axis": axis},
+                       shape=input.shape)
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """Cross entropy of probabilities `input` against `label`."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(
+        input.dtype, tuple(input.shape[:-1]) + (1,))
+    helper.append_op(
+        type="cross_entropy",
+        inputs={"X": [input], "Label": [label]},
+        outputs={"Y": [out]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index},
+    )
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    return _single_out(helper, "mean", {"X": [x]}, shape=(1,))
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    shape = tuple(input.shape[:-1]) + (k,)
+    values = helper.create_variable_for_type_inference(input.dtype, shape)
+    indices = helper.create_variable_for_type_inference("int64", shape,
+                                                        stop_gradient=True)
+    helper.append_op(
+        type="top_k",
+        inputs={"X": [input]},
+        outputs={"Out": [values], "Indices": [indices]},
+        attrs={"k": k},
+    )
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """The share of rows whose label is among the top k of `input`."""
+    helper = LayerHelper("accuracy")
+    _, indices = topk(input, k)
+    out = helper.create_variable_for_type_inference("float32", (1,), stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Indices": [indices], "Label": [label]},
+        outputs={"Accuracy": [out]},
+        attrs={},
+    )
+    return out

@@ -61,9 +61,7 @@ FlashAttention = _kernel_pair_fn(flash_attention, flash_attention_bwd, "FlashAtt
 def _fused_mha(ctx, op):
     """Q/K/V: [b, nh, s, dh] (layout "bhsd") or [b, s, nh, dh] ("bshd");
     optional KeyBias: [b, sk] additive. Out matches the input layout."""
-    q = ctx.in_(op, "Q")
-    k = ctx.in_(op, "K")
-    v = ctx.in_(op, "V")
+    q, k, v = ctx.amp_cast(op, ctx.in_(op, "Q"), ctx.in_(op, "K"), ctx.in_(op, "V"))
     bias = ctx.in_(op, "KeyBias")
     causal = bool(op.attr("causal", False))
     dropout = float(op.attr("attn_dropout", 0.0))

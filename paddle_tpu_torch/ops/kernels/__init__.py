@@ -12,6 +12,8 @@ LAUNCHES = {
     "flash_fwd": 0,
     "flash_bwd": 0,
     "layer_norm_bwd": 0,
+    "fused_prologue_conv1x1": 0,
+    "conv1x1_with_stats": 0,
 }
 
 

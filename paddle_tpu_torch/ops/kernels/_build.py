@@ -29,6 +29,7 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd": "flash_bwd.cu",
     "layer_norm_bwd": "layer_norm_bwd.cu",
+    "fused_block": "fused_block.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -9,6 +9,10 @@
 // Per block of R rows: dscale_part = sum_rows dy * nrm and
 // dbias_part = sum_rows dy; the wrapper sums the [n / R, k] partials with
 // torch.sum, as ln_bwd sums the Pallas kernel's per-block rows outside it.
+// With bf16 x the dscale terms are bf16(dy) * bf16(nrm), summed in fp32,
+// as the JAX package's layer_norm_grad computes them for bf16 X
+// (paddle_tpu/ops/nn_ops.py:598-605; XLA keeps the product of the two
+// bf16 factors in fp32, where it is exact).
 //
 // What bounds it on the H100: x, dy and dx once each plus the row stats;
 // about 7 operations per element, so at n 1024, k 768 (9.4 MB in fp32,
@@ -37,6 +41,17 @@ __device__ __forceinline__ float ln_from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 ln_from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// one dscale term: dy * nrm in fp32; for bf16 x nrm rounded to bf16
+// first (dy is bf16 already), the product exact in fp32
+template <typename T>
+__device__ __forceinline__ float ln_dscale_term(float d, float nrm) {
+  return d * nrm;
+}
+template <>
+__device__ __forceinline__ float ln_dscale_term<__nv_bfloat16>(float d, float nrm) {
+  return __fmul_rn(d, __bfloat162float(__float2bfloat16(nrm)));
 }
 
 __device__ __forceinline__ float ln_warp_sum(float x) {
@@ -91,7 +106,7 @@ layer_norm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     float g = 0.f, b = 0.f;
     for (int r = 0; r < nr; ++r) {
       const float d = dys[r * k + c];
-      g += d * xs[r * k + c];
+      g += ln_dscale_term<T>(d, xs[r * k + c]);
       b += d;
     }
     dg_part[(long long)blockIdx.x * k + c] = g;

@@ -36,7 +36,9 @@ def _rows(k: int) -> int:
 def ln_bwd_plain(x2, dy2, mean, rstd, scale):
     """x2, dy2 [n, k]; mean, rstd [n] and scale [k] float32 ->
     (dx [n, k] in x2's dtype, dscale [k] float32, dbias [k] float32), in
-    float64 inside (the function of `_kernel`, layer_norm.py:23-35)."""
+    float64 inside (the function of `_kernel`, layer_norm.py:23-35). With
+    bf16 x the dscale terms are bf16(dy) * bf16(nrm), as the JAX package's
+    layer_norm_grad computes them for bf16 X (nn_ops.py:598-605)."""
     x = x2.double()
     dy = dy2.double()
     nrm = (x - mean.double()[:, None]) * rstd.double()[:, None]
@@ -44,7 +46,14 @@ def ln_bwd_plain(x2, dy2, mean, rstd, scale):
     m1 = dyg.mean(dim=1, keepdim=True)
     m2 = (dyg * nrm).mean(dim=1, keepdim=True)
     dx = rstd.double()[:, None] * (dyg - m1 - nrm * m2)
-    return dx.to(x2.dtype), (dy * nrm).sum(0).float(), dy.sum(0).float()
+    terms = dy * nrm
+    if x2.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        # the normalized value in fp32, as the kernel and the JAX lowering
+        # compute it, then rounded; the product of two bf16 is exact
+        nrm32 = (x2.float() - mean.float()[:, None]) * rstd.float()[:, None]
+        terms = dy2.to(bf).double() * nrm32.to(bf).double()
+    return dx.to(x2.dtype), terms.sum(0).float(), dy.sum(0).float()
 
 
 @functools.cache

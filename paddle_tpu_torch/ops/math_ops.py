@@ -1,8 +1,9 @@
 """Elementwise, activation, matmul, reduction and scan op lowerings:
 elementwise_add / sub / mul / div (fluid axis broadcast) with the linear
-grad op of add and sub, scale, mul, matmul, gelu, sum, reduce_sum and
-cumsum. The large `mul` / `matmul` products stay `torch.matmul`, as the
-JAX package leaves them to XLA."""
+grad op of add and sub, scale, mul, matmul, gelu, relu, sum, reduce_sum,
+mean, top_k and cumsum. The large `mul` / `matmul` products stay
+`torch.matmul`, as the JAX package leaves them to XLA; under bf16 AMP they
+take their inputs in bf16 (`ctx.amp_cast`, math_ops.py:315-363 there)."""
 
 from __future__ import annotations
 
@@ -123,8 +124,7 @@ def _scale(ctx, op):
 def _mul(ctx, op):
     """Flattening matmul: X flattened to 2-D at x_num_col_dims, Y at
     y_num_col_dims; output unflattened."""
-    x = ctx.in_(op, "X")
-    y = ctx.in_(op, "Y")
+    x, y = ctx.amp_cast(op, ctx.in_(op, "X"), ctx.in_(op, "Y"))
     xn = op.attr("x_num_col_dims", 1)
     yn = op.attr("y_num_col_dims", 1)
     x_lead = tuple(x.shape[:xn])
@@ -137,8 +137,7 @@ def _mul(ctx, op):
 @register_op("matmul")
 def _matmul(ctx, op):
     """Fluid matmul: transpose flags, alpha and batch broadcasting."""
-    x = ctx.in_(op, "X")
-    y = ctx.in_(op, "Y")
+    x, y = ctx.amp_cast(op, ctx.in_(op, "X"), ctx.in_(op, "Y"))
     if x.dim() == 1:
         x = x[None, :]
     if y.dim() == 1:
@@ -159,6 +158,31 @@ def _gelu(ctx, op):
     x = ctx.in_(op, "X")
     approximate = "tanh" if op.attr("approximate", False) else "none"
     ctx.out(op, "Out", torch.nn.functional.gelu(x, approximate=approximate))
+
+
+@register_op("relu")
+def _relu(ctx, op):
+    ctx.out(op, "Out", torch.relu(ctx.in_(op, "X")))
+
+
+@register_op("mean")
+def _mean(ctx, op):
+    """Fluid `mean` reduces to a [1] tensor."""
+    ctx.out(op, "Out", ctx.in_(op, "X").mean().reshape(1))
+
+
+@register_op("top_k", no_grad_inputs=("Indices",))
+def _top_k(ctx, op):
+    """The k largest along the last axis, ties to the lower index as
+    `lax.top_k` breaks them (a stable descending sort); Indices int32, as
+    the JAX package gives them."""
+    x = ctx.in_(op, "X")
+    k = op.attr("k", 1)
+    if op.input("K"):
+        k = int(ctx.in_(op, "K").reshape(-1)[0])
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    ctx.out(op, "Out", vals[..., :k])
+    ctx.out(op, "Indices", idx[..., :k].to(torch.int32))
 
 
 @register_op("sum")

@@ -1,5 +1,13 @@
-"""layer_norm (forward and grad), dropout (forward and grad),
-softmax_with_cross_entropy (forward and grad) and lookup_table lowerings.
+"""conv2d, pool2d, batch_norm (forward and grad), layer_norm (forward and
+grad), dropout (forward and grad), softmax (forward and grad),
+softmax_with_cross_entropy (forward and grad), cross_entropy and
+lookup_table lowerings.
+
+Convolutions go to `F.conv2d` (cuDNN on the card), as the JAX package
+leaves them to `lax.conv_general_dilated` outside any Pallas kernel. The
+batch-norm forward and grad are the JAX package's own formulas, not
+`F.batch_norm`: shifted one-pass statistics, the biased batch variance in
+the running variance, and 1/sqrt(var + eps) in SavedVariance.
 
 The LayerNorm forward stays plain torch, as the JAX package keeps its
 forward out of Pallas; its grad op launches the LayerNorm backward kernel
@@ -12,10 +20,254 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .kernels.flash_attention import mul32, murmur_mix
 from .kernels.layer_norm import ln_bwd
 from .registry import register_op
+
+
+# ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+
+
+def _conv_padding(padding, ndim):
+    """Fluid paddings -> "SAME" / "VALID" or [(lo, hi)] per spatial dim
+    (nn_ops.py:27-36 there)."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        padding = [padding] * ndim
+    if len(padding) == ndim:
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * ndim:
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(ndim)]
+    raise ValueError(f"bad conv padding: {padding}")
+
+
+def _explicit_pads(pad, spatial, ksize, strides, dilations):
+    """[(lo, hi)] per spatial dim; "SAME" pads as XLA does (the output is
+    ceil(in / stride), the odd pixel of the total goes to the end)."""
+    if pad == "VALID":
+        return [(0, 0)] * len(spatial)
+    if pad == "SAME":
+        pads = []
+        for n, k, s, d in zip(spatial, ksize, strides, dilations):
+            eff = (k - 1) * d + 1
+            total = max((-(-n // s) - 1) * s + eff - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    return pad
+
+
+@register_op("conv2d")
+def _conv2d(ctx, op):
+    """Input NCHW, or NHWC with data_format "NHWC"; Filter OIHW in both.
+    The optional Bias [O] and fused_act "relu" are what fuse_conv_bn
+    emits. The JAX package rewrites the 7x7/s2 stem on few channels into a
+    4x4/s1 conv over space-to-depth input (`_s2d_stem_conv`, a TPU lane
+    occupancy trick with the same math); here every conv is one
+    F.conv2d, so sums run in another order than there."""
+    x = ctx.in_(op, "Input")
+    w = ctx.in_(op, "Filter")
+    bias = ctx.in_(op, "Bias")
+    x, w = ctx.amp_cast(op, x, w)
+    strides = list(op.attr("strides", [1, 1]))
+    dilations = list(op.attr("dilations", [1, 1]))
+    groups = op.attr("groups", 1) or 1
+    nhwc = op.attr("data_format", "NCHW") == "NHWC"
+    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    pads = _explicit_pads(_conv_padding(op.attr("paddings", [0, 0]), 2),
+                          xc.shape[2:], w.shape[2:], strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        xc = F.pad(xc, [pads[1][0], pads[1][1], pads[0][0], pads[0][1]])
+        padding = [0, 0]
+    out = F.conv2d(xc, w, None, strides, padding, dilations, groups)
+    if bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+    act = op.attr("fused_act", "") or ""
+    if act:
+        if act != "relu":
+            raise ValueError(f"conv2d fused_act supports 'relu', got {act!r}")
+        out = torch.relu(out)
+    ctx.out(op, "Output", out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+@register_op("depthwise_conv2d")
+def _depthwise_conv2d(ctx, op):
+    _conv2d(ctx, op)
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+
+
+@register_op("pool2d")
+def _pool2d(ctx, op):
+    """Max or avg pooling (nn_ops.py:238-329 there), NCHW or NHWC: global
+    pooling, explicit or SAME / VALID paddings, `exclusive` avg (divide by
+    the window's in-bounds count wherever there is padding) and
+    `ceil_mode`, which pads the end of each dim by stride - 1 as the JAX
+    lowering does. Adaptive pooling is not ported yet."""
+    x = ctx.in_(op, "X")
+    ptype = op.attr("pooling_type", "max")
+    ksize = list(op.attr("ksize", [2, 2]))
+    strides = list(op.attr("strides", ksize))
+    nhwc = op.attr("data_format", "NCHW") == "NHWC"
+    if op.attr("adaptive", False):
+        raise NotImplementedError("pool2d: adaptive pooling is not ported yet")
+    if op.attr("global_pooling", False):
+        dims = (1, 2) if nhwc else (2, 3)
+        out = (x.amax(dim=dims, keepdim=True) if ptype == "max"
+               else x.mean(dim=dims, keepdim=True))
+        ctx.out(op, "Out", out)
+        return
+    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    pad = _conv_padding(op.attr("paddings", [0, 0]), 2)
+    pads = _explicit_pads(pad, xc.shape[2:], ksize, strides, [1, 1])
+    if not isinstance(pad, str) and op.attr("ceil_mode", False):
+        pads = [(lo, hi + s - 1) for (lo, hi), s in zip(pads, strides)]
+    flat = [pads[1][0], pads[1][1], pads[0][0], pads[0][1]]
+    padded = isinstance(pad, str) or any(p != (0, 0) for p in pads)
+    if ptype == "max":
+        xp = F.pad(xc, flat, value=float("-inf")) if padded else xc
+        out = F.max_pool2d(xp, ksize, strides)
+    else:
+        xp = F.pad(xc, flat) if padded else xc
+        summed = F.avg_pool2d(xp, ksize, strides, divisor_override=1)
+        if op.attr("exclusive", True) and padded:
+            ones = F.pad(torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                                    device=xc.device), flat)
+            out = summed / F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+        else:
+            out = summed / float(np.prod(ksize))
+    ctx.out(op, "Out", out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+# ---------------------------------------------------------------------------
+# batch norm
+# ---------------------------------------------------------------------------
+
+
+def _batch_norm_grad_maker(op, grad_out_names, block, helpers):
+    """batch_norm_grad from X and the saved batch stats (nn_ops.py:337-372
+    there); eval-mode grads and cotangents into the stats outputs take
+    __auto_grad__."""
+    if grad_out_names.get("Y", [None])[0] is None:
+        return None
+    for stats_slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        if grad_out_names.get(stats_slot, [None])[0] is not None:
+            return None
+    if op.attr("is_test", False) or op.attr("use_global_stats", False):
+        return None
+    return [{
+        "type": "batch_norm_grad",
+        "inputs": {
+            "X": op.input("X"),
+            "Scale": op.input("Scale"),
+            "SavedMean": [op.output("SavedMean")[0]],
+            "SavedVariance": [op.output("SavedVariance")[0]],
+            "GRAD_Y": [grad_out_names["Y"][0]],
+        },
+        "outputs": {
+            "IGRAD_X": [helpers.grad_name(op.input("X")[0])],
+            "IGRAD_Scale": [helpers.grad_name(op.input("Scale")[0])],
+            "IGRAD_Bias": [helpers.grad_name(op.input("Bias")[0])],
+        },
+        "attrs": {
+            "epsilon": op.attr("epsilon", 1e-5),
+            "data_layout": op.attr("data_layout", "NCHW"),
+        },
+    }]
+
+
+def _bn_channel_axis(x, layout):
+    """The channel axis: 1 in NCHW, the last dim otherwise."""
+    return 1 if layout == "NCHW" and x.dim() > 1 else x.dim() - 1
+
+
+def _bn_bshape(x, axis):
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+    return shape
+
+
+@register_op("batch_norm_grad", differentiable=False)
+def _batch_norm_grad(ctx, op):
+    """dx = (gamma * inv / M) * (M * dy - sum(dy) - xhat * dgamma), with
+    dgamma = inv * (sum(dy * x) - mean * sum(dy)) and inv the saved
+    1/sqrt(var + eps) (nn_ops.py:375-412 there); stats in fp32, dX in X's
+    dtype."""
+    x = ctx.in_(op, "X")
+    scale = ctx.in_(op, "Scale")
+    mean = ctx.in_(op, "SavedMean")
+    inv = ctx.in_(op, "SavedVariance")
+    dy = ctx.in_(op, "GRAD_Y")
+    axis = _bn_channel_axis(x, op.attr("data_layout", "NCHW"))
+    axes = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = _bn_bshape(x, axis)
+    m = x.numel() // x.shape[axis]
+    xf, dyf = x.float(), dy.float()
+    dbeta = dyf.sum(dim=axes)
+    dgamma = inv * ((dyf * xf).sum(dim=axes) - mean * dbeta)
+    xhat = (xf - mean.reshape(bshape)) * inv.reshape(bshape)
+    dx = (scale * inv / m).reshape(bshape) * (
+        m * dyf - dbeta.reshape(bshape) - xhat * dgamma.reshape(bshape))
+    ctx.out(op, "IGRAD_X", dx.to(x.dtype))
+    if op.output("IGRAD_Scale"):
+        ctx.out(op, "IGRAD_Scale", dgamma)
+    if op.output("IGRAD_Bias"):
+        ctx.out(op, "IGRAD_Bias", dbeta)
+
+
+@register_op("batch_norm",
+             stateful_outputs=("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"),
+             no_grad_inputs=("Mean", "Variance"), grad=_batch_norm_grad_maker)
+def _batch_norm(ctx, op):
+    """Training mode: batch stats in one pass, shifted by the running mean
+    (E[(x - rm)^2] - (E[x] - rm)^2, nn_ops.py:449-475 there), running
+    stats updated with momentum from the biased batch variance, and
+    SavedVariance = 1/sqrt(var + eps). is_test or use_global_stats
+    normalises with the running stats and writes no state. Stats in fp32,
+    Y in X's dtype."""
+    x = ctx.in_(op, "X")
+    scale = ctx.in_(op, "Scale")
+    bias = ctx.in_(op, "Bias")
+    mean = ctx.in_(op, "Mean")
+    var = ctx.in_(op, "Variance")
+    eps = op.attr("epsilon", 1e-5)
+    momentum = op.attr("momentum", 0.9)
+    is_test = op.attr("is_test", False) or ctx.is_test
+    axis = _bn_channel_axis(x, op.attr("data_layout", "NCHW"))
+    axes = tuple(i for i in range(x.dim()) if i != axis)
+    bshape = _bn_bshape(x, axis)
+    xf = x.float()
+    if op.attr("use_global_stats", False) or is_test:
+        use_mean, use_var = mean, var
+    else:
+        m = x.numel() // x.shape[axis]
+        rm = mean.float().detach()
+        d = xf - rm.reshape(bshape)
+        s1 = d.sum(dim=axes) / m
+        s2 = torch.square(d).sum(dim=axes) / m
+        use_mean = rm + s1
+        use_var = torch.clamp(s2 - torch.square(s1), min=0.0)
+        ctx.out(op, "MeanOut", momentum * mean + (1 - momentum) * use_mean)
+        ctx.out(op, "VarianceOut", momentum * var + (1 - momentum) * use_var)
+        ctx.out(op, "SavedMean", use_mean)
+        ctx.out(op, "SavedVariance", 1.0 / torch.sqrt(use_var + eps))
+    inv = torch.rsqrt(use_var.reshape(bshape) + eps)
+    y = (xf - use_mean.reshape(bshape)) * inv * scale.reshape(bshape) + bias.reshape(bshape)
+    ctx.out(op, "Y", y.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# layer norm
+# ---------------------------------------------------------------------------
 
 
 def _layer_norm_grad_maker(op, grad_out_names, block, helpers):
@@ -76,9 +328,9 @@ def _layer_norm_grad(ctx, op):
     """dX, dScale, dBias from X and the saved per-row stats. Every shape
     goes through ln_bwd (the kernel on the card): the JAX package's
     ln_bwd_viable gate is a TPU VMEM limit, and its plain branch computes
-    the same fp32 function. One difference waits for AMP: with bf16 X the
-    JAX plain branch rounds dy and the normalized value to bf16 before the
-    dScale sum (nn_ops.py:598-605), which the kernel does not."""
+    the same fp32 function; with bf16 X both round dy and the normalized
+    value to bf16 before the dScale sum, as the JAX plain branch does
+    (nn_ops.py:598-605 there)."""
     x = ctx.in_(op, "X")
     dy = ctx.in_(op, "GRAD_Y")
     mean = ctx.in_(op, "Mean")
@@ -187,8 +439,56 @@ def _dropout_grad(ctx, op):
 
 
 # ---------------------------------------------------------------------------
-# softmax_with_cross_entropy
+# softmax, cross_entropy and softmax_with_cross_entropy
 # ---------------------------------------------------------------------------
+
+
+def _softmax_grad_maker(op, grad_out_names, block, helpers):
+    """softmax_grad from the op's own output (nn_ops.py:799-818 there)."""
+    if grad_out_names.get("Out", [None])[0] is None:
+        return None
+    return [{
+        "type": "softmax_grad",
+        "inputs": {"Out": [op.output("Out")[0]], "GRAD_Out": [grad_out_names["Out"][0]]},
+        "outputs": {"IGRAD_X": [helpers.grad_name(op.input("X")[0])]},
+        "attrs": {"axis": op.attr("axis", -1)},
+    }]
+
+
+@register_op("softmax_grad")
+def _softmax_grad(ctx, op):
+    """dX = (dY - sum(dY * Y, axis)) * Y in fp32, in Y's dtype."""
+    yf = ctx.in_(op, "Out").float()
+    dyf = ctx.in_(op, "GRAD_Out").float()
+    axis = op.attr("axis", -1)
+    dx = (dyf - (dyf * yf).sum(dim=axis, keepdim=True)) * yf
+    ctx.out(op, "IGRAD_X", dx.to(ctx.in_(op, "Out").dtype))
+
+
+@register_op("softmax", grad=_softmax_grad_maker)
+def _softmax(ctx, op):
+    """fp32 inside, also under bf16 AMP; Out in X's dtype."""
+    x = ctx.in_(op, "X")
+    ctx.out(op, "Out", torch.softmax(x.float(), dim=op.attr("axis", -1)).to(x.dtype))
+
+
+@register_op("cross_entropy", no_grad_inputs=("Label",))
+def _cross_entropy(ctx, op):
+    """-log(p[label] + 1e-12) from probabilities X (hard labels, with
+    ignore_index), or -sum(label * log(p + 1e-12)) (soft labels)."""
+    x = ctx.in_(op, "X")
+    label = ctx.in_(op, "Label")
+    eps = 1e-12
+    if op.attr("soft_label", False):
+        loss = -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)
+    else:
+        idx = _hard_label_index(label, x.dim(), -1)
+        loss = -torch.log(torch.gather(x, -1, idx.unsqueeze(-1)) + eps)
+        ignore_index = op.attr("ignore_index", -100)
+        if ignore_index >= 0:
+            loss = torch.where((idx != ignore_index).unsqueeze(-1), loss,
+                               torch.zeros((), dtype=loss.dtype, device=loss.device))
+    ctx.out(op, "Y", loss)
 
 
 def _swce_grad_maker(op, grad_out_names, block, helpers):
@@ -269,6 +569,8 @@ def _lookup_table(ctx, op):
     if idx.dim() >= 2 and idx.shape[-1] == 1:
         idx = idx.squeeze(-1)
     out = torch.nn.functional.embedding(idx.clamp(min=0), w)
+    # AMP: the gathered rows are cast, not the table (nn_ops.py:1096 there)
+    (out,) = ctx.amp_cast(op, out)
     if padding_idx is not None and padding_idx != -1:
         out = out.masked_fill((idx == padding_idx).unsqueeze(-1), 0.0)
     ctx.out(op, "Out", out)

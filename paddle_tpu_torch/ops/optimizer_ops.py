@@ -1,4 +1,5 @@
-"""Optimizer op lowerings: sgd and adam (paddle_tpu/ops/optimizer_ops.py).
+"""Optimizer op lowerings: sgd, momentum and adam
+(paddle_tpu/ops/optimizer_ops.py).
 
 Each writes new tensors for its param and accumulators, out of place, as
 the JAX package's functional updates do; the executor stores them back
@@ -21,6 +22,24 @@ def _sgd(ctx, op):
     p = ctx.in_(op, "Param")
     g = ctx.in_(op, "Grad")
     ctx.out(op, "ParamOut", (p - _lr(ctx, op) * g.to(p.dtype)).to(p.dtype))
+
+
+@register_op("momentum", differentiable=False)
+def _momentum(ctx, op):
+    """v = mu * v + g (g in fp32); p -= lr * v, or with Nesterov
+    p -= (g + mu * v) * lr (optimizer_ops.py:30-44 there)."""
+    p = ctx.in_(op, "Param")
+    g = ctx.in_(op, "Grad").float()
+    v = ctx.in_(op, "Velocity")
+    lr = _lr(ctx, op)
+    mu = op.attr("mu")
+    v_new = mu * v + g
+    if op.attr("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    ctx.out(op, "ParamOut", p_new.to(p.dtype))
+    ctx.out(op, "VelocityOut", v_new)
 
 
 @register_op("adam", differentiable=False)

@@ -30,6 +30,7 @@ __all__ = [
     "lower_op",
     "lower_block",
     "lower_forward_op",
+    "graph_users",
 ]
 
 # int64 stays int64 (embedding lookups want long ids); float64 runs as
@@ -113,6 +114,15 @@ class LoweringContext:
         self.is_test = is_test
         self.tape: dict[tuple, dict[str, torch.Tensor]] = {}
         self.recomputed: set[str] = set()
+        # the bf16 compute policy of contrib.mixed_precision, read from the
+        # program as the JAX package reads it (registry.py:183-189 there):
+        # the product ops cast their float inputs to amp_dtype unless
+        # black-listed; custom white-listed op types get every float32
+        # input pre-cast (_amp_precast)
+        amp = getattr(program, "_amp_dtype", None)
+        self.amp_dtype = TORCH_DTYPE(amp) if amp else None
+        self.amp_black_list = getattr(program, "_amp_black_list", set())
+        self.amp_white_list = getattr(program, "_amp_white_list", set())
 
     def get(self, name):
         if name not in self.values:
@@ -155,6 +165,21 @@ class LoweringContext:
         (paddle_tpu/ops/registry.py:240-252)."""
         return prng.name_key(self._key(), name)
 
+    def amp_dtype_for(self, op):
+        """The AMP compute dtype of this op, or None (fp32)."""
+        if self.amp_dtype is None or op.type in self.amp_black_list:
+            return None
+        return self.amp_dtype
+
+    def amp_cast(self, op, *vals):
+        """The float inputs of a product op cast to the AMP dtype, unless
+        AMP is off or the op type is black-listed back to fp32."""
+        dtype = self.amp_dtype_for(op)
+        if dtype is None:
+            return vals
+        return [v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point()
+                else v for v in vals]
+
     def child(self):
         sub = LoweringContext(self.program, self.device, self.generator,
                               self.rng_key, self.is_test)
@@ -163,9 +188,28 @@ class LoweringContext:
         return sub
 
 
+def _amp_precast(ctx, op):
+    """Custom white list: the op's float32 input bindings cast to the AMP
+    dtype before it lowers (registry.py:282-300 there). Returns the
+    shadowed originals."""
+    saved = {}
+    if op.type not in ctx.amp_white_list or ctx.amp_dtype_for(op) is None:
+        return saved
+    for n in op.input_arg_names():
+        v = ctx.values.get(n) if n else None
+        if isinstance(v, torch.Tensor) and v.dtype == torch.float32:
+            saved[n] = v
+            ctx.values[n] = v.to(ctx.amp_dtype)
+    return saved
+
+
 def lower_op(ctx: LoweringContext, op):
     try:
-        get_op(op.type).lower(ctx, op)
+        saved = _amp_precast(ctx, op)
+        try:
+            get_op(op.type).lower(ctx, op)
+        finally:
+            ctx.values.update(saved)
     except Exception as e:
         # a failing lowering names the op and the user's layer call that
         # created it
@@ -231,14 +275,40 @@ def _tape_key(outputs):
     return tuple((slot, tuple(names)) for slot, names in outputs.items())
 
 
-def lower_forward_op(ctx: LoweringContext, op):
-    """Lower a forward op of a training step under enable_grad, with each
-    input that requires grad cut from the graph of the op that produced
-    it: the op reads a fresh detached leaf, and the tape keeps the leaves.
-    So the op's graph is its own, from its leaves to its outputs, and its
-    `__auto_grad__` computes exactly this op's vector-Jacobian product:
-    without the cut, `torch.autograd.grad` to a parameter would also
-    follow every earlier op's path to that parameter."""
+def graph_users(block):
+    """Tape keys of the forward ops whose grads an `__auto_grad__` op of
+    `block` pulls through the forward's graph."""
+    return {_tape_key(op.attr("fwd_outputs")) for op in block.ops
+            if op.type == "__auto_grad__"}
+
+
+def lower_forward_op(ctx: LoweringContext, op, users):
+    """Lower a forward op of a training step. If its grad is an
+    `__auto_grad__` (its tape key is in `users`), it runs under
+    enable_grad, with each input that requires grad cut from the graph of
+    the op that produced it: the op reads a fresh detached leaf, and the
+    tape keeps the leaves. So the op's graph is its own, from its leaves
+    to its outputs, and its `__auto_grad__` computes exactly this op's
+    vector-Jacobian product: without the cut, `torch.autograd.grad` to a
+    parameter would also follow every earlier op's path to that parameter.
+    An op whose grad op recomputes from saved values (batch_norm,
+    layer_norm, dropout, softmax, ...) records no graph, whose saved
+    tensors would live until the end of the step: it runs under no_grad,
+    and its float outputs become fresh requires-grad leaves when an input
+    required grad, so the ops after it still record theirs."""
+    if _tape_key(op.outputs) not in users:
+        tracked = any(isinstance(t, torch.Tensor) and t.requires_grad
+                      for t in (ctx.values.get(n) for n in op.input_arg_names() if n))
+        with torch.no_grad():
+            lower_op(ctx, op)
+        if tracked:
+            stateful = get_op(op.type).stateful_outputs
+            for slot, names in op.outputs.items():
+                for n in names:
+                    t = ctx.values.get(n) if n and slot not in stateful else None
+                    if isinstance(t, torch.Tensor) and t.is_floating_point():
+                        ctx.values[n] = t.detach().requires_grad_(True)
+        return
     leaves = {}
     for n in op.input_arg_names():
         t = ctx.values.get(n) if n else None

@@ -3,7 +3,7 @@ tagged with the Optimize role, as `paddle_tpu/optimizer.py` builds them:
 the same learning-rate var, accumulator names and startup fill ops, so
 both packages hold the same persistables under the same names.
 
-Ported so far: SGD and Adam in static-graph mode. Regularization and
+Ported so far: SGD, Momentum and Adam in static-graph mode. Regularization and
 gradient clipping come with a later slice and raise here."""
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ from .framework import (
 )
 from .layer_helper import LayerHelper
 
-__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Adam", "AdamOptimizer"]
+__all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
+           "Adam", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -120,6 +121,27 @@ class SGDOptimizer(Optimizer):
                  {"ParamOut": [p]})
 
 
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, pg, lr):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        self._op(block, "momentum",
+                 {"Param": [p], "Grad": [g], "Velocity": [v], "LearningRate": [lr]},
+                 {"ParamOut": [p], "VelocityOut": [v]},
+                 {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     type = "adam"
 
@@ -152,4 +174,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -359,7 +359,8 @@ def test_cuda_bert_tiny_trains_like_cpu(cuda_device):
     torch.cuda.synchronize()
     per_step = {n: (LAUNCHES[n] - before[n]) / 3 for n in LAUNCHES}
     assert per_step == {"mha_short_fwd": 2, "mha_short_bwd": 2, "flash_fwd": 0,
-                        "flash_bwd": 0, "layer_norm_bwd": 6}
+                        "flash_bwd": 0, "layer_norm_bwd": 6, "fused_prologue_conv1x1": 0,
+                        "conv1x1_with_stats": 0}
     # the card's startup state is the CPU run's starting point
     scope = tfluid.Scope()
     exe = tfluid.Executor(tfluid.CUDAPlace(0))

@@ -1,5 +1,6 @@
-"""paddle_tpu_torch stands alone: it imports neither jax nor paddle_tpu,
-and its entry points run on the card unless the caller asks for the CPU.
+"""paddle_tpu_torch stands alone: it imports neither jax, paddle_tpu nor
+the repository's tools/, and its entry points run on the card unless the
+caller asks for the CPU.
 
 `paddle_tpu_torch` starts with `paddle_tpu`, so the checks match the exact
 name or the `paddle_tpu.` prefix, never a bare prefix."""
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "tools")
 
 
 def _forbidden(module):
@@ -23,8 +24,9 @@ def _forbidden(module):
 
 def test_forbidden_matcher_does_not_catch_the_port():
     assert _forbidden("paddle_tpu") and _forbidden("paddle_tpu.ops.pallas")
-    assert _forbidden("jax.numpy")
+    assert _forbidden("jax.numpy") and _forbidden("tools.fused_block_pallas")
     assert not _forbidden("paddle_tpu_torch") and not _forbidden("paddle_tpu_torch.io")
+    assert not _forbidden("toolsmith")
 
 
 def test_import_loads_neither_jax_nor_paddle_tpu():
@@ -35,8 +37,11 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.optimizer, paddle_tpu_torch.backward\n"
         "import paddle_tpu_torch.ops.prng, paddle_tpu_torch.ops.optimizer_ops\n"
         "import paddle_tpu_torch.ops.kernels.layer_norm, paddle_tpu_torch.layers.tensor\n"
-        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu')"
-        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.'))))\n"
+        "import paddle_tpu_torch.models.resnet, paddle_tpu_torch.ops.misc_ops\n"
+        "import paddle_tpu_torch.contrib.mixed_precision\n"
+        "import paddle_tpu_torch.ops.kernels.fused_block\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -55,11 +60,15 @@ def _imports(path):
 
 
 def test_no_source_of_the_port_imports_jax_or_paddle_tpu():
+    """Not jax, paddle_tpu or tools, by import or by path."""
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == []
+    # nor loads a module of tools/ (or anything else) by path
+    assert [str(f.relative_to(ROOT)) for f in files
+            if "spec_from_file_location" in f.read_text()] == []
 
 
 def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):

@@ -209,6 +209,15 @@ def test_ln_bwd_plain_matches_pallas_kernel(case, monkeypatch):
     ref = [np.asarray(t.astype(jnp.float32)) for t in j_ln_bwd(
         jnp.asarray(x, jdt), jnp.asarray(dy, jdt), jnp.asarray(mean), jnp.asarray(rstd),
         jnp.asarray(scale))]
+    if dtype == "bfloat16":
+        # dscale follows the JAX package's layer_norm_grad for bf16 X
+        # (nn_ops.py:598-605), which rounds dy and the normalized value to
+        # bf16 before their products; the Pallas body keeps them in fp32
+        def bf(a):
+            return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+        nrm = (bf(x) - mean[:, None]) * rstd[:, None]
+        ref[1] = (bf(dy) * bf(nrm)).sum(axis=0, dtype=np.float32)
     tdt = getattr(torch, dtype)
     launches = dict(LAUNCHES)
     got = ln_bwd(*_torch((x, dy), tdt), *_torch((mean, rstd, scale), torch.float32))
