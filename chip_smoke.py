@@ -9,7 +9,10 @@
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
             aten native_layer_norm_backward; the fused-block kernels'
-            unfused torch twins)
+            unfused torch twins); the short backward's bound is on the
+            tensor cores (its fp32-FMA bound printed beside it), and once
+            at BERT's shape torch.profiler gives each of its two launches'
+            device time
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -143,17 +146,35 @@ def live_pairs(sq, sk, causal):
     return sq * sk
 
 
-def attention_bwd_bound_ms(shape, dtype, bias, causal, peaks):
-    """Least time for the backward: max(bytes of q, k, v, dO, dQ, dK, dV,
-    lse, delta and bias over the memory rate, 10 d FLOPs per live pair of
-    every head (S = QK^T again, dP, dV, dQ, dK) over the dtype's peak)."""
+def attention_bwd_work(shape, dtype, bias, causal):
+    """Bytes (q, k, v, dO, dQ, dK, dV, lse, delta and bias once each) and
+    FLOPs (10 d per live pair of every head: S = QK^T again, dP, dV, dQ,
+    dK) of the attention backward."""
     b, h, sq, sk, d = shape
     esz = 4 if dtype == "float32" else 2
     nbytes = (3 * b * h * sq * d + 4 * b * h * sk * d) * esz + 2 * b * h * sq * 4
     nbytes += b * sk * 4 if bias else 0
-    flops = 10.0 * b * h * live_pairs(sq, sk, causal) * d
+    return nbytes, 10.0 * b * h * live_pairs(sq, sk, causal) * d
+
+
+def attention_bwd_bound_ms(shape, dtype, bias, causal, peaks):
+    """Least time for the backward: max(its bytes over the memory rate,
+    its FLOPs over the dtype's peak without tensor cores for fp32)."""
+    nbytes, flops = attention_bwd_work(shape, dtype, bias, causal)
     bw, fp32, bf16 = peaks
     t_bytes, t_ops = nbytes / bw, flops / (fp32 if dtype == "float32" else bf16)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_bwd_bound_tc_ms(shape, dtype, bias, causal, peaks):
+    """The short backward's bound: it multiplies on the tensor cores, bf16
+    at the bf16 rate and fp32 as 3xTF32, three TF32 products per fp32 one
+    at the TF32 rate (half the bf16 rate on every H100 datasheet); or its
+    bytes, the larger."""
+    nbytes, flops = attention_bwd_work(shape, dtype, bias, causal)
+    bw, _, bf16 = peaks
+    t_bytes = nbytes / bw
+    t_ops = 3 * flops / (bf16 / 2) if dtype == "float32" else flops / bf16
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -450,13 +471,25 @@ def main():
             plain_ms = timed_ms(lambda: plain(*args_, **kw))
             lib_ms = sdpa_bwd_ms(q, k, v, bias, causal, layout, dout)
             bound, bound_by = attention_bwd_bound_ms(shape, dtype, bias_kind, causal, peaks)
+            extra = ""
+            if name == "mha_short_bwd":  # on the tensor cores; the FMA bound for reference
+                extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
+                bound, bound_by = attention_bwd_bound_tc_ms(shape, dtype, bias_kind, causal,
+                                                            peaks)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} bias={bias_kind} "
                   f"causal={causal} dropout={dropout}: max_abs_err {err:.3e} (tol "
                   f"{TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                  f"{lib_ms:.4f} (sdpa backward) bound_ms {bound:.4f} ({bound_by})")
+                  f"{lib_ms:.4f} (sdpa backward) bound_ms {bound:.4f} ({bound_by}){extra}")
             results.setdefault(name, []).append(dict(
                 shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
+            if name == "mha_short_bwd" and shape == bwd_checks[0][1] and not rehearsal:
+                # once at BERT's shape: the device time of each of the two launches
+                per = kernel_device_ms(torch, lambda: wrapper(*args_, **kw),
+                                       ("short_bwd_dkv_kernel", "short_bwd_dq_kernel"))
+                print(f"[kernels] {name} {shape} {layout} {dtype} by launch (torch.profiler): "
+                      f"launch 1 (dK, dV, dS) ms {per['short_bwd_dkv_kernel']}, "
+                      f"launch 2 (dQ) ms {per['short_bwd_dq_kernel']}")
     for n, k in ln_checks:
         for dtype in ("float32", "bfloat16"):
             x = (2 * torch.randn(n, k, generator=gen, device=dev) + 0.5).to(getattr(torch, dtype))
@@ -1069,6 +1102,26 @@ def profile_step(torch, fn, what):
           f"{max(0.0, 1 - busy_ms / wall_ms):.2f}")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {ms:8.3f} ms {100 * ms / busy_ms:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def kernel_device_ms(torch, fn, names, iters=20):
+    """`fn` `iters` times under torch.profiler -> {name: mean device ms of
+    the kernels whose name holds it, or "not measured"}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        evs = [ev for ev in prof.key_averages() if name in ev.key and ev.count]
+        total, count = (sum(ev.self_device_time_total for ev in evs),
+                        sum(ev.count for ev in evs))
+        out[name] = f"{total / count / 1e3:.4f}" if total > 0 else "not measured"
+    return out
 
 
 def host_breakdown(step):

@@ -1,0 +1,192 @@
+// Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), in
+// inline PTX: mma.sync m16n8k8 TF32 and m16n8k16 bf16 with fp32
+// accumulation, the TF32 rounding and the 3xTF32 split, cp.async copies
+// of 16 bytes, and fragment loads from shared tiles.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8 / k16";
+// the same as cute/arch/mma_sm80.hpp), with g = lane / 4, t = lane % 4:
+//   C / D (both shapes): c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+//   A tf32 m16n8k8:  a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+//   B tf32:          b0 (k t, n g), b1 (k t+4, n g)
+//   A bf16 m16n8k16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
+//   B bf16:          b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
+// Each bf16 register holds the lower k index in its low half.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero.
+__device__ __forceinline__ uint32_t mma_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo with hi, lo TF32: hi * b_hi + hi * b_lo + lo * b_hi keeps
+// an fp32 product to about 2^-22 of its size (3xTF32).
+__device__ __forceinline__ void mma_split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = mma_tf32(x);
+  lo = mma_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32_m16n8k8(float c[4], const uint32_t a[4],
+                                                 const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16_m16n8k16(float c[4], const uint32_t a[4],
+                                                  const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats, each already a bf16 value or rounded to one (to nearest
+// even), packed with `lo` in the low half.
+__device__ __forceinline__ uint32_t mma_pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t mma_pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// cp.async of 16 bytes from device to shared memory; src_bytes 0 writes
+// 16 zero bytes and reads nothing (gmem must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- fragments by input type ---------------------------------------------
+// MmaOps<T>: the product step for T (float: 3xTF32 on m16n8k8, bf16: one
+// m16n8k16) and its fragment loads from shared tiles of T with row
+// stride ld (elements):
+//   load_a     A row-major [m][k], rows m0.., depth k0..
+//   load_b_nk  B stored [n][k] (the k axis contiguous)
+//   load_b_kn  B stored [k][n]; for float it reads rows k0 + 2t, 2t + 1
+//              as the k indices t, t + 4, the order of a_from_c
+//   load_a_kn  A row-major in the k order of load_b_kn
+//   a_from_c   A from C fragments of this warp: K / 8 n8 tiles of an
+//              accumulator become the k-step's A (rows kept, columns as k)
+template <typename T>
+struct MmaOps;
+
+template <>
+struct MmaOps<float> {
+  static constexpr int K = 8;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+
+  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
+    mma_tf32_m16n8k8(c, a.lo, b.hi);
+    mma_tf32_m16n8k8(c, a.hi, b.lo);
+    mma_tf32_m16n8k8(c, a.hi, b.hi);
+  }
+  static __device__ __forceinline__ void load_a(A& a, const float* s, int ld, int m0, int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* p = s + (m0 + g) * ld + k0 + t;
+    mma_split_tf32(p[0], a.hi[0], a.lo[0]);
+    mma_split_tf32(p[8 * ld], a.hi[1], a.lo[1]);
+    mma_split_tf32(p[4], a.hi[2], a.lo[2]);
+    mma_split_tf32(p[8 * ld + 4], a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void load_a_kn(A& a, const float* s, int ld, int m0,
+                                                   int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float2 x = *reinterpret_cast<const float2*>(s + (m0 + g) * ld + k0 + 2 * t);
+    const float2 y = *reinterpret_cast<const float2*>(s + (m0 + g + 8) * ld + k0 + 2 * t);
+    mma_split_tf32(x.x, a.hi[0], a.lo[0]);
+    mma_split_tf32(y.x, a.hi[1], a.lo[1]);
+    mma_split_tf32(x.y, a.hi[2], a.lo[2]);
+    mma_split_tf32(y.y, a.hi[3], a.lo[3]);
+  }
+  static __device__ __forceinline__ void load_b_nk(B& b, const float* s, int ld, int n0,
+                                                   int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* p = s + (n0 + g) * ld + k0 + t;
+    mma_split_tf32(p[0], b.hi[0], b.lo[0]);
+    mma_split_tf32(p[4], b.hi[1], b.lo[1]);
+  }
+  static __device__ __forceinline__ void load_b_kn(B& b, const float* s, int ld, int k0,
+                                                   int n0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const float* p = s + (k0 + 2 * t) * ld + n0 + g;
+    mma_split_tf32(p[0], b.hi[0], b.lo[0]);
+    mma_split_tf32(p[ld], b.hi[1], b.lo[1]);
+  }
+  // one n8 tile: c0 (g, 2t) -> k t, c1 (g, 2t+1) -> k t+4
+  static __device__ __forceinline__ void a_from_c(A& a, const float (*c)[4]) {
+    mma_split_tf32(c[0][0], a.hi[0], a.lo[0]);
+    mma_split_tf32(c[0][2], a.hi[1], a.lo[1]);
+    mma_split_tf32(c[0][1], a.hi[2], a.lo[2]);
+    mma_split_tf32(c[0][3], a.hi[3], a.lo[3]);
+  }
+};
+
+template <>
+struct MmaOps<__nv_bfloat16> {
+  typedef __nv_bfloat16 bf16;
+  static constexpr int K = 16;
+  struct A { uint32_t x[4]; };
+  struct B { uint32_t x[2]; };
+
+  static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
+    mma_bf16_m16n8k16(c, a.x, b.x);
+  }
+  static __device__ __forceinline__ uint32_t word(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  static __device__ __forceinline__ void load_a(A& a, const bf16* s, int ld, int m0, int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const bf16* p = s + (m0 + g) * ld + k0 + 2 * t;
+    a.x[0] = word(p);
+    a.x[1] = word(p + 8 * ld);
+    a.x[2] = word(p + 8);
+    a.x[3] = word(p + 8 * ld + 8);
+  }
+  static __device__ __forceinline__ void load_a_kn(A& a, const bf16* s, int ld, int m0,
+                                                   int k0) {
+    load_a(a, s, ld, m0, k0);
+  }
+  static __device__ __forceinline__ void load_b_nk(B& b, const bf16* s, int ld, int n0,
+                                                   int k0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
+    b.x[0] = word(p);
+    b.x[1] = word(p + 8);
+  }
+  static __device__ __forceinline__ void load_b_kn(B& b, const bf16* s, int ld, int k0,
+                                                   int n0) {
+    const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+    const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
+    b.x[0] = mma_pack_bf16(p[0], p[ld]);
+    b.x[1] = mma_pack_bf16(p[8 * ld], p[9 * ld]);
+  }
+  // two n8 tiles make one k16 step; each value rounds to bf16 here
+  static __device__ __forceinline__ void a_from_c(A& a, const float (*c)[4]) {
+    a.x[0] = mma_pack_bf16(c[0][0], c[0][1]);
+    a.x[1] = mma_pack_bf16(c[0][2], c[0][3]);
+    a.x[2] = mma_pack_bf16(c[1][0], c[1][1]);
+    a.x[3] = mma_pack_bf16(c[1][2], c[1][3]);
+  }
+};

@@ -65,6 +65,19 @@ CASES = [
     ("flash", "bshd", 1, 2, 64, 77, 32, True, True, "bfloat16", 0.2),
 ]
 
+# on the card only (the Pallas kernels in interpret mode would take
+# minutes at these sizes): the short backward's edges, d 128 at s 512 in
+# fp32 (its shared-memory edge), d 16 and d 32, bf16 with dropout in
+# bhsd, and d 77 / bf16 d 20, whose rows take the scalar copy
+CUDA_CASES = [
+    ("short", "bshd", 1, 2, 512, 512, 128, True, False, "float32", 0.1),
+    ("short", "bhsd", 2, 2, 96, 80, 16, True, True, "float32", 0.0),
+    ("short", "bshd", 2, 3, 130, 70, 32, False, True, "float32", 0.1),
+    ("short", "bhsd", 2, 2, 128, 128, 64, True, False, "bfloat16", 0.1),
+    ("short", "bhsd", 1, 2, 33, 45, 77, True, False, "float32", 0.0),
+    ("short", "bshd", 1, 2, 64, 50, 20, False, False, "bfloat16", 0.0),
+]
+
 
 def _case_id(c):
     return "-".join(str(x) for x in c)
@@ -246,7 +259,7 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES, ids=_case_id)
+@pytest.mark.parametrize("case", CASES + CUDA_CASES, ids=_case_id)
 def test_cuda_backward_matches_plain(case, cuda_device):
     kernel, layout, b, h, sq, sk, d, use_bias, causal, dtype, dropout = case
     q, k, v, do, bias = _inputs(layout, b, h, sq, sk, d, use_bias)
@@ -291,15 +304,18 @@ def test_cuda_ln_bwd_matches_plain(case, cuda_device):
 
 @pytest.mark.gpu
 def test_cuda_backward_kernels_are_deterministic(cuda_device):
-    """No atomics: two launches on the same inputs agree bitwise."""
+    """No atomics: two launches on the same inputs agree bitwise, with
+    dropout, in fp32 and bf16."""
     q, k, v, do, bias = _inputs("bshd", 2, 4, 128, 128, 64, True)
-    qt, kt, vt, dot = _torch((q, k, v, do), torch.float32, cuda_device)
     bt = torch.from_numpy(bias).to(cuda_device)
-    out, lse = short_attention(qt, kt, vt, bias=bt, layout="bshd")
-    delta = attention_delta(out, dot, "bshd")
-    a = short_attention_bwd(qt, kt, vt, bt, dot, lse, delta, layout="bshd")
-    b = short_attention_bwd(qt, kt, vt, bt, dot, lse, delta, layout="bshd")
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for dtype in (torch.float32, torch.bfloat16):
+        qt, kt, vt, dot = _torch((q, k, v, do), dtype, cuda_device)
+        kw = dict(dropout=0.1, seed=99, layout="bshd")
+        out, lse = short_attention(qt, kt, vt, bias=bt, **kw)
+        delta = attention_delta(out, dot, "bshd")
+        a = short_attention_bwd(qt, kt, vt, bt, dot, lse, delta, **kw)
+        b = short_attention_bwd(qt, kt, vt, bt, dot, lse, delta, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
     x, dy, mean, rstd, scale = _ln_inputs(1024, 768)
     args = (*_torch((x, dy, mean, rstd, scale), torch.float32, cuda_device),)
     assert all(torch.equal(x, y) for x, y in zip(ln_bwd(*args), ln_bwd(*args)))
