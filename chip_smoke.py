@@ -9,8 +9,9 @@
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
             aten native_layer_norm_backward; the fused-block kernels'
-            unfused torch twins); the short backward's bound is on the
-            tensor cores (its fp32-FMA bound printed beside it), and once
+            unfused torch twins); the flash forward's and the short
+            backward's bounds are on the tensor cores (their fp32-FMA
+            bounds printed beside them), and once
             at BERT's shape torch.profiler gives each of its two launches'
             device time
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
@@ -125,19 +126,15 @@ def card_peaks(name):
     return "H100 (assumed: card not in the table)", CARD_PEAKS["H100"]
 
 
-def attention_bound_ms(shape, dtype, bias, causal, peaks):
-    """Least time for the function: max(bytes of q, k, v, out, bias, lse
-    over the memory rate, 4 d FLOPs per live (query, key) pair of every
-    head over the peak for the dtype)."""
+def attention_work(shape, dtype, bias, causal):
+    """Bytes (q, k, v, out, lse and bias once each) and FLOPs (4 d per live
+    (query, key) pair of every head: S = QK^T and PV) of the attention
+    forward."""
     b, h, sq, sk, d = shape
     esz = 4 if dtype == "float32" else 2
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * esz + b * h * sq * 4
     nbytes += b * sk * 4 if bias else 0
-    flops = 4.0 * b * h * live_pairs(sq, sk, causal) * d
-    bw, fp32, bf16 = peaks
-    t_bytes = nbytes / bw
-    t_ops = flops / (fp32 if dtype == "float32" else bf16)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return nbytes, 4.0 * b * h * live_pairs(sq, sk, causal) * d
 
 
 def live_pairs(sq, sk, causal):
@@ -157,24 +154,19 @@ def attention_bwd_work(shape, dtype, bias, causal):
     return nbytes, 10.0 * b * h * live_pairs(sq, sk, causal) * d
 
 
-def attention_bwd_bound_ms(shape, dtype, bias, causal, peaks):
-    """Least time for the backward: max(its bytes over the memory rate,
-    its FLOPs over the dtype's peak without tensor cores for fp32)."""
-    nbytes, flops = attention_bwd_work(shape, dtype, bias, causal)
+def bound_ms(work, dtype, peaks, tensor_cores=False):
+    """Least time for `work` = (bytes, FLOPs): max(its bytes over the memory
+    rate, its FLOPs over the dtype's peak) -> (ms, what bounds it). Without
+    tensor cores fp32 runs at the FMA units' rate; on them bf16 runs at the
+    bf16 rate and fp32 as 3xTF32, three TF32 products per fp32 one at the
+    TF32 rate (half the bf16 rate on every H100 datasheet)."""
+    nbytes, flops = work
     bw, fp32, bf16 = peaks
-    t_bytes, t_ops = nbytes / bw, flops / (fp32 if dtype == "float32" else bf16)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def attention_bwd_bound_tc_ms(shape, dtype, bias, causal, peaks):
-    """The short backward's bound: it multiplies on the tensor cores, bf16
-    at the bf16 rate and fp32 as 3xTF32, three TF32 products per fp32 one
-    at the TF32 rate (half the bf16 rate on every H100 datasheet); or its
-    bytes, the larger."""
-    nbytes, flops = attention_bwd_work(shape, dtype, bias, causal)
-    bw, _, bf16 = peaks
     t_bytes = nbytes / bw
-    t_ops = 3 * flops / (bf16 / 2) if dtype == "float32" else flops / bf16
+    if dtype != "float32":
+        t_ops = flops / bf16
+    else:
+        t_ops = 3 * flops / (bf16 / 2) if tensor_cores else flops / fp32
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -386,11 +378,16 @@ def main():
             ms = timed_ms(run)
             plain_ms = timed_ms(lambda: plain(q, k, v, **kw))
             lib_ms = sdpa_ms(q, k, v, bias, causal, layout)
-            bound, bound_by = attention_bound_ms(shape, dtype, bias_kind, causal, peaks)
+            work = attention_work(shape, dtype, bias_kind, causal)
+            bound, bound_by = bound_ms(work, dtype, peaks)
+            extra = ""
+            if name == "flash_fwd":  # on the tensor cores; the FMA bound for reference
+                extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
+                bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} "
                   f"bias={bias_kind} causal={causal} via_op={via_op}: max_abs_err "
                   f"{err:.3e} (tol {TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                  f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({bound_by})")
+                  f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){extra}")
             results.setdefault(name, []).append(dict(
                 shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
@@ -470,12 +467,12 @@ def main():
             ms = timed_ms(lambda: wrapper(*args_, **kw))
             plain_ms = timed_ms(lambda: plain(*args_, **kw))
             lib_ms = sdpa_bwd_ms(q, k, v, bias, causal, layout, dout)
-            bound, bound_by = attention_bwd_bound_ms(shape, dtype, bias_kind, causal, peaks)
+            work = attention_bwd_work(shape, dtype, bias_kind, causal)
+            bound, bound_by = bound_ms(work, dtype, peaks)
             extra = ""
             if name == "mha_short_bwd":  # on the tensor cores; the FMA bound for reference
                 extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
-                bound, bound_by = attention_bwd_bound_tc_ms(shape, dtype, bias_kind, causal,
-                                                            peaks)
+                bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} bias={bias_kind} "
                   f"causal={causal} dropout={dropout}: max_abs_err {err:.3e} (tol "
                   f"{TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "

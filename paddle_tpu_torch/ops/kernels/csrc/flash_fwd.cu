@@ -1,11 +1,12 @@
-// Blocked online-softmax attention forward, any sequence length.
+// Blocked online-softmax attention forward, any sequence length, on the
+// tensor cores.
 //
 // Replaces: paddle_tpu/ops/pallas/flash_attention.py, the Pallas kernels
 // _fwd_kernel / _fwd_kernel_nobias reached from _fwd_pallas (via
 // flash_attention / _flash_core). The TPU kernel walks a sequential grid
 // axis over key blocks and carries m / l / acc in VMEM scratch from one
 // grid step to the next; here that axis is a loop inside the block, with
-// the same running values in registers and shared memory.
+// the same running values in registers.
 //
 // Function: per key tile, S = Q K^T * scale + bias[key], causal keys past
 // q + (sk - sq) set to NEG_INF; m_new = max(m, rowmax(S)) with m starting
@@ -14,161 +15,303 @@
 // (p / (1 - rate)), acc = alpha acc + (P as v's dtype) V. After the last
 // tile: O = acc / l (l == 0 -> 1), lse = m + log(l), written once.
 //
-// What bounds it on the H100: at s = 2048, d = 64 the operations
-// (4 b h sq sk d) outweigh the bytes (q, k, v, out once each) by ~500
-// FLOP per byte, far past the fp32 FMA units' ridge (~20 FLOP/byte at
-// 67 TFLOP/s and 3.35 TB/s), so the operations bound it. This first
-// version multiplies on the FMA units from shared memory, without tensor
-// cores; wgmma with TMA-fed tiles is later work.
+// What bounds it on the H100: the operations. At b 2, h 12, s 2048, d 64,
+// causal, the 2,098,176 live (query, key) pairs of each of 24 heads need
+// 4 d FLOPs each, 12.89 GFLOP, against 25 MB of q, k, v, out and lse
+// (7.6 us at 3.35 TB/s). On the tensor cores fp32 runs as 3xTF32, three
+// TF32 products per fp32 one: 3 x 12.89 GFLOP at 494.5 TFLOP/s = 78 us;
+// bf16 12.89 GFLOP at 989 TFLOP/s = 13 us. (The FMA units would need
+// 192 us in fp32.)
 //
-// Design: one block of 256 threads per (64 query rows, head, batch). The
-// Q tile stays in shared memory for the whole loop; each 64-key tile of K
-// is loaded, its 64 x 64 scores written to a small P buffer, one warp per
-// row updates that row's m and l and turns the scores into P, then the V
-// tile replaces K in the same buffer and every thread rescales and
-// accumulates its 4 x 8 slice of the output in registers. Ragged key
-// tiles and query rows are masked in the kernel; nothing is padded (the
-// TPU path pads d to 128 and s to a block multiple).
+// Design, against what held the first (FMA) version back:
+// - Products on the tensor cores with warp-level mma.sync
+//   (mma_common.cuh): bf16 as m16n8k16 with fp32 accumulation, fp32 as
+//   3xTF32 on m16n8k8 (x = hi + lo; hi*hi + hi*lo + lo*hi keeps a product
+//   to ~2^-22 of its size; one TF32 pass perturbs S by ~5e-4, which exp
+//   carries past the 1e-4 gate). The FMA loops read 8 and 12 shared words
+//   for 16 and 32 FMAs and were bound by shared memory, not arithmetic.
+// - A block has 4 warps over 64 query rows, 16 rows a warp. The Q tile is
+//   copied in once with cp.async and held as A fragments in registers for
+//   the whole loop (fp32: hi / lo split once), except fp32 at d > 64, whose
+//   128 registers of Q would spill: it reloads Q's fragments from shared
+//   memory each tile.
+// - S = Q K^T stays in registers as C fragments. Each row lives on the 4
+//   lanes of a quad, so the online softmax's row max and sum are two
+//   __shfl_xor_sync steps: no shared round trip of S, no barrier between
+//   the softmax and P V. Dropout hashes each fragment element's own
+//   (query, key). P feeds P V straight from registers (MmaOps::a_from_c;
+//   for TF32 the permuted k order, which load_b_kn reads V in); the O
+//   accumulator, 16 x d per warp, stays in registers and is rescaled by
+//   alpha per tile. The softmax runs in base 2 with log2(e) folded into
+//   the scale, so each score costs one exp2, a single MUFU op.
+// - K, V and the key bias are double-buffered with cp.async in separate
+//   buffers: the next tile's copy is in flight while this one computes,
+//   and V no longer waits for the softmax. Rows are padded by 16 bytes, so
+//   the fragment loads are free of bank conflicts; in bf16 one ldmatrix
+//   (.trans for V) loads two B fragments. Two barriers a tile (the first
+//   version had four).
+// - Occupancy: fp32 at d <= 64 keeps Q's 64 registers of fragments and
+//   runs 2 blocks (8 warps) an SM, held by its 87.5 KB of shared memory;
+//   bf16 at d <= 64 (46.5 KB) is held to 168 registers, so 3 blocks fit
+//   an SM (at 170 registers only 2 did, and a one-wave grid took two).
+// - Causal: a query tile stops at the last key its last row sees, so the
+//   tiles past the diagonal (496 of 1024 tile pairs at s 2048) are never
+//   loaded, and the mask is evaluated only on tiles that cross it. This is
+//   exact for every row with a live key (a later tile would give p = 0 and
+//   alpha = 1). A row with no live key (sq > sk, q + sk - sq < 0) has
+//   p = exp(0) = 1 over all sk keys in the reference, so a query tile that
+//   holds one walks every key tile. Causal grids take the query tiles in
+//   reverse order, longest rows first, so the tail of the grid is short.
+// - Edges: d is padded with zeros in shared memory to DP in {64, 128};
+//   ragged query rows and keys are masked (keys past sk get p = 0). A
+//   16-byte copy runs where rows and bases are 16-byte aligned, a scalar
+//   copy inside the kernel otherwise.
+// - No atomics: each output element is one thread's sum over the key
+//   tiles in order, so two launches agree bit for bit.
 #include "attn_common.cuh"
+#include "mma_common.cuh"
 
-template <typename T>
-__global__ void __launch_bounds__(ATTN_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, AttnStrides st, int H,
-                 int sq, int sk, int d, float sm_scale, int causal, int dropout_on,
-                 float drop_div, uint32_t thresh, uint32_t seed) {
-  extern __shared__ float smem[];
-  const int ld = d + 1;
-  const int ldp = ATTN_TK + 1;
-  float* q_s = smem;                    // [TQ][ld]
-  float* kv_s = q_s + ATTN_TQ * ld;     // [TK][ld] K tile, then V tile
-  float* p_s = kv_s + ATTN_TK * ld;     // [TQ][ldp] scores, then P
-  float* m_s = p_s + ATTN_TQ * ldp;     // [TQ] running max
-  float* l_s = m_s + ATTN_TQ;           // [TQ] running sum
-  float* a_s = l_s + ATTN_TQ;           // [TQ] this tile's rescale factor
+// Scores in base 2 (S log2(e), then exp2). The mask sentinel there is
+// NEG_INF log2(e), so a row that sees no key gets m ln(2) = NEG_INF in its
+// lse, as the plain version does.
+#define FLASH_LOG2E 1.4426950408889634f
+#define FLASH_LN2 0.6931471805599453f
+#define FLASH_NEG_INF2 (ATTN_NEG_INF * FLASH_LOG2E)
 
-  const int q0 = blockIdx.x * ATTN_TQ;
-  const int hi = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int offset = sk - sq;  // bottom-right aligned causal mask
-  const long long qbase = bi * st.qb + hi * st.qh;
-  const long long kbase = bi * st.kb + hi * st.kh;
-  const long long vbase = bi * st.vb + hi * st.vh;
-  const long long obase = bi * st.ob + hi * st.oh;
+template <typename T, int DP>
+struct FlashFwdTile {
+  static constexpr int BQ = 64, BK = 64;  // query rows, keys per tile
+  static constexpr int NT = 128;          // 4 warps x 16 query rows
+  static constexpr int LD = DP + 16 / (int)sizeof(T);  // row stride: 16-byte pad
+  // Q as A fragments in registers; fp32 at d > 64 would take 128 registers
+  static constexpr bool Q_IN_REGS = sizeof(T) == 2 || DP <= 64;
+  // Q, two stages of K and V, two of the key bias
+  static constexpr size_t SMEM = sizeof(T) * (size_t)(BQ + 4 * BK) * LD + sizeof(float) * 2 * BK;
+  // bf16 at d <= 64 (47 KB) runs 3 blocks an SM if it keeps to 168
+  // registers; the others are held to 1-2 blocks by shared memory
+  static constexpr int MIN_BLOCKS = sizeof(T) == 2 && DP <= 64 ? 3 : 1;
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(FlashFwdTile<T, DP>::NT, FlashFwdTile<T, DP>::MIN_BLOCKS)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ lse,
+                 AttnStrides st, int H, int sq, int sk, int d, float sm_scale, int causal,
+                 int dropout_on, float drop_div, uint32_t thresh, uint32_t seed, int vec) {
+  typedef MmaOps<T> M;
+  typedef FlashFwdTile<T, DP> P;
+  constexpr int BQ = P::BQ, BK = P::BK, NT = P::NT, LD = P::LD;
+  constexpr int NS = BK / 8;     // n8 tiles of S per warp
+  constexpr int NO = DP / 8;     // n8 tiles of O per warp
+  constexpr int KQ = DP / M::K;  // k-steps of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* q_s = reinterpret_cast<T*>(smem_raw);                   // [BQ][LD]
+  T* k_s = q_s + BQ * LD;                                    // [2][BK][LD]
+  T* v_s = k_s + 2 * BK * LD;                                // [2][BK][LD]
+  float* b_s = reinterpret_cast<float*>(v_s + 2 * BK * LD);  // [2][BK]
+
+  const int bi = blockIdx.x / H, hi = blockIdx.x % H;
+  const int q0 = (causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) * BQ;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int wq = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
+  const int offset = sk - sq;              // bottom-right aligned causal mask
   const uint32_t bh = (uint32_t)(bi * H + hi);
+  const long long kbase = bi * st.kb + hi * st.kh, vbase = bi * st.vb + hi * st.vh;
+  const float* brow = bias != nullptr ? bias + (long long)bi * sk : nullptr;
 
-  for (int r = threadIdx.x; r < ATTN_TQ; r += blockDim.x) {
-    m_s[r] = ATTN_NEG_INF;
-    l_s[r] = 0.f;
+  // causal: keys up to the tile's last row's limit; a tile with a row that
+  // sees no key walks them all (see the note above)
+  const int k_end = (causal && q0 + offset >= 0) ? min(sk, min(q0 + BQ, sq) + offset) : sk;
+  const int ntiles = (k_end + BK - 1) / BK;
+
+  auto prefetch = [&](int k0, int buf) {
+    mma_load_rows<T, BK, DP, LD, NT>(k_s + buf * BK * LD, k, kbase, st.ks, k0, sk, d, vec);
+    mma_load_rows<T, BK, DP, LD, NT>(v_s + buf * BK * LD, v, vbase, st.vs, k0, sk, d, vec);
+    if (brow != nullptr)
+      for (int j = threadIdx.x; j < BK; j += NT) {
+        const bool ok = k0 + j < sk;
+        cp_async4(b_s + buf * BK + j, ok ? brow + k0 + j : brow, ok ? 4 : 0);
+      }
+    cp_async_commit();
+  };
+
+  mma_load_rows<T, BQ, DP, LD, NT>(q_s, q, bi * st.qb + hi * st.qh, st.qs, q0, sq, d, vec);
+  cp_async_commit();
+  prefetch(0, 0);
+  cp_async_wait<1>();  // Q; the first K / V tile may still be in flight
+  __syncthreads();
+  typename M::A qa[P::Q_IN_REGS ? KQ : 1];
+  if constexpr (P::Q_IN_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) M::load_a(qa[kk], q_s, LD, wq, kk * M::K);
   }
-  attn_load_tile(q_s, ld, q, qbase, st.qs, q0, ATTN_TQ, sq, d);
 
-  float acc[4][8];
+  // rows g and g + 8 of the warp's 16: running max (base 2) and sum
+  const float scale2 = sm_scale * FLASH_LOG2E;
+  float m_r[2] = {FLASH_NEG_INF2, FLASH_NEG_INF2}, l_r[2] = {0.f, 0.f};
+  float o_acc[NO][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
 
-  for (int k0 = 0; k0 < sk; k0 += ATTN_TK) {
-    const int nk = min(ATTN_TK, sk - k0);
-    __syncthreads();  // previous tile's P and V are consumed
-    attn_load_tile(kv_s, ld, k, kbase, st.ks, k0, ATTN_TK, sk, d);
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK, buf = it & 1;
+    if (it + 1 < ntiles) {
+      prefetch(k0 + BK, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    {
-      float s4[4][4];
-      attn_qk_tile(s4, q_s, kv_s, ld, d);
+
+    // S = Q K^T for this warp's 16 rows x BK keys
+    const T* kb = k_s + buf * BK * LD;
+    float s_acc[NS][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i;
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kk = tx + 16 * j;
-          const int key = k0 + kk;
-          if (kk < nk) {
-            float s = s4[i][j] * sm_scale;
-            if (bias != nullptr) s += bias[(long long)bi * sk + key];
-            if (causal && q0 + row + offset < key) s = ATTN_NEG_INF;
-            p_s[row * ldp + kk] = s;
-          }
+      for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; kk += 2) {
+      typename M::A a0, a1;
+      if constexpr (P::Q_IN_REGS) {
+        a0 = qa[kk];
+        a1 = qa[kk + 1];
+      } else {
+        M::load_a(a0, q_s, LD, wq, kk * M::K);
+        M::load_a(a1, q_s, LD, wq, (kk + 1) * M::K);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        typename M::B b0, b1;
+        M::load_b_nk2(b0, b1, kb, LD, 8 * j, kk * M::K);
+        M::mma(s_acc[j], a0, b0);
+        M::mma(s_acc[j], a1, b1);
+      }
+    }
+
+    // scale, bias, masks and the row max, in base 2 (S log2(e)); element e
+    // of n8 tile j is row g + 8 (e >> 1), key 8 j + 2 t + (e & 1)
+    const float* bb = b_s + buf * BK;
+    const bool diag = causal && k0 + BK - 1 > q0 + wq + offset;
+    const bool edge = diag || k0 + BK > sk;
+    float mc[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = 8 * j + 2 * t + (e & 1);
+        float s = s_acc[j][e] * scale2;
+        if (brow != nullptr) s = fmaf(bb[kl], FLASH_LOG2E, s);
+        if (edge) {
+          const int ki = k0 + kl, qi = q0 + wq + g + 8 * (e >> 1);
+          if (causal && qi + offset < ki) s = FLASH_NEG_INF2;
+          if (ki >= sk) s = -INFINITY;  // past the keys: p = 0
         }
+        s_acc[j][e] = s;
+        mc[e >> 1] = fmaxf(mc[e >> 1], s);
       }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      mc[h2] = fmaxf(mc[h2], __shfl_xor_sync(0xffffffffu, mc[h2], 1));
+      mc[h2] = fmaxf(mc[h2], __shfl_xor_sync(0xffffffffu, mc[h2], 2));
+      const float m_new = fmaxf(m_r[h2], mc[h2]);
+      alpha[h2] = exp2f(m_r[h2] - m_new);
+      m_r[h2] = m_new;
     }
-    __syncthreads();
+    // P = exp(S - m); l sums P before dropout; P as v's dtype feeds P V
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h2 = e >> 1;
+        float p = exp2f(s_acc[j][e] - m_r[h2]);
+        rs[h2] += p;
+        if (dropout_on) {
+          const uint32_t qi = (uint32_t)(q0 + wq + g + 8 * h2);
+          const uint32_t ki = (uint32_t)(k0 + 8 * j + 2 * t + (e & 1));
+          p = attn_dropout_keep(seed, bh, qi, ki, thresh) ? p / drop_div : 0.f;
+        }
+        s_acc[j][e] = p;
+      }
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      rs[h2] += __shfl_xor_sync(0xffffffffu, rs[h2], 1);
+      rs[h2] += __shfl_xor_sync(0xffffffffu, rs[h2], 2);
+      l_r[h2] = alpha[h2] * l_r[h2] + rs[h2];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][e] *= alpha[e >> 1];
 
-    // online softmax update, one warp per row
-    for (int row = warp; row < ATTN_TQ; row += ATTN_THREADS / 32) {
-      float* pr = p_s + row * ldp;
-      float mc = -INFINITY;
-      for (int j = lane; j < nk; j += 32) mc = fmaxf(mc, pr[j]);
-      mc = attn_warp_max(mc);
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, mc);
-      const uint32_t qi = (uint32_t)(q0 + row);
-      float sum = 0.f;
-      for (int j = lane; j < nk; j += 32) {
-        float p = expf(pr[j] - m_new);
-        sum += p;
-        if (dropout_on)
-          p = attn_dropout_keep(seed, bh, qi, (uint32_t)(k0 + j), thresh) ? p / drop_div : 0.f;
-        pr[j] = attn_round_like<T>(p);
-      }
-      sum = attn_warp_sum(sum);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[row] = alpha;
-        l_s[row] = alpha * l_s[row] + sum;
-        m_s[row] = m_new;
+    // O += P V: the C fragments of P are the A operands
+    const T* vb = v_s + buf * BK * LD;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += M::K) {
+      typename M::A a;
+      M::a_from_c(a, s_acc + kk / 8);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        typename M::B b0, b1;
+        M::load_b_kn2(b0, b1, vb, LD, kk, 8 * n);
+        M::mma(o_acc[n], a, b0);
+        M::mma(o_acc[n + 1], a, b1);
       }
     }
-    __syncthreads();  // P, alpha ready; K no longer needed
-    attn_load_tile(kv_s, ld, v, vbase, st.vs, k0, ATTN_TK, sk, d);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
-    }
-    attn_pv_tile(acc, p_s, ldp, kv_s, ld, nk, d);
+    __syncthreads();  // the next prefetch overwrites this tile's buffers
   }
 
+  const long long obase = bi * st.ob + hi * st.oh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty + 16 * i;
-    const int qi = q0 + row;
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int qi = q0 + wq + g + 8 * h2;
     if (qi >= sq) continue;
-    const float l = l_s[row];
-    const float l_safe = (l == 0.f) ? 1.f : l;
+    const float l_safe = (l_r[h2] == 0.f) ? 1.f : l_r[h2];
+    T* orow = out + obase + (long long)qi * st.os;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) out[obase + (long long)qi * st.os + col] = attn_from_float<T>(acc[i][j] / l_safe);
-    }
-    if (tx == 0) lse[((long long)bi * H + hi) * sq + qi] = m_s[row] + logf(l_safe);
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * n + 2 * t + c;
+        if (col < d) orow[col] = attn_from_float<T>(o_acc[n][2 * h2 + c] / l_safe);
+      }
+    if (t == 0) lse[(long long)bh * sq + qi] = m_r[h2] * FLASH_LN2 + logf(l_safe);
   }
 }
 
-template <typename T>
-static int launch(const void* q, const void* k, const void* v, const float* bias,
-                  void* out, float* lse, int B, int H, int sq, int sk, int d,
-                  const AttnStrides& st, float sm_scale, int causal, int dropout_on,
-                  float drop_div, uint32_t thresh, uint32_t seed, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)(ATTN_TQ + ATTN_TK) * (d + 1) +
-                                       (size_t)ATTN_TQ * (ATTN_TK + 1) + 3 * ATTN_TQ);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+template <typename T, int DP>
+static int flash_fwd_launch(const void* q, const void* k, const void* v, const float* bias,
+                            void* out, float* lse, int B, int H, int sq, int sk, int d,
+                            const AttnStrides& st, float sm_scale, int causal,
+                            int dropout_on, float drop_div, uint32_t thresh, uint32_t seed,
+                            int vec, cudaStream_t stream) {
+  typedef FlashFwdTile<T, DP> P;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         (int)P::SMEM);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sq + ATTN_TQ - 1) / ATTN_TQ, H, B);
-  flash_fwd_kernel<T><<<grid, ATTN_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      bias, static_cast<T*>(out), lse, st, H, sq, sk, d, sm_scale, causal, dropout_on,
-      drop_div, thresh, seed);
+  const dim3 grid(B * H, (sq + P::BQ - 1) / P::BQ);
+  flash_fwd_kernel<T, DP><<<grid, P::NT, P::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
+      static_cast<T*>(out), lse, st, H, sq, sk, d, sm_scale, causal, dropout_on, drop_div,
+      thresh, seed, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int flash_fwd_dispatch_d(const void* q, const void* k, const void* v,
+                                const float* bias, void* out, float* lse, int B, int H,
+                                int sq, int sk, int d, const AttnStrides& st, float sm_scale,
+                                int causal, int dropout_on, float drop_div, uint32_t thresh,
+                                uint32_t seed, int vec, cudaStream_t s) {
+  if (d <= 64)
+    return flash_fwd_launch<T, 64>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
+                                   causal, dropout_on, drop_div, thresh, seed, vec, s);
+  return flash_fwd_launch<T, 128>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
+                                  causal, dropout_on, drop_div, thresh, seed, vec, s);
 }
 
 // C entry point, bound with ctypes. strides: 12 element strides (b, s, h)
@@ -179,12 +322,20 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const floa
                          int sk, int d, const long long* strides, float sm_scale,
                          int causal, int dropout_on, float drop_div, unsigned int thresh,
                          unsigned int seed, void* stream) {
-  if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || (sq + 63) / 64 > 65535)
+    return (int)cudaErrorInvalidValue;
   const AttnStrides st = attn_strides_from(strides);
+  // 16-byte copies need every row of q, k and v to start 16-byte aligned
+  const long long esz = is_bf16 ? 2 : 4;
+  bool vec = d % (16 / esz) == 0;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && (strides[i] * esz) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
-                                 causal, dropout_on, drop_div, thresh, seed, s);
-  return launch<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale, causal,
-                       dropout_on, drop_div, thresh, seed, s);
+    return flash_fwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                               sm_scale, causal, dropout_on, drop_div,
+                                               thresh, seed, vec, s);
+  return flash_fwd_dispatch_d<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
+                                     causal, dropout_on, drop_div, thresh, seed, vec, s);
 }

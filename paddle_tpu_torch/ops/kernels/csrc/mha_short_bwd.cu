@@ -67,33 +67,6 @@
 #include "attn_bwd.cuh"  // AttnBwdStrides and attn_common.cuh
 #include "mma_common.cuh"
 
-// Rows [s0, s0 + ROWS) of one (b, h) slice into a [ROWS][LD] shared tile,
-// columns [0, DP): rows at or past `valid` and columns at or past d are
-// zero. vec: 16-byte cp.async (rows, base and d 16-byte aligned), else a
-// scalar copy.
-template <typename T, int ROWS, int DP, int LD, int NT>
-__device__ __forceinline__ void sb_load_rows(T* dst, const T* src, long long base,
-                                             long long s_stride, int s0, int valid, int d,
-                                             bool vec) {
-  if (vec) {
-    constexpr int C = 16 / sizeof(T);
-    constexpr int CPR = DP / C;
-    for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
-      const int r = idx / CPR, c = (idx % CPR) * C;
-      const bool ok = s0 + r < valid && c < d;
-      cp_async16(dst + r * LD + c, ok ? src + base + (long long)(s0 + r) * s_stride + c : src,
-                 ok ? 16 : 0);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
-      const int r = idx / DP, c = idx % DP;
-      T x = attn_from_float<T>(0.f);
-      if (s0 + r < valid && c < d) x = src[base + (long long)(s0 + r) * s_stride + c];
-      dst[r * LD + c] = x;
-    }
-  }
-}
-
 template <typename T, int DP>
 struct ShortBwdTile {
   static constexpr int BQ = DP <= 64 ? 64 : 32;      // query rows per tile (launch 1)
@@ -151,8 +124,8 @@ short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long row0 = (long long)bh * sq;
   const long long qbase = bi * st.qb + hi * st.qh, obase = bi * st.ob + hi * st.oh;
 
-  sb_load_rows<T, BK, DP, LD, NT>(k_s, k, bi * st.kb + hi * st.kh, st.ks, k0, sk, d, vec);
-  sb_load_rows<T, BK, DP, LD, NT>(v_s, v, bi * st.vb + hi * st.vh, st.vs, k0, sk, d, vec);
+  mma_load_rows<T, BK, DP, LD, NT>(k_s, k, bi * st.kb + hi * st.kh, st.ks, k0, sk, d, vec);
+  mma_load_rows<T, BK, DP, LD, NT>(v_s, v, bi * st.vb + hi * st.vh, st.vs, k0, sk, d, vec);
   cp_async_commit();
 
   // this thread's two keys (rows g and g + 8 of the warp's C fragments)
@@ -174,8 +147,8 @@ short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_begin = causal ? max(0, k0 - offset) / BQ * BQ : 0;
   for (int q0 = q_begin; q0 < sq; q0 += BQ) {
     // one stage: the other blocks on the SM overlap this one's copies
-    sb_load_rows<T, BQ, DP, LD, NT>(q_s, q, qbase, st.qs, q0, sq, d, vec);
-    sb_load_rows<T, BQ, DP, LD, NT>(do_s, dout, obase, st.os, q0, sq, d, vec);
+    mma_load_rows<T, BQ, DP, LD, NT>(q_s, q, qbase, st.qs, q0, sq, d, vec);
+    mma_load_rows<T, BQ, DP, LD, NT>(do_s, dout, obase, st.os, q0, sq, d, vec);
     cp_async_commit();
     for (int r = threadIdx.x; r < BQ; r += NT) {
       const bool ok = q0 + r < sq;
@@ -320,7 +293,7 @@ short_bwd_dq_kernel(const T* __restrict__ k, const T* __restrict__ ds_in,
       cp_async16(dst + r * LDS + c, ok ? ds_in + (row0 + q0 + r) * skp + k0 + c : ds_in,
                  ok ? 16 : 0);
     }
-    sb_load_rows<T, BK, DP, LD, NT>(k_s + buf * BK * LD, k, kbase, st.ks, k0, sk, d, vec);
+    mma_load_rows<T, BK, DP, LD, NT>(k_s + buf * BK * LD, k, kbase, st.ks, k0, sk, d, vec);
     cp_async_commit();
   };
 

@@ -1,7 +1,8 @@
 // Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), in
 // inline PTX: mma.sync m16n8k8 TF32 and m16n8k16 bf16 with fp32
 // accumulation, the TF32 rounding and the 3xTF32 split, cp.async copies
-// of 16 bytes, and fragment loads from shared tiles.
+// of 16 and 4 bytes, strided row tiles into shared memory, and fragment
+// loads from shared tiles.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k8 / k16";
 // the same as cute/arch/mma_sm80.hpp), with g = lane / 4, t = lane % 4:
@@ -15,6 +16,8 @@
 
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "attn_common.cuh"  // attn_from_float
 
 // Round to TF32 (10 mantissa bits), to nearest with ties away from zero.
 __device__ __forceinline__ uint32_t mma_tf32(float x) {
@@ -67,6 +70,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src
                "r"(src_bytes));
 }
 
+// cp.async of 4 bytes (cached at all levels); src_bytes 0 writes zero.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -75,6 +85,50 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [s0, s0 + ROWS) of one (b, h) slice into a [ROWS][LD] shared tile,
+// columns [0, DP): rows at or past `valid` and columns at or past d are
+// zero. vec: 16-byte cp.async (rows, base and d 16-byte aligned), else a
+// scalar copy.
+template <typename T, int ROWS, int DP, int LD, int NT>
+__device__ __forceinline__ void mma_load_rows(T* dst, const T* src, long long base,
+                                              long long s_stride, int s0, int valid, int d,
+                                              bool vec) {
+  if (vec) {
+    constexpr int C = 16 / sizeof(T);
+    constexpr int CPR = DP / C;
+    for (int idx = threadIdx.x; idx < ROWS * CPR; idx += NT) {
+      const int r = idx / CPR, c = (idx % CPR) * C;
+      const bool ok = s0 + r < valid && c < d;
+      cp_async16(dst + r * LD + c, ok ? src + base + (long long)(s0 + r) * s_stride + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * DP; idx += NT) {
+      const int r = idx / DP, c = idx % DP;
+      T x = attn_from_float<T>(0.f);
+      if (s0 + r < valid && c < d) x = src[base + (long long)(s0 + r) * s_stride + c];
+      dst[r * LD + c] = x;
+    }
+  }
+}
+
+// ldmatrix of four 8 x 8 b16 matrices; lanes 8 m .. 8 m + 7 give the row
+// addresses of matrix m, which lands in r[m]: row g, columns 2t, 2t+1
+// (.trans: column g, rows 2t, 2t+1), the lower index in the low half.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
 // ---- fragments by input type ---------------------------------------------
@@ -88,6 +142,9 @@ __device__ __forceinline__ void cp_async_wait() {
 //   load_a_kn  A row-major in the k order of load_b_kn
 //   a_from_c   A from C fragments of this warp: K / 8 n8 tiles of an
 //              accumulator become the k-step's A (rows kept, columns as k)
+//   load_b_nk2 load_b_nk at k-steps k0 and k0 + K
+//   load_b_kn2 load_b_kn at n-tiles n0 and n0 + 8
+// (bf16's pairs are one ldmatrix each; rows 16-byte aligned)
 template <typename T>
 struct MmaOps;
 
@@ -133,6 +190,16 @@ struct MmaOps<float> {
     const float* p = s + (k0 + 2 * t) * ld + n0 + g;
     mma_split_tf32(p[0], b.hi[0], b.lo[0]);
     mma_split_tf32(p[ld], b.hi[1], b.lo[1]);
+  }
+  static __device__ __forceinline__ void load_b_nk2(B& b0, B& b1, const float* s, int ld,
+                                                    int n0, int k0) {
+    load_b_nk(b0, s, ld, n0, k0);
+    load_b_nk(b1, s, ld, n0, k0 + K);
+  }
+  static __device__ __forceinline__ void load_b_kn2(B& b0, B& b1, const float* s, int ld,
+                                                    int k0, int n0) {
+    load_b_kn(b0, s, ld, k0, n0);
+    load_b_kn(b1, s, ld, k0, n0 + 8);
   }
   // one n8 tile: c0 (g, 2t) -> k t, c1 (g, 2t+1) -> k t+4
   static __device__ __forceinline__ void a_from_c(A& a, const float (*c)[4]) {
@@ -181,6 +248,28 @@ struct MmaOps<__nv_bfloat16> {
     const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
     b.x[0] = mma_pack_bf16(p[0], p[ld]);
     b.x[1] = mma_pack_bf16(p[8 * ld], p[9 * ld]);
+  }
+  // matrices: rows n0.., columns k0, k0 + 8, k0 + 16, k0 + 24
+  static __device__ __forceinline__ void load_b_nk2(B& b0, B& b1, const bf16* s, int ld,
+                                                    int n0, int k0) {
+    const int lane = threadIdx.x & 31;
+    uint32_t r[4];
+    ldmatrix_x4(r, s + (n0 + (lane & 7)) * ld + k0 + 8 * (lane >> 3));
+    b0.x[0] = r[0];
+    b0.x[1] = r[1];
+    b1.x[0] = r[2];
+    b1.x[1] = r[3];
+  }
+  // matrices (transposed): rows k0.. and k0 + 8.., columns n0 and n0 + 8
+  static __device__ __forceinline__ void load_b_kn2(B& b0, B& b1, const bf16* s, int ld,
+                                                    int k0, int n0) {
+    const int lane = threadIdx.x & 31, m = lane >> 3;
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, s + (k0 + (lane & 7) + 8 * (m & 1)) * ld + n0 + 8 * (m >> 1));
+    b0.x[0] = r[0];
+    b0.x[1] = r[1];
+    b1.x[0] = r[2];
+    b1.x[1] = r[3];
   }
   // two n8 tiles make one k16 step; each value rounds to bf16 here
   static __device__ __forceinline__ void a_from_c(A& a, const float (*c)[4]) {

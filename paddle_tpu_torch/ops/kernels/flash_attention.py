@@ -1,7 +1,8 @@
 """Attention over any sequence length: the wrappers of the blocked
 online-softmax CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu), their
-plain PyTorch versions, and the launch plumbing the short and flash
-kernels share.
+plain PyTorch versions, a mirror of the forward's block math, and the
+launch plumbing and tensor-core emulation the short and flash kernels
+share.
 
 Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Semantics: q
 [b, h, sq, d] (layout "bhsd") or [b, sq, h, d] ("bshd"), k / v likewise
@@ -36,11 +37,13 @@ __all__ = [
     "dropout_keep_mask",
     "attention_plain",
     "flash_attention_plain",
+    "flash_attention_fwd_mirror",
     "flash_attention",
     "attention_bwd_plain",
     "flash_attention_bwd_plain",
     "flash_attention_bwd",
     "attention_delta",
+    "tf32_round",
 ]
 
 _M32 = 0xFFFFFFFF
@@ -182,6 +185,84 @@ def flash_attention_plain(q, k, v, bias=None, causal=False, sm_scale=None,
     _attention_unfused semantics, plus lse)."""
     return attention_plain(q, k, v, bias, causal, sm_scale, dropout, seed,
                            layout, clamp_max=False)
+
+
+def tf32_round(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as `cvt.rna.tf32.f32` rounds: round the low 13 bits of the
+    magnitude."""
+    bits = x.float().contiguous().view(torch.int32)
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
+    return ((bits & -2**31) | mag).view(torch.float32)
+
+
+def _mma(a, b):
+    """a @ b as the kernels' tensor cores make it, in float32. float32
+    inputs: 3xTF32 (a = hi + lo, hi*hi + hi*lo + lo*hi); bf16 inputs:
+    exact products. The TF32 products are exact in float64, where they are
+    summed, and the sum rounds once to float32 (the card's fp32
+    accumulation rounds at each step, a difference far below the
+    tolerances)."""
+    if a.dtype == torch.bfloat16:
+        return torch.matmul(a.double(), b.double()).float()
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (torch.matmul(ah.double(), bh.double()) + torch.matmul(ah.double(), bl.double())
+            + torch.matmul(al.double(), bh.double())).float()
+
+
+# the query rows and keys of one tile of csrc/flash_fwd.cu
+FLASH_TILE = 64
+
+
+def flash_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
+                               dropout=0.0, seed=0, layout="bhsd"):
+    """The block math of csrc/flash_fwd.cu on the CPU -> (out, lse): 64-row
+    query tiles, each walking its 64-key tiles in order and skipping those
+    past the causal diagonal, except in a query tile that holds a row with
+    no live key (sq > sk), which walks every tile as the plain version's
+    function needs; m, l, alpha and acc in float32; every product as the
+    tensor cores make it (`_mma`), p rounded to v's dtype before P V."""
+    b, h, sq, sk, d = _dims(q, k, layout)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if layout == "bshd":
+        q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    offset, T = sk - sq, FLASH_TILE
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    out = torch.empty(b, h, sq, d, dtype=q.dtype)
+    lse = torch.empty(b, h, sq, dtype=torch.float32)
+    for q0 in range(0, sq, T):
+        q1 = min(q0 + T, sq)
+        rows = torch.arange(q0, q1)
+        # the last live key of the tile's last row; a row with none: every tile
+        k_end = min(sk, q1 + offset) if causal and q0 + offset >= 0 else sk
+        m = torch.full((b, h, q1 - q0, 1), NEG_INF, dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, q1 - q0, d, dtype=torch.float32)
+        for k0 in range(0, k_end, T):
+            k1 = min(k0 + T, sk)
+            s = _mma(q[:, :, q0:q1], k[:, :, k0:k1].transpose(-1, -2)) * sm_scale
+            if bias is not None:
+                s = s + bias.float()[:, None, None, k0:k1]
+            if causal:
+                live = rows[:, None] + offset >= torch.arange(k0, k1)[None, :]
+                s = s.masked_fill(~live, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            if keep is not None:
+                div = torch.tensor(1.0 - dropout, dtype=torch.float32)
+                p = torch.where(keep[:, :, q0:q1, k0:k1], p / div, 0.0)
+            acc = alpha * acc + _mma(p.to(v.dtype), v[:, :, k0:k1])
+            m = m_new
+        l_safe = torch.where(l == 0.0, 1.0, l)
+        out[:, :, q0:q1] = (acc / l_safe).to(q.dtype)
+        lse[:, :, q0:q1] = (m + torch.log(l_safe)).squeeze(-1)
+    if layout == "bshd":
+        out = out.permute(0, 2, 1, 3)
+    return out.contiguous(), lse
 
 
 def _bsh_strides(t, layout):

@@ -29,6 +29,7 @@ from .flash_attention import (
     _dims,
     _drop_scale,
     _dropout_thresh,
+    _mma,
     attention_bwd_plain,
     attention_plain,
     dropout_keep_mask,
@@ -43,7 +44,6 @@ __all__ = [
     "short_attention_bwd_plain",
     "short_attention_bwd_mirror",
     "short_attention_bwd",
-    "tf32_round",
 ]
 
 # the [64, sk] float32 score rows of one block must fit shared memory
@@ -82,30 +82,6 @@ def short_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False,
     mha_short.py:149-177) -> (dq, dk, dv)."""
     return attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal, sm_scale,
                                dropout, seed, layout, div=False)
-
-
-def tf32_round(x):
-    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
-    zero), as `cvt.rna.tf32.f32` rounds: round the low 13 bits of the
-    magnitude."""
-    bits = x.float().contiguous().view(torch.int32)
-    mag = ((bits & 0x7FFFFFFF) + 0x1000) & ~0x1FFF
-    return ((bits & -2**31) | mag).view(torch.float32)
-
-
-def _mma(a, b):
-    """a @ b as the kernel's tensor cores make it, in float32. float32
-    inputs: 3xTF32 (a = hi + lo, hi*hi + hi*lo + lo*hi); bf16 inputs:
-    exact products. The TF32 products are exact in float64, where they are
-    summed, and the sum rounds once to float32 (the card's fp32
-    accumulation rounds at each step, a difference far below the
-    tolerances)."""
-    if a.dtype == torch.bfloat16:
-        return torch.matmul(a.double(), b.double()).float()
-    ah, bh = tf32_round(a), tf32_round(b)
-    al, bl = tf32_round(a - ah), tf32_round(b - bh)
-    return (torch.matmul(ah.double(), bh.double()) + torch.matmul(ah.double(), bl.double())
-            + torch.matmul(al.double(), bh.double())).float()
 
 
 def short_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,

@@ -427,12 +427,17 @@ def _dropout_grad(ctx, op):
     p = op.attr("dropout_prob", 0.5)
     impl = op.attr("dropout_implementation", "downgrade_in_infer")
     rng_name = op.attr("rng_name")
-    if rng_name is None:
-        raise NotImplementedError(
-            "dropout_grad without an rng_name attr (a program serialized "
-            "before mask regeneration) reads the saved Mask: not ported")
-    keep, keep_prob = dropout_keep_mask(ctx.rng_for(rng_name), p, tuple(dy.shape),
-                                        dy.device)
+    if rng_name is not None:
+        # regenerate the forward's mask bit for bit from the shared rng
+        keep, keep_prob = dropout_keep_mask(ctx.rng_for(rng_name), p, tuple(dy.shape),
+                                            dy.device)
+    else:
+        # a program serialized before mask regeneration: the saved Mask
+        mask = ctx.in_(op, "Mask")
+        if mask is None:
+            raise ValueError("dropout_grad needs either an 'rng_name' attr or a saved "
+                             "'Mask' input; this op has neither")
+        keep, keep_prob = mask.bool(), _quantized_keep_prob(p)
     scaled = dy * (1.0 / keep_prob) if impl == "upscale_in_train" else dy
     ctx.out(op, "IGRAD_X", torch.where(keep, scaled, torch.zeros(
         (), dtype=dy.dtype, device=dy.device)))

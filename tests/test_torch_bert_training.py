@@ -133,6 +133,23 @@ def _dropout(fluid):
     return _with_grads(fluid, out, [x])
 
 
+def _dropout_grad_op(fluid, with_mask):
+    """x -> dropout (upscale_in_train, 0.3), then a dropout_grad appended as
+    a program serialized before mask regeneration holds it: no rng_name
+    attr, and the forward's saved Mask as an input when `with_mask`."""
+    x = _data(fluid, "x", [4, 5, 16])
+    g = _data(fluid, "g", [4, 5, 16], grad=False)
+    out = fluid.layers.dropout(x, 0.3, dropout_implementation="upscale_in_train")
+    block = fluid.default_main_program().global_block()
+    inputs = {"GRAD_Out": [g]}
+    if with_mask:
+        inputs["Mask"] = [block.var(block.ops[-1].output("Mask")[0])]
+    dx = block.create_var(name="dx", shape=[4, 5, 16], dtype="float32")
+    block.append_op("dropout_grad", inputs, {"IGRAD_X": [dx]},
+                    {"dropout_prob": 0.3, "dropout_implementation": "upscale_in_train"})
+    return [out, dx]
+
+
 def _swce(fluid):
     logits = _data(fluid, "logits", [6, 10])
     label = _data(fluid, "label", [6, 1], dtype="int64", grad=False)
@@ -165,6 +182,8 @@ OP_CASES = {
         ids=RS.randint(0, 9, (7, 3)).astype(np.int64))),
     "dropout": (_dropout, dict(x=RS.randn(4, 5, 16).astype(np.float32),
                                g=RS.randn(4, 5, 16).astype(np.float32))),
+    "dropout_grad_saved_mask": (lambda fluid: _dropout_grad_op(fluid, True), dict(
+        x=RS.randn(4, 5, 16).astype(np.float32), g=RS.randn(4, 5, 16).astype(np.float32))),
     "softmax_with_cross_entropy": (_swce, dict(
         logits=(3 * RS.randn(6, 10)).astype(np.float32),
         label=RS.randint(0, 10, (6, 1)).astype(np.int64),
@@ -184,10 +203,25 @@ def test_op_and_grad_match_jax(name):
     for j, t in zip(jax_out, port_out):
         assert j.shape == t.shape
         np.testing.assert_allclose(t, j, **TOL)
-    if name == "dropout":  # some kept and some dropped, grads on the same ones
+    if name.startswith("dropout"):  # some kept and some dropped, grads on the same ones
         kept = port_out[0] != 0
         assert 0.5 < kept.mean() < 0.9
         assert np.array_equal(kept, port_out[1] != 0)
+
+
+def test_dropout_grad_without_rng_name_or_mask_raises():
+    """Neither an rng_name attr nor a saved Mask: both packages refuse."""
+    import paddle_tpu as jfluid
+
+    rs = np.random.RandomState(0)
+    feed = {n: rs.randn(4, 5, 16).astype(np.float32) for n in ("x", "g")}
+    for fluid in (jfluid, tfluid):
+        main, startup, fetch = _programs(fluid, lambda f: _dropout_grad_op(f, False))
+        exe = fluid.Executor(fluid.CPUPlace())
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        with pytest.raises(ValueError, match="rng_name.*Mask"):
+            exe.run(main, feed=dict(feed), fetch_list=fetch, scope=scope)
 
 
 @pytest.mark.parametrize("optimizer, n_state", [("Adam", 5), ("SGD", 1)])

@@ -23,12 +23,11 @@ import torch
 
 from paddle_tpu_torch.ops import prng
 from paddle_tpu_torch.ops.kernels import mha_short
-from paddle_tpu_torch.ops.kernels.flash_attention import attention_delta
+from paddle_tpu_torch.ops.kernels.flash_attention import attention_delta, tf32_round
 from paddle_tpu_torch.ops.kernels.mha_short import (
     short_attention,
     short_attention_bwd_mirror,
     short_attention_bwd_plain,
-    tf32_round,
 )
 from test_torch_training_kernels import CASES, KEY_SEED, _case_id, _inputs, _jax_grads
 
