@@ -9,11 +9,11 @@
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
             aten native_layer_norm_backward; the fused-block kernels'
-            unfused torch twins); the flash forward's and the short
-            backward's bounds are on the tensor cores (their fp32-FMA
-            bounds printed beside them), and once
-            at BERT's shape torch.profiler gives each of its two launches'
-            device time
+            unfused torch twins); the attention kernels but the short
+            forward have bounds on the tensor cores (their fp32-FMA
+            bounds printed beside them), and torch.profiler gives the
+            device time of each of the two launches of the short backward
+            at BERT's shape and of the flash backward at the long step's
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -427,19 +427,25 @@ def main():
 
     # the backward kernels, each at its main path's shape: D at BERT's
     # training shape (with dropout 0.1), in bhsd and causal sq > sk too;
-    # E at the long-sequence step's; C at the encoder's rows and mlm.ln's
+    # E at the long-sequence step's, then at s 1000 without causal (no
+    # tile skipped, ragged tiles); C at the encoder's rows and mlm.ln's
     if rehearsal:
         bwd_checks = [("mha_short_bwd", (2, 4, 32, 32, 16), "bshd", True, False, 0.1),
                       ("mha_short_bwd", (2, 4, 32, 32, 16), "bhsd", True, False, 0.1),
                       ("mha_short_bwd", (1, 2, 20, 13, 16), "bshd", False, True, 0.0),
-                      ("flash_bwd", (1, 2, 600, 600, 16), "bhsd", True, True, 0.0)]
+                      ("flash_bwd", (1, 2, 600, 600, 16), "bhsd", True, True, 0.0),
+                      ("flash_bwd", (1, 2, 100, 100, 16), "bhsd", True, False, 0.0)]
         ln_checks = [(64, 64), (10, 64)]
     else:
         bwd_checks = [("mha_short_bwd", (8, 12, 128, 128, 64), "bshd", True, False, 0.1),
                       ("mha_short_bwd", (8, 12, 128, 128, 64), "bhsd", True, False, 0.1),
                       ("mha_short_bwd", (2, 12, 100, 77, 64), "bshd", False, True, 0.0),
-                      ("flash_bwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, 0.0)]
+                      ("flash_bwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, 0.0),
+                      ("flash_bwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, 0.0)]
         ln_checks = [(1024, 768), (160, 768)]
+    # the two launches of each backward kernel, read apart by torch.profiler
+    bwd_launches = {"mha_short_bwd": ("short_bwd_dkv_kernel", "short_bwd_dq_kernel"),
+                    "flash_bwd": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
     bwd_fns = {"mha_short_bwd": (short_attention, short_attention_bwd,
                                  short_attention_bwd_plain),
                "flash_bwd": (flash_attention, flash_attention_bwd, flash_attention_bwd_plain)}
@@ -469,10 +475,9 @@ def main():
             lib_ms = sdpa_bwd_ms(q, k, v, bias, causal, layout, dout)
             work = attention_bwd_work(shape, dtype, bias_kind, causal)
             bound, bound_by = bound_ms(work, dtype, peaks)
-            extra = ""
-            if name == "mha_short_bwd":  # on the tensor cores; the FMA bound for reference
-                extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
-                bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
+            # on the tensor cores; the FMA bound for reference
+            extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
+            bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} bias={bias_kind} "
                   f"causal={causal} dropout={dropout}: max_abs_err {err:.3e} (tol "
                   f"{TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
@@ -480,13 +485,13 @@ def main():
             results.setdefault(name, []).append(dict(
                 shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
-            if name == "mha_short_bwd" and shape == bwd_checks[0][1] and not rehearsal:
-                # once at BERT's shape: the device time of each of the two launches
-                per = kernel_device_ms(torch, lambda: wrapper(*args_, **kw),
-                                       ("short_bwd_dkv_kernel", "short_bwd_dq_kernel"))
+            first = next(c for c in bwd_checks if c[0] == name)
+            if (shape, layout) == first[1:3] and not rehearsal:
+                # once at its first shape: the device time of each of the two launches
+                dkv, dq = bwd_launches[name]
+                per = kernel_device_ms(torch, lambda: wrapper(*args_, **kw), (dkv, dq))
                 print(f"[kernels] {name} {shape} {layout} {dtype} by launch (torch.profiler): "
-                      f"launch 1 (dK, dV, dS) ms {per['short_bwd_dkv_kernel']}, "
-                      f"launch 2 (dQ) ms {per['short_bwd_dq_kernel']}")
+                      f"launch 1 (dK, dV) ms {per[dkv]}, launch 2 (dQ) ms {per[dq]}")
     for n, k in ln_checks:
         for dtype in ("float32", "bfloat16"):
             x = (2 * torch.randn(n, k, generator=gen, device=dev) + 0.5).to(getattr(torch, dtype))

@@ -1,12 +1,14 @@
-// Pieces shared by the two attention forward kernels (mha_short_fwd.cu,
-// flash_fwd.cu): tile loads from strided [b, s, h, d] views, the FMA
-// micro-kernels for S = Q K^T and O += P V, the dropout hash, and the
-// float / bf16 conversions.
+// Pieces shared by the attention kernels: the strides of the [b, s, h, d]
+// views, the dropout hash, the float / bf16 conversions, the base-2
+// constants of the flash kernels, and the tile loads and FMA
+// micro-kernels of the short forward (mha_short_fwd.cu).
 //
-// Both kernels keep every operand in shared memory as float and multiply
-// with plain fp32 FMAs: fp32 inputs get full fp32 products (no TF32), and
-// bf16 inputs, whose products are exact in fp32, get the same fp32
-// accumulation the TPU kernels ask of the MXU (preferred_element_type f32).
+// The short forward keeps every operand in shared memory as float and
+// multiplies with plain fp32 FMAs: fp32 inputs get full fp32 products (no
+// TF32), and bf16 inputs, whose products are exact in fp32, get the same
+// fp32 accumulation the TPU kernels ask of the MXU
+// (preferred_element_type f32). The other kernels multiply on the tensor
+// cores (mma_common.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,6 +21,13 @@
 #define ATTN_TQ 64             // query rows per block
 #define ATTN_TK 64             // keys per K / V tile
 #define ATTN_MAX_D 128         // head dims the 4 x 8 output register tile covers
+
+// The flash kernels' scores in base 2 (S log2(e), then exp2). The mask
+// sentinel there is NEG_INF log2(e), so a row that sees no key gets
+// m ln(2) = NEG_INF in its lse, as the plain version does.
+#define FLASH_LOG2E 1.4426950408889634f
+#define FLASH_LN2 0.6931471805599453f
+#define FLASH_NEG_INF2 (ATTN_NEG_INF * FLASH_LOG2E)
 
 // Element strides of the b, s and h axes of q, k, v and out; the d axis is
 // contiguous (stride 1), which the Python wrappers check.
@@ -142,5 +151,24 @@ static inline AttnStrides attn_strides_from(const long long* s) {
   st.kb = s[3]; st.ks = s[4]; st.kh = s[5];
   st.vb = s[6]; st.vs = s[7]; st.vh = s[8];
   st.ob = s[9]; st.os = s[10]; st.oh = s[11];
+  return st;
+}
+
+// The backward kernels' element strides of the b, s and h axes of q, k,
+// v, dO, dQ, dK, dV; the d axis is contiguous.
+struct AttnBwdStrides {
+  long long qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
+  long long dqb, dqs, dqh, dkb, dks, dkh, dvb, dvs, dvh;
+};
+
+static inline AttnBwdStrides attn_bwd_strides_from(const long long* s) {
+  AttnBwdStrides st;
+  st.qb = s[0]; st.qs = s[1]; st.qh = s[2];
+  st.kb = s[3]; st.ks = s[4]; st.kh = s[5];
+  st.vb = s[6]; st.vs = s[7]; st.vh = s[8];
+  st.ob = s[9]; st.os = s[10]; st.oh = s[11];
+  st.dqb = s[12]; st.dqs = s[13]; st.dqh = s[14];
+  st.dkb = s[15]; st.dks = s[16]; st.dkh = s[17];
+  st.dvb = s[18]; st.dvs = s[19]; st.dvh = s[20];
   return st;
 }

@@ -68,15 +68,8 @@
 //   copy inside the kernel otherwise.
 // - No atomics: each output element is one thread's sum over the key
 //   tiles in order, so two launches agree bit for bit.
-#include "attn_common.cuh"
+#include "attn_common.cuh"  // and the base-2 constants FLASH_*
 #include "mma_common.cuh"
-
-// Scores in base 2 (S log2(e), then exp2). The mask sentinel there is
-// NEG_INF log2(e), so a row that sees no key gets m ln(2) = NEG_INF in its
-// lse, as the plain version does.
-#define FLASH_LOG2E 1.4426950408889634f
-#define FLASH_LN2 0.6931471805599453f
-#define FLASH_NEG_INF2 (ATTN_NEG_INF * FLASH_LOG2E)
 
 template <typename T, int DP>
 struct FlashFwdTile {

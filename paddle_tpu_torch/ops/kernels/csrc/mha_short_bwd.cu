@@ -64,7 +64,7 @@
 //   accumulators in registers (fp32: 236 registers, no spills).
 //   A causal mask skips the query tiles whose pairs are all masked;
 //   launch 2 zeroes the scratch entries launch 1 skipped.
-#include "attn_bwd.cuh"  // AttnBwdStrides and attn_common.cuh
+#include "attn_common.cuh"  // AttnBwdStrides
 #include "mma_common.cuh"
 
 template <typename T, int DP>

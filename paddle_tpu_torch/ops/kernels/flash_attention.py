@@ -1,8 +1,7 @@
 """Attention over any sequence length: the wrappers of the blocked
 online-softmax CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu), their
-plain PyTorch versions, a mirror of the forward's block math, and the
-launch plumbing and tensor-core emulation the short and flash kernels
-share.
+plain PyTorch versions, mirrors of their block math, and the launch
+plumbing and tensor-core emulation the short and flash kernels share.
 
 Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Semantics: q
 [b, h, sq, d] (layout "bhsd") or [b, sq, h, d] ("bshd"), k / v likewise
@@ -28,6 +27,8 @@ from . import LAUNCHES
 from ._build import load
 
 NEG_INF = -1e30
+# NEG_INF as float32 holds it: the lse of a row with no live key
+NEG_INF_F32 = float(torch.tensor(NEG_INF, dtype=torch.float32))
 MAX_HEAD_DIM = 128
 
 __all__ = [
@@ -41,6 +42,7 @@ __all__ = [
     "flash_attention",
     "attention_bwd_plain",
     "flash_attention_bwd_plain",
+    "flash_attention_bwd_mirror",
     "flash_attention_bwd",
     "attention_delta",
     "tf32_round",
@@ -140,7 +142,11 @@ def attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
     the forward's mask, dV = (p_drop as dO's dtype)^T dO,
     dS = (p (dp - delta) scale as q's dtype), dQ = dS K, dK = dS^T Q.
     `div` selects the flash kernel's p / (1 - rate); without it kept
-    values are scaled by p * (1 / (1 - rate)), the short kernel's."""
+    values are scaled by p * (1 / (1 - rate)), the short kernel's. Masked
+    scores take NEG_INF as float32 holds it, as the kernels' float32 scores
+    do: a row with no live key (causal sq > sk) has lse = that value from
+    the flash forward, so its p = exp(0) = 1 on every key, as in the
+    Pallas kernels (in float64 NEG_INF - lse would be 1.5e22)."""
     b, h, sq, sk, d = _dims(q, k, layout)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -151,7 +157,7 @@ def attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
         s = s + bias.double()[:, None, None, :]
     if causal:
         live = torch.ones(sq, sk, dtype=torch.bool, device=s.device).tril(sk - sq)
-        s = s.masked_fill(~live, NEG_INF)
+        s = s.masked_fill(~live, NEG_INF_F32)
     p = torch.exp(s - lse.double()[..., None])
     dp = torch.matmul(dout.double(), v.double().transpose(-1, -2))
     p_drop = p
@@ -265,6 +271,72 @@ def flash_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
     return out.contiguous(), lse
 
 
+def flash_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,
+                               sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+    """The block math of csrc/flash_bwd.cu on the CPU -> (dq, dk, dv).
+    Launch 1: 32-key tiles, each walking its query tiles (64 rows, 32 at
+    d > 64) in order, from the first that sees any of its keys, and every
+    tile that holds a row with no live key (causal sq > sk). Launch 2:
+    32-row query tiles, each walking its 64-key tiles in order up to the
+    last key its last row sees (all of them in a tile with a row with no
+    live key). Per tile pair p, the keep mask and dS in float32, p_drop
+    rounded to dO's dtype and dS to q's, every product as the tensor cores
+    make it (`_mma`), each sum in float32 over the tiles in order."""
+    b, h, sq, sk, d = _dims(q, k, layout)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if layout == "bshd":
+        q, k, v, dout = (t.permute(0, 2, 1, 3) for t in (q, k, v, dout))
+    offset, T, T2 = sk - sq, FLASH_TILE, FLASH_TILE // 2
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    lse, delta = lse.float()[..., None], delta.float()[..., None]
+
+    def tile(q0, q1, k0, k1):
+        """(p_drop as dO's dtype, dS as q's dtype) of one tile pair."""
+        s = _mma(q[:, :, q0:q1], k[:, :, k0:k1].transpose(-1, -2)) * sm_scale
+        if bias is not None:
+            s = s + bias.float()[:, None, None, k0:k1]
+        if causal:
+            live = torch.arange(q0, q1)[:, None] + offset >= torch.arange(k0, k1)[None, :]
+            s = s.masked_fill(~live, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:q1])
+        dp = _mma(dout[:, :, q0:q1], v[:, :, k0:k1].transpose(-1, -2))
+        pd = p
+        if keep is not None:
+            kept = keep[:, :, q0:q1, k0:k1]
+            div = torch.tensor(1.0 - dropout, dtype=torch.float32)
+            pd = torch.where(kept, p / div, 0.0)
+            dp = torch.where(kept, dp / div, 0.0)
+        return pd.to(dout.dtype), (p * (dp - delta[:, :, q0:q1]) * sm_scale).to(q.dtype)
+
+    # launch 1: dK and dV over the query tiles of each key tile
+    tq = T if d <= 64 else T2
+    nqt = -(-sq // tq)
+    dead = min(nqt, -(offset // tq)) if causal and offset < 0 else 0
+    dk = torch.zeros(b, h, sk, d, dtype=torch.float32)
+    dv = torch.zeros(b, h, sk, d, dtype=torch.float32)
+    for k0 in range(0, sk, T2):
+        k1 = min(k0 + T2, sk)
+        first = max(0, k0 - offset) // tq if causal else 0
+        for i in [i for i in range(nqt) if i < dead or i >= first]:
+            q0, q1 = i * tq, min(i * tq + tq, sq)
+            pd, ds = tile(q0, q1, k0, k1)
+            dv[:, :, k0:k1] += _mma(pd.transpose(-1, -2), dout[:, :, q0:q1])
+            dk[:, :, k0:k1] += _mma(ds.transpose(-1, -2), q[:, :, q0:q1])
+    # launch 2: dQ over the key tiles of each query tile
+    dq = torch.zeros(b, h, sq, d, dtype=torch.float32)
+    for q0 in range(0, sq, T2):
+        q1 = min(q0 + T2, sq)
+        k_end = min(sk, q1 + offset) if causal and q0 + offset >= 0 else sk
+        for k0 in range(0, k_end, T):
+            k1 = min(k0 + T, sk)
+            dq[:, :, q0:q1] += _mma(tile(q0, q1, k0, k1)[1], k[:, :, k0:k1])
+    grads = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    if layout == "bshd":
+        grads = tuple(g.permute(0, 2, 1, 3) for g in grads)
+    return tuple(g.contiguous() for g in grads)
+
+
 def _bsh_strides(t, layout):
     st = t.stride()
     return (st[0], st[1], st[2]) if layout == "bshd" else (st[0], st[2], st[1])
@@ -342,9 +414,9 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
 
 
 @functools.cache
-def _bwd_kernel_fn(name):
-    """The C entry point of backward library `name`, typed for ctypes."""
-    fn = getattr(load(name), name)
+def _bwd_kernel_fn():
+    """The C entry point flash_bwd, typed for ctypes."""
+    fn = load("flash_bwd").flash_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -353,12 +425,12 @@ def _bwd_kernel_fn(name):
     return fn
 
 
-def launch_attention_bwd(name, q, k, v, bias, dout, lse, delta, causal, sm_scale,
-                         dropout, seed, layout):
-    """Check the inputs, allocate dq / dk / dv and launch the backward
-    kernels `name` (mha_short_bwd or flash_bwd: a dQ pass and a dK / dV
-    pass) on the current stream. Raises on what they do not take and on a
-    failed launch."""
+def _check_bwd_inputs(name, q, k, v, bias, dout, lse, delta, dropout, layout):
+    """The input checks and output allocation both backward wrappers share:
+    raise on what the CUDA kernel `name` does not take -> ((b, h, sq, sk,
+    d), dout with a contiguous head dim, (dq, dk, dv) allocated, their 21
+    (b, s, h) element strides with those of q, k, v, dout as a ctypes
+    array)."""
     b, h, sq, sk, d = _check_inputs(name, q, k, v, bias, dropout, layout,
                                     more=(dout, lse, delta))
     if dout.dtype != q.dtype or dout.shape != q.shape:
@@ -369,15 +441,24 @@ def launch_attention_bwd(name, q, k, v, bias, dout, lse, delta, causal, sm_scale
             raise ValueError(f"{name}: {what} must be a contiguous float32 [{b}, {h}, {sq}]")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=q.device) for t in (q, k, v))
     strides = (ctypes.c_longlong * 21)(*(
-        x for t in (q, k, v, dout, dq, dk, dv) for x in _bsh_strides(t, layout)))
+        x for t in (q, k, v, dout, *grads) for x in _bsh_strides(t, layout)))
+    return (b, h, sq, sk, d), dout, grads, strides
+
+
+def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, dropout,
+                         seed, layout):
+    """Check the inputs, allocate dq / dk / dv and launch csrc/flash_bwd.cu
+    (a dK / dV launch and a dQ launch) on the current stream. Raises on
+    what it does not take and on a failed launch."""
+    name = "flash_bwd"
+    (b, h, sq, sk, d), dout, (dq, dk, dv), strides = _check_bwd_inputs(
+        name, q, k, v, bias, dout, lse, delta, dropout, layout)
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):
-        rc = _bwd_kernel_fn(name)(
+        rc = _bwd_kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -407,8 +488,8 @@ def flash_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal,
                                          sm_scale, dropout, seed, layout)
-    return launch_attention_bwd("flash_bwd", q, k, v, bias, dout, lse, delta, causal,
-                                sm_scale, dropout, seed, layout)
+    return launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale,
+                                dropout, seed, layout)
 
 
 def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0,

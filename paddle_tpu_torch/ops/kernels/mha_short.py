@@ -24,8 +24,7 @@ from . import LAUNCHES
 from ._build import load
 from .flash_attention import (
     NEG_INF,
-    _bsh_strides,
-    _check_inputs,
+    _check_bwd_inputs,
     _dims,
     _drop_scale,
     _dropout_thresh,
@@ -144,25 +143,13 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
         return short_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal,
                                          sm_scale, dropout, seed, layout)
     name = "mha_short_bwd"
-    b, h, sq, sk, d = _check_inputs(name, q, k, v, bias, dropout, layout,
-                                    more=(dout, lse, delta))
+    sq, sk = (q.shape[1], k.shape[1]) if layout == "bshd" else (q.shape[2], k.shape[2])
     if not short_attention_viable(sq, sk):
         raise ValueError(f"short attention takes sq, sk <= {MAX_SHORT_SEQ}, "
                          f"got {sq}, {sk}: use flash_attention_bwd")
-    if dout.dtype != q.dtype or dout.shape != q.shape:
-        raise ValueError(f"{name}: dout must be {q.dtype} {tuple(q.shape)}")
-    for t, what in ((lse, "lse"), (delta, "delta")):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq)
-                or not t.is_contiguous()):
-            raise ValueError(f"{name}: {what} must be a contiguous float32 [{b}, {h}, {sq}]")
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
+    (b, h, sq, sk, d), dout, (dq, dk, dv), strides = _check_bwd_inputs(
+        name, q, k, v, bias, dout, lse, delta, dropout, layout)
     scratch = torch.empty((b, h, sq, (sk + 7) // 8 * 8), dtype=q.dtype, device=q.device)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 21)(*(
-        x for t in (q, k, v, dout, dq, dk, dv) for x in _bsh_strides(t, layout)))
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     with torch.cuda.device(q.device):

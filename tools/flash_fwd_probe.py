@@ -29,8 +29,15 @@ SHAPES = [((2, 12, 2048, 2048, 64), True), ((2, 12, 1000, 1000, 64), False),
           ((2, 12, 4096, 4096, 64), True)]
 
 
-def build(sources, out_dir):
-    """nvcc every source in parallel -> {name: ctypes entry point flash_fwd}."""
+FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
+                   ctypes.c_void_p])
+
+
+def build(sources, out_dir, entry="flash_fwd", argtypes=FWD_ARGTYPES):
+    """nvcc every source in parallel -> {name: its C entry point `entry`,
+    typed for ctypes}."""
     from paddle_tpu_torch.ops.kernels import _build
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -49,12 +56,9 @@ def build(sources, out_dir):
                 print(f"[build]   {line.strip()}")
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {sources[name]}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"lib{name}.so")).flash_fwd
+        fn = getattr(ctypes.CDLL(str(out_dir / f"lib{name}.so")), entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                          ctypes.c_void_p])
+        fn.argtypes = argtypes
         fns[name] = fn
     return fns
 
