@@ -14,7 +14,9 @@
             them), the short forward is timed beside the flash forward
             on the same inputs, and torch.profiler gives the
             device time of each of the two launches of the short backward
-            at BERT's shape and of the flash backward at the long step's
+            at BERT's shape and of the flash backward at the long step's;
+            the LayerNorm backward at five shapes (both of its paths), its
+            two launches equal bit for bit and one device kernel a call
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -232,7 +234,7 @@ def main():
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.resnet import RESNET50_TRAIN_FLOPS_PER_IMG, resnet
     from paddle_tpu_torch.ops.kernels import fused_block as fb
-    from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain
+    from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain, ln_bwd_plan
     from paddle_tpu_torch.ops.kernels.mha_short import (
         short_attention, short_attention_bwd, short_attention_bwd_plain,
         short_attention_plain)
@@ -435,14 +437,16 @@ def main():
                       ("mha_short_bwd", (1, 2, 20, 13, 16), "bshd", False, True, 0.0),
                       ("flash_bwd", (1, 2, 600, 600, 16), "bhsd", True, True, 0.0),
                       ("flash_bwd", (1, 2, 100, 100, 16), "bhsd", True, False, 0.0)]
-        ln_checks = [(64, 64), (10, 64)]
+        ln_checks = [(64, 64), (10, 64), (10, 33)]
     else:
         bwd_checks = [("mha_short_bwd", (8, 12, 128, 128, 64), "bshd", True, False, 0.1),
                       ("mha_short_bwd", (8, 12, 128, 128, 64), "bhsd", True, False, 0.1),
                       ("mha_short_bwd", (2, 12, 100, 77, 64), "bshd", False, True, 0.0),
                       ("flash_bwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, 0.0),
                       ("flash_bwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, 0.0)]
-        ln_checks = [(1024, 768), (160, 768)]
+        # BERT's encoder rows and mlm.ln's, a ragged n, the register path's
+        # widest row, and a width on the general path
+        ln_checks = [(1024, 768), (160, 768), (1100, 128), (4096, 1024), (1024, 4096)]
     # the two launches of each backward kernel, read apart by torch.profiler
     bwd_launches = {"mha_short_bwd": ("short_bwd_dkv_kernel", "short_bwd_dq_kernel"),
                     "flash_bwd": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
@@ -503,10 +507,22 @@ def main():
             args_ = (x, dy, mean, rstd, scale)
             before = kernels.launch_counts()["layer_norm_bwd"]
             got = ln_bwd(*args_)
+            path = "plain"
             if not rehearsal:
                 torch.cuda.synchronize()
                 require(kernels.launch_counts()["layer_norm_bwd"] == before + 1,
                         "layer_norm_bwd: the run did not launch the kernel")
+                require(all(torch.equal(a, b) for a, b in zip(got, ln_bwd(*args_))),
+                        f"layer_norm_bwd n={n} k={k} {dtype}: two launches differ")
+                geo, blocks = ln_bwd_plan(x, dy, scale)
+                per_call, sessions = kernels.device_kernels(lambda: ln_bwd(*args_))
+                require(len(per_call) == 1 and "layer_norm_bwd" in next(iter(per_call))
+                        and next(iter(per_call.values())) == 1,
+                        f"layer_norm_bwd n={n} k={k} {dtype}: device kernels a call "
+                        f"{per_call} ({sessions} profiler sessions), want one launch "
+                        "of the kernel")
+                path = (f"{geo.path}, {geo.warps} warps x {blocks} blocks; device kernels "
+                        f"a call (torch.profiler, {sessions} sessions) {per_call}")
             ref = ln_bwd_plain(*args_)
             # dx at the dtype's tolerance; dscale / dbias sum n rows in fp32
             err = float((got[0].float() - ref[0].float()).abs().max())
@@ -526,7 +542,8 @@ def main():
             print(f"[kernels] layer_norm_bwd n={n} k={k} {dtype}: max_abs_err {err:.3e} "
                   f"(tol {TOL[dtype]}), dscale/dbias rel err {err_sums:.3e}; ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
-                  f"(native_layer_norm_backward) bound_ms {bound:.4f} ({bound_by})")
+                  f"(native_layer_norm_backward) bound_ms {bound:.4f} ({bound_by}); "
+                  f"bit for bit over two launches; {path}")
             results.setdefault("layer_norm_bwd", []).append(dict(
                 shape=(n, k), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))

@@ -24,3 +24,30 @@ def reset_launch_counts():
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def device_kernels(fn, calls=3, tries=10):
+    """`fn` `calls` times under torch.profiler -> ({kernel name: launches a
+    call} of every kernel the device ran, sessions taken).
+
+    CUPTI at times delivers none of a short session's kernel records (seen
+    on an H100: up to three sessions in a row with no device event at all,
+    `tools/profiler_drop_probe.py`). A session that recorded fewer than
+    `calls` launches in all is taken again, up to `tries` sessions. The
+    profiler loses records but never makes one up, so a retry hides no
+    kernel that ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for session in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {ev.key: ev.count for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.count}
+        if sum(counts.values()) >= calls:
+            break
+    return {name: count / calls for name, count in counts.items()}, session

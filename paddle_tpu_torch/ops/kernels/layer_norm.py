@@ -4,33 +4,58 @@ PyTorch version.
 Counterpart of `paddle_tpu/ops/pallas/layer_norm.py` (`ln_bwd`). The JAX
 package gates its Pallas kernel on `ln_bwd_viable` (n >= 1024, k <= 4096,
 k % 128 == 0), a limit of the TPU's VMEM, and otherwise computes the same
-fp32 function in plain XLA; here the kernel serves every shape, so on the
-card every layer_norm_grad launches it.
+fp32 function in plain XLA; here the kernel serves every n >= 1 and
+1 <= k <= 12288, so on the card every layer_norm_grad launches it: one
+cooperative launch that finishes dscale and dbias inside it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from . import LAUNCHES
 from ._build import load
 
-__all__ = ["ln_bwd", "ln_bwd_plain"]
+__all__ = ["LnGeometry", "ln_bwd", "ln_bwd_geometry", "ln_bwd_plain", "ln_bwd_plan"]
 
-# x and dy rows of one block, as float, in at most this much shared memory
-_SMEM_BUDGET = 96 * 1024
-_MAX_ROWS = 8
+_MAX_K = 12288  # the widest row the wrapper takes
+_REG_MAX_K = 1024  # the register path's widest row (LN_REG_MAX_K in the source)
+_WARPS = 8  # warps a block; the general path halves them until its partials fit
+_GEN_SMEM = 200 * 1024  # the general path's [warps, 2k] float partials, at most
 
 
-def _rows(k: int) -> int:
-    """Rows per block of the kernel for row width k."""
-    rows = min(_MAX_ROWS, _SMEM_BUDGET // (8 * k))
-    if rows < 1:
-        raise ValueError(f"layer_norm_bwd: row width {k} > {_SMEM_BUDGET // 8}")
-    return rows
+class LnGeometry(NamedTuple):
+    """How the kernel lays a row over a warp."""
+    vec: int  # columns a load: 16 bytes of x's type, or 1 (the scalar loads)
+    vpl: int  # vectors a lane of the register path; 0 = the general path
+    warps: int  # warps a block
+
+    @property
+    def path(self) -> str:
+        if self.vpl:
+            return f"registers, {self.vpl} x {self.vec} columns a lane"
+        return "general, " + ("16-byte loads" if self.vec > 1 else "scalar loads")
+
+
+def ln_bwd_geometry(k: int, dtype: torch.dtype, aligned: bool = True) -> LnGeometry:
+    """The kernel's geometry for rows of width k in `dtype`; `aligned`: x,
+    dy and scale start on 16 bytes."""
+    if not 1 <= k <= _MAX_K:
+        raise ValueError(f"layer_norm_bwd: row width {k} outside 1..{_MAX_K}")
+    vec = 16 // dtype.itemsize
+    if aligned and k % vec == 0:
+        if k <= _REG_MAX_K:
+            return LnGeometry(vec, -(-k // (32 * vec)), _WARPS)
+    else:
+        vec = 1
+    warps = _WARPS
+    while warps > 1 and 8 * warps * k > _GEN_SMEM:
+        warps //= 2
+    return LnGeometry(vec, 0, warps)
 
 
 def ln_bwd_plain(x2, dy2, mean, rstd, scale):
@@ -57,16 +82,42 @@ def ln_bwd_plain(x2, dy2, mean, rstd, scale):
 
 
 @functools.cache
-def _kernel_fn():
-    fn = load("layer_norm_bwd").layer_norm_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return fn
+def _lib():
+    lib = load("layer_norm_bwd")
+    lib.layer_norm_bwd.restype = ctypes.c_int
+    lib.layer_norm_bwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                                   + [ctypes.c_void_p])
+    lib.layer_norm_bwd_max_blocks.restype = ctypes.c_int
+    lib.layer_norm_bwd_max_blocks.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+@functools.cache
+def _max_blocks(lib, is_bf16: int, geo: LnGeometry, k: int, device: int) -> int:
+    """The most blocks of the geometry's kernel the device holds at once."""
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.layer_norm_bwd_max_blocks(is_bf16, int(geo.vec > 1), geo.vpl, geo.warps, k,
+                                           ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"layer_norm_bwd: no grid for {geo} at k {k}: cudaError {rc}")
+    return blocks.value
+
+
+def ln_bwd_plan(x2, dy2, scale) -> tuple[LnGeometry, int]:
+    """(geometry, blocks) of the launch for these CUDA tensors: a block
+    for every `warps` rows, or as many as the card holds at once."""
+    n, k = x2.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x2, dy2, scale))
+    geo = ln_bwd_geometry(k, x2.dtype, aligned)
+    cap = _max_blocks(_lib(), int(x2.dtype == torch.bfloat16), geo, k, x2.device.index or 0)
+    return geo, min(-(-n // geo.warps), cap)
 
 
 def ln_bwd(x2, dy2, mean, rstd, scale):
     """LayerNorm backward -> (dx, dscale, dbias). A CPU tensor runs the
-    plain version; a CUDA tensor launches csrc/layer_norm_bwd.cu."""
+    plain version; a CUDA tensor makes one launch of
+    csrc/layer_norm_bwd.cu, which finishes dscale and dbias itself."""
     if x2.device.type == "cpu":
         return ln_bwd_plain(x2, dy2, mean, rstd, scale)
     n, k = x2.shape
@@ -80,17 +131,19 @@ def ln_bwd(x2, dy2, mean, rstd, scale):
                              "tensor on x's device")
         if name in ("mean", "rstd", "scale") and t.dtype != torch.float32:
             raise TypeError(f"layer_norm_bwd: {name} must be float32, got {t.dtype}")
-    rows = _rows(k)
-    blocks = (n + rows - 1) // rows
-    dx = torch.empty_like(x2)
-    dg = torch.empty((blocks, k), dtype=torch.float32, device=x2.device)
-    db = torch.empty((blocks, k), dtype=torch.float32, device=x2.device)
+    if n < 1:
+        raise ValueError("layer_norm_bwd: no rows")
     with torch.cuda.device(x2.device):
-        rc = _kernel_fn()(x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                          scale.data_ptr(), dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-                          int(x2.dtype == torch.bfloat16), n, k, rows,
-                          torch.cuda.current_stream().cuda_stream)
+        geo, blocks = ln_bwd_plan(x2, dy2, scale)
+        dx = torch.empty_like(x2)
+        part = torch.empty((blocks, 2 * k), dtype=torch.float32, device=x2.device)
+        out = torch.empty((2, k), dtype=torch.float32, device=x2.device)
+        rc = _lib().layer_norm_bwd(
+            x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), out.data_ptr(), int(x2.dtype == torch.bfloat16),
+            int(geo.vec > 1), geo.vpl, geo.warps, n, k, blocks,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"layer_norm_bwd: kernel launch failed with cudaError {rc}")
     LAUNCHES["layer_norm_bwd"] += 1
-    return dx, dg.sum(0), db.sum(0)
+    return dx, out[0], out[1]
