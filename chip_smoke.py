@@ -9,10 +9,12 @@
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
             aten native_layer_norm_backward; the fused-block kernels'
-            unfused torch twins); the attention kernels have bounds on
-            the tensor cores (their fp32-FMA bounds printed beside
-            them), the short forward is timed beside the flash forward
-            on the same inputs, and torch.profiler gives the
+            unfused torch twins, and torch.matmul alone beside them);
+            the attention and fused-block kernels have bounds on the
+            tensor cores (their fp32-FMA bounds printed beside them),
+            the fused-block launches' device times read apart by
+            torch.profiler, the short forward is timed beside the flash
+            forward on the same inputs, and torch.profiler gives the
             device time of each of the two launches of the short backward
             at BERT's shape and of the flash backward at the long step's;
             the LayerNorm backward at five shapes (both of its paths), its
@@ -185,20 +187,30 @@ def ln_bwd_bound_ms(n, k, dtype, peaks):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def fused_block_bound_ms(kernel, m, k, n, dtype, peaks):
-    """Least time for a fused-block kernel: max(its inputs read once and
-    its outputs written once over the memory rate, 2 M K N FLOPs of the
-    product plus its elementwise work over the dtype's peak)."""
+def fused_block_bound_ms(kernel, m, k, n, dtype, peaks, tensor_cores=True):
+    """Least time for a fused-block kernel -> (ms, what bounds it): max(its
+    inputs read once and its outputs written once over the memory rate,
+    the 2 M K N FLOPs of the product over the rate of the units it runs
+    on, its elementwise FLOPs over the fp32 rate). On the tensor cores
+    bf16 runs at the bf16 rate and fp32 as 3xTF32 (`bound_ms`); without
+    them (tensor_cores=False, printed beside) fp32 runs product and
+    elementwise work at the FMA rate."""
     esz = 4 if dtype == "float32" else 2
     if kernel == "fused_prologue_conv1x1":  # x, res, w, y; scale, shift
         nbytes = (2 * m * k + k * n + m * n) * esz + 2 * k * 4
-        flops = 2.0 * m * k * n + 4.0 * m * k
+        elementwise = 4.0 * m * k
     else:  # x, w, y; sum, sumsq
         nbytes = (m * k + k * n + m * n) * esz + 2 * n * 4
-        flops = 2.0 * m * k * n + 3.0 * m * n
+        elementwise = 3.0 * m * n
+    product = 2.0 * m * k * n
     bw, fp32, bf16 = peaks
-    t_bytes, t_ops = nbytes / bw, flops / (fp32 if dtype == "float32" else bf16)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    if not tensor_cores:
+        t_ops = (product + elementwise) / (fp32 if dtype == "float32" else bf16)
+        t_bytes = nbytes / bw
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    ms, bound_by = bound_ms((nbytes, product), dtype, peaks, tensor_cores=True)
+    t_elementwise = elementwise / fp32 * 1e3
+    return (ms, bound_by) if ms >= t_elementwise else (t_elementwise, "operations")
 
 
 def main():
@@ -584,12 +596,26 @@ def main():
             ms = timed_ms(run)
             plain_ms = timed_ms(plain)
             lib_ms = timed_ms(twin)
+            # the product alone, as a yardstick for the kernel's GEMM part
+            matmul_ms = timed_ms(lambda: torch.matmul(x, w))
             bound, bound_by = fused_block_bound_ms(name, m, k, n, dtype, peaks)
+            fma, fma_by = fused_block_bound_ms(name, m, k, n, dtype, peaks,
+                                               tensor_cores=False)
+            launches_ms = ""
+            if not rehearsal:  # each launch's device time (torch.profiler)
+                names = ("fused_block_gemm_kernel",) + (
+                    ("fused_block_stats_reduce_kernel",) if name == "conv1x1_with_stats" else ())
+                per = kernel_device_ms(torch, run, names)
+                launches_ms = "; device ms by launch (torch.profiler): " + ", ".join(
+                    f"{launch} {per[launch]}" for launch in names)
             print(f"[kernels] {name} {sname} M,K,N={m},{k},{n} {dtype}: max_abs_err {err:.3e} "
                   f"(each y within {fb.Y_RTOL[x.dtype]:.2e}|y| + {fb.Y_ATOL[x.dtype]}), sums "
                   f"rel err {serr:.3e} (tol {fb.SUM_RTOL}); ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                  f"library_ms {lib_ms:.4f} (unfused torch twin) bound_ms {bound:.4f} "
-                  f"({bound_by}); {2 * m * k * n / ms / 1e9:.1f} TFLOP/s")
+                  f"library_ms {lib_ms:.4f} (unfused torch twin) torch.matmul_ms {matmul_ms:.4f} "
+                  f"bound_ms {bound:.4f} ({bound_by}, tensor cores"
+                  f"{f'; fp32 FMA {fma:.4f}, {fma_by}' if dtype == 'float32' else ''}); "
+                  f"{bound / ms:.1%} of the bound, "
+                  f"{2 * m * k * n / ms / 1e9:.1f} TFLOP/s{launches_ms}")
             results.setdefault(name, []).append(dict(
                 shape=(m, k, n), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
@@ -1124,22 +1150,16 @@ def profile_step(torch, fn, what):
 
 
 def kernel_device_ms(torch, fn, names, iters=20):
-    """`fn` `iters` times under torch.profiler -> {name: mean device ms of
-    the kernels whose name holds it, or "not measured"}."""
-    from torch.profiler import ProfilerActivity, profile
+    """`fn` `iters` times under torch.profiler, a session that lost its
+    records taken again (`kernels.device_kernel_ms`) -> {name: device ms a
+    call of the kernels whose name holds it, or "not measured"}."""
+    from paddle_tpu_torch.ops.kernels import device_kernel_ms
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    per_call, _ = device_kernel_ms(fn, calls=iters)
     out = {}
     for name in names:
-        evs = [ev for ev in prof.key_averages() if name in ev.key and ev.count]
-        total, count = (sum(ev.self_device_time_total for ev in evs),
-                        sum(ev.count for ev in evs))
-        out[name] = f"{total / count / 1e3:.4f}" if total > 0 else "not measured"
+        ms = [v for key, v in per_call.items() if name in key]
+        out[name] = f"{sum(ms):.4f}" if ms and sum(ms) > 0 else "not measured"
     return out
 
 

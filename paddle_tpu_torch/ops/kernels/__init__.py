@@ -26,16 +26,22 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def device_kernels(fn, calls=3, tries=10):
-    """`fn` `calls` times under torch.profiler -> ({kernel name: launches a
-    call} of every kernel the device ran, sessions taken).
+_MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, which opens and closes a session
+
+
+def _profiled_kernels(fn, calls, tries):
+    """`fn` `calls` times under torch.profiler -> ({kernel name: (launches,
+    device microseconds)} of every kernel the device ran, sessions taken).
 
     CUPTI at times delivers none of a short session's kernel records (seen
     on an H100: up to three sessions in a row with no device event at all,
-    `tools/profiler_drop_probe.py`). A session that recorded fewer than
-    `calls` launches in all is taken again, up to `tries` sessions. The
-    profiler loses records but never makes one up, so a retry hides no
-    kernel that ran."""
+    `tools/profiler_drop_probe.py`), and in some processes one record of
+    every session (two of three launches read in each of ten sessions in a
+    row). Each session opens and closes with a marker launch, left out of
+    the result, so that a record lost at either end of it is a marker's;
+    a session that recorded fewer than `calls` launches of `fn` in all is
+    taken again, up to `tries` sessions. The profiler loses records but
+    never makes one up, so a retry hides no kernel that ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -43,11 +49,29 @@ def device_kernels(fn, calls=3, tries=10):
     torch.cuda.synchronize()
     for session in range(1, tries + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1)
             for _ in range(calls):
                 fn()
+            torch.cuda._sleep(1)
             torch.cuda.synchronize()
-        counts = {ev.key: ev.count for ev in prof.key_averages()
-                  if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.count}
-        if sum(counts.values()) >= calls:
+        events = {ev.key: (ev.count, ev.self_device_time_total) for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA") and ev.count
+                  and _MARKER not in ev.key}
+        if sum(count for count, _ in events.values()) >= calls:
             break
-    return {name: count / calls for name, count in counts.items()}, session
+    return events, session
+
+
+def device_kernels(fn, calls=3, tries=10):
+    """`fn` `calls` times under torch.profiler -> ({kernel name: launches a
+    call} of every kernel the device ran, sessions taken); sessions that
+    lost their records are taken again (`_profiled_kernels`)."""
+    events, session = _profiled_kernels(fn, calls, tries)
+    return {name: count / calls for name, (count, _) in events.items()}, session
+
+
+def device_kernel_ms(fn, calls=20, tries=10):
+    """As `device_kernels` -> ({kernel name: its device ms a call}, sessions
+    taken)."""
+    events, session = _profiled_kernels(fn, calls, tries)
+    return {name: us / calls / 1e3 for name, (_, us) in events.items()}, session

@@ -16,6 +16,19 @@ here: the model computes its convolutions with conv2d and its batch norm
 with batch_norm. They run in the A/B (`ab`), which `chip_smoke.py` drives
 on the card.
 
+The kernels (csrc/fused_block.cu) are one tensor-core GEMM template: a
+block of 8 warps owns `bm` rows of y and all of its columns (N <= 256;
+wider N in 256-column blocks on the grid), so each row of x and res is
+read once; it walks K in 128-byte slices of a row through a ring of two
+in shared memory with w's slice beside x's (and, for #9, res's: it
+writes z = relu(x * scale + shift + res) in place of x), multiplies with
+mma.sync (bf16; fp32 as 3xTF32) and, for #10, writes per-block partial
+column sums that a second launch sums in a fixed order.
+`fused_block_geometry` picks the block's shape from N and the dtype; the
+wrapper sizes the partial-sum scratch from it, and the CPU mirror of the
+kernel's order of sums (tests/test_torch_fused_block_tc.py) takes the
+same geometry.
+
 The `*_plain` functions are the Pallas bodies' function, with the
 products and sums in float64; `prologue_twin` and `stats_twin` are the
 counterparts of `xla_prologue` and `xla_stats`: unfused torch elementwise
@@ -27,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,9 +49,13 @@ from ._build import load
 
 __all__ = [
     "SHAPES",
+    "FbGeometry",
+    "fused_block_geometry",
+    "fused_block_plan",
     "fused_prologue_conv1x1",
     "fused_prologue_conv1x1_plain",
     "conv1x1_with_stats",
+    "conv1x1_with_stats_partials",
     "conv1x1_with_stats_plain",
     "prologue_twin",
     "stats_twin",
@@ -84,17 +102,52 @@ def stats_twin(x, w):
     return y, yf.sum(0), (yf * yf).sum(0)
 
 
+class FbGeometry(NamedTuple):
+    """A block of csrc/fused_block.cu: 8 warps as (8 / warps_n) rows of
+    warps by warps_n columns, each warp a wm x 64 tile of y, walking K in
+    slices of bk elements (128 bytes of a row, FB_SLICE)."""
+    wm: int  # rows a warp
+    warps_n: int  # warps across the columns
+    bm: int  # rows a block
+    nb: int  # columns a block
+    bk: int  # K-slice depth (elements)
+
+
+# wm by dtype and warps_n: a warp's fp32 accumulators (wm x 64 / 32 lanes)
+# and, for fp32, the fresh accumulator of each 3xTF32 slice beside them,
+# kept under 255 registers without spills; the geometries
+# csrc/fused_block.cu builds
+_WM = {torch.bfloat16: {1: 32, 2: 32, 4: 64}, torch.float32: {1: 32, 2: 32, 4: 32}}
+_SLICE_BYTES = 128  # FB_SLICE
+
+
+def fused_block_geometry(n, dtype):
+    """The block shape of both kernels for N columns of `dtype` (float32 or
+    bfloat16): the fewest warp columns that cover N up to 256 (wider N
+    takes 256-column blocks on the grid), and wm from `_WM`."""
+    warps_n = 1 if n <= 64 else 2 if n <= 128 else 4
+    wm = _WM[dtype][warps_n]
+    return FbGeometry(wm, warps_n, (8 // warps_n) * wm, 64 * warps_n,
+                      _SLICE_BYTES // torch.empty((), dtype=dtype).element_size())
+
+
+def fused_block_plan(m, n, dtype):
+    """(geometry, grid (row blocks, column blocks), parts): `parts` is the
+    number of #10's partial-sum rows, one per row block."""
+    geo = fused_block_geometry(n, dtype)
+    grid = (-(-m // geo.bm), -(-n // geo.nb))
+    return geo, grid, grid[0]
+
+
 @functools.cache
 def _lib():
     lib = load("fused_block")
     lib.fused_prologue_conv1x1.restype = ctypes.c_int
-    lib.fused_prologue_conv1x1.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+    lib.fused_prologue_conv1x1.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.conv1x1_with_stats.restype = ctypes.c_int
-    lib.conv1x1_with_stats.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+    lib.conv1x1_with_stats.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
-    lib.fused_block_rows_per_block.restype = ctypes.c_int
-    lib.fused_block_rows_per_block.argtypes = []
     return lib
 
 
@@ -124,11 +177,12 @@ def fused_prologue_conv1x1(x, scale, shift, res, w):
     _check("fused_prologue_conv1x1", x, w, mats=(res,), vecs=(scale, shift))
     m, k = x.shape
     n = w.shape[1]
+    geo = fused_block_geometry(n, x.dtype)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         rc = _lib().fused_prologue_conv1x1(
             x.data_ptr(), scale.data_ptr(), shift.data_ptr(), res.data_ptr(), w.data_ptr(),
-            y.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n,
+            y.data_ptr(), int(x.dtype == torch.bfloat16), m, k, n, geo.wm, geo.warps_n,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_prologue_conv1x1: kernel launch failed with cudaError {rc}")
@@ -143,23 +197,29 @@ def conv1x1_with_stats(x, w):
     reduction)."""
     if x.device.type == "cpu":
         return conv1x1_with_stats_plain(x, w)
+    return conv1x1_with_stats_partials(x, w)[:3]
+
+
+def conv1x1_with_stats_partials(x, w):
+    """The kernel's launch on CUDA tensors -> (y, sum [1, N], sumsq [1, N],
+    part [2, parts, N]): `part` holds the per-block partial sums and sums
+    of squares that the second launch reduced, for checks of its order."""
     _check("conv1x1_with_stats", x, w)
     m, k = x.shape
     n = w.shape[1]
-    lib = _lib()
-    parts = -(-m // lib.fused_block_rows_per_block())
+    geo, _, parts = fused_block_plan(m, n, x.dtype)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     part = torch.empty((2, parts, n), dtype=torch.float32, device=x.device)
     sums = torch.empty((2, 1, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.conv1x1_with_stats(
+        rc = _lib().conv1x1_with_stats(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
             sums[0].data_ptr(), sums[1].data_ptr(), int(x.dtype == torch.bfloat16), m, k, n,
-            torch.cuda.current_stream().cuda_stream)
+            geo.wm, geo.warps_n, parts, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"conv1x1_with_stats: kernel launch failed with cudaError {rc}")
     LAUNCHES["conv1x1_with_stats"] += 1
-    return y, sums[0], sums[1]
+    return y, sums[0], sums[1], part
 
 
 # ---------------------------------------------------------------------------
