@@ -30,6 +30,24 @@
             the loss falls over 5 steps on one batch; at base width with 2
             layers, 3 steps on the card agree with the same 3 steps on the
             CPU; step time, tokens/s, peak memory and one profiled step
+5b amp     BERT-base as bench.py:bench_bert trains it: masked-LM, max_preds
+            20, mixed_precision.decorate(Adam 1e-4) in bf16, dropout 0.1,
+            s 128, at b 8 and at b 256 (halved until it fits): 5 steps a
+            batch size, the loss falls, every step launches 12 short
+            forward, 12 short backward and 26 LayerNorm backward kernels;
+            step time, tokens/s, peak memory, one profiled step; then 2
+            layers at base width, 3 steps, card against CPU from one state
+5c full    full pretraining at base width, b 8, s 128: the NSP head and the
+            masked-LM head over every position, attn_layout "bhsd" (kernels
+            #2 and #6), bf16 AMP with dynamic loss scaling around Lamb(1e-3,
+            lamb_weight_decay=0.01) with GradientClipByGlobalNorm(1.0): 5
+            steps, the loss falls, the scale fetched each step, 12 short
+            forward and 12 short backward launches a step; then steps with a
+            non-finite mask weight until the scale shrinks by decr_ratio,
+            every persistable finite; then at 2 layers card against CPU,
+            this configuration and the unfused path (use_flash_attention
+            False, fused_qkv, an untied MLM projection, AdamW, an L1 decay on
+            the pooler, a clip by value), which launches no attention kernel
 6. long     one fused_multihead_attention training step at s 2048 through
             append_backward: one flash forward and one flash backward
             launch, dQ / dK / dV within 1e-4 of the plain backward
@@ -50,7 +68,7 @@
 9. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
-Each main path (serve, train, long, fused, resnet) runs with every launch
+Each main path (serve, train, amp, full, long, fused, resnet) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that was not launched fails the run.
 
@@ -67,6 +85,7 @@ Imports torch, numpy, the standard library and paddle_tpu_torch only.
 from __future__ import annotations
 
 import argparse
+import gc
 import io
 import json
 import math
@@ -94,6 +113,7 @@ REQUESTS = 4  # BERT-base /predict requests in the serving path's run
 TRAIN_STEPS = 5  # BERT-base steps on one batch in the training path's run
 PARITY_STEPS = 3  # card vs CPU steps of the 2-layer BERT at base width
 LR = 1e-4
+FULL_LR = 1e-3  # Lamb's learning rate in the full-pretraining path (5c)
 # card vs CPU after PARITY_STEPS Adam steps: the losses within a relative
 # 1e-4; a parameter within 2 * LR * PARITY_STEPS, since Adam's first steps
 # move an element by about LR * sign(grad) and a grad at rounding noise
@@ -835,6 +855,251 @@ def main():
             f"{n_far} of {n_all} elements beyond {CLOSE_ATOL}")
     del runs, card_scope, cpu_scope
 
+    # ---- 5b. amp: BERT-base pretraining under bf16 AMP ---------------------
+    # bench.py:bench_bert's recipe: mlm_only, max_preds 20, mp.decorate(
+    # Adam(1e-4)) in bf16 (BENCH_AMP's default), dropout 0.1, s 128; at b 8
+    # and at bench.py's default b 256 (halved until it fits the card)
+    def amp_pretrain(cfg, b, opt_fn=lambda: fluid.optimizer.Adam(LR), amp=None, tweak=None,
+                     **kw):
+        """BERT pretraining under mixed_precision.decorate(opt_fn(), **amp)
+        in bf16; `tweak(main program)` runs before the optimizer ->
+        (main, startup, handles, the decorated optimizer)."""
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        main_p.random_seed = startup_p.random_seed = args.seed + 3
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            handles = build_bert_pretrain(cfg, b, ts, **kw)
+            if tweak:
+                tweak(main_p)
+            opt = mixed_precision.decorate(opt_fn(), **(amp or {}))
+            opt.minimize(handles["loss"])
+        return main_p, startup_p, handles, opt
+
+    def run_steps(main_p, scope, feed, fetch, steps, exe_):
+        """`steps` steps on one batch -> (fetched values a step as floats,
+        host ms a step, launches a step)."""
+        got, ms, per = [], [], []
+        for _ in range(steps):
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = exe_.run(main_p, feed=dict(feed), fetch_list=fetch, scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append([float(np.asarray(o).reshape(-1)[0]) for o in out])
+            per.append({n: c - before[n] for n, c in kernels.launch_counts().items()})
+        return got, ms, per
+
+    def step_report(tag, b, losses, ms, peak, flops_tok, step):
+        tokens = b * ts
+        p50_ = statistics.median(ms[1:])
+        print(f"[{tag}] b {b}: losses {losses}; step time p50 {p50_:.2f} ms over steps "
+              f"2-{len(ms)} (first {ms[0]:.2f} ms); {tokens / p50_ * 1e3:.0f} tokens/s; "
+              f"{flops_tok * tokens / p50_ / 1e9:.2f} TFLOP/s (bert_flops_per_token); "
+              f"max_memory_allocated {peak / 2**20:.0f} MiB; card {smi}")
+        if not rehearsal:
+            profile_step(torch, step, f"one {tag} step at b {b}")
+
+    def bf16_ulp(x):
+        """One bf16 ulp (8 significant bits) at |x|."""
+        return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
+
+    def card_vs_cpu(tag, build, feed, lr):
+        """The same program and state on the card and on the CPU,
+        PARITY_STEPS steps each: each step's loss within one bf16 ulp of
+        the CPU loss; each persistable within phase 5's gates (2 * lr *
+        steps, all but CLOSE_FRAC of its elements within CLOSE_ATOL), each
+        widened by one bf16 ulp of the tensor's largest element."""
+        main_p, startup_p, handles, _ = build()
+        runs = []
+        for place in (fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0), fluid.CPUPlace()):
+            scope_p = fluid.Scope()
+            exe_p = fluid.Executor(place)
+            exe_p.run(startup_p, scope=scope_p)
+            if runs:
+                fluid.io.set_persistables_from_numpy(scope_p, runs[0][1], "cpu")
+            else:
+                state = {v.name: to_numpy(scope_p.get(v.name)) for v in main_p.list_vars()
+                         if v.persistable and scope_p.has(v.name)}
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            got, _, _ = run_steps(main_p, scope_p, feed, [handles["loss"]], PARITY_STEPS,
+                                  exe_p)
+            runs.append(([g[0] for g in got], state if not runs else None, scope_p,
+                         time.perf_counter() - t0,
+                         {n: c - before[n] for n, c in kernels.launch_counts().items()}))
+        (card_l, _, card_scope, card_s, card_launch), (cpu_l, _, cpu_scope, cpu_s, _) = runs
+        loss_ok = all(abs(a - b_) <= bf16_ulp(b_) for a, b_ in zip(card_l, cpu_l))
+        atol = 2 * lr * PARITY_STEPS
+        worst_excess, worst_name, n_far, n_all = -1.0, "", 0, 0
+        for v in main_p.list_vars():
+            if not v.persistable or not cpu_scope.has(v.name):
+                continue
+            c = to_numpy(cpu_scope.get(v.name)).astype(np.float64)
+            d = np.abs(to_numpy(card_scope.get(v.name)).astype(np.float64) - c)
+            if not d.size:
+                continue
+            widen = bf16_ulp(float(np.abs(c).max()))
+            n_far += int((d > CLOSE_ATOL + widen).sum())
+            n_all += d.size
+            excess = float(d.max()) - (atol + widen)
+            if excess > worst_excess:
+                worst_excess, worst_name = excess, f"{v.name} (max abs diff {d.max():.3e})"
+        print(f"[{tag}] card vs CPU, {PARITY_STEPS} steps ({card_s:.1f} s on the card, "
+              f"{cpu_s:.1f} s on the CPU): losses {card_l} vs {cpu_l} (tol one bf16 ulp of "
+              f"the CPU loss); persistables: worst {worst_name}, {worst_excess:.3e} past "
+              f"its gate {atol:.1e} + one bf16 ulp of its largest element; {n_far} of "
+              f"{n_all} elements beyond {CLOSE_ATOL} + that ulp (tol {CLOSE_FRAC:.0e} of "
+              f"them); card launches {card_launch}")
+        require(loss_ok, f"[{tag}] card vs CPU losses {card_l} vs {cpu_l}")
+        require(worst_excess <= 0 and n_far <= CLOSE_FRAC * n_all,
+                f"[{tag}] card vs CPU persistables: {worst_name}, {n_far} of {n_all} far")
+        return card_launch
+
+    amp_cfg = train_cfg
+    amp_want = dict(zero_launches, mha_short_fwd=amp_cfg.num_layers,
+                    mha_short_bwd=amp_cfg.num_layers, layer_norm_bwd=2 * amp_cfg.num_layers + 2)
+    amp_batches = [2, 4] if rehearsal else [8, 256]
+    # the path's launches: the sum over its steps at each batch size (the
+    # profiled and host-timed steps after them not counted)
+    launches = dict(zero_launches)
+    kernels.reset_launch_counts()
+    for b_amp in amp_batches:
+        while True:
+            main_a, startup_a, h_a, _ = amp_pretrain(amp_cfg, b_amp, mlm_only=True,
+                                                     max_preds=tp)
+            feed_a = bert_pretrain_feed(np, np.random.RandomState(args.seed), amp_cfg,
+                                        b_amp, ts, tp)
+            scope_a = fluid.Scope()
+            if not rehearsal:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            try:
+                exe_t.run(startup_a, scope=scope_a)
+                got, ms, per = run_steps(main_a, scope_a, feed_a, [h_a["loss"]], TRAIN_STEPS,
+                                         exe_t)
+                break
+            except torch.cuda.OutOfMemoryError:
+                pass
+            del scope_a
+            gc.collect()
+            torch.cuda.empty_cache()
+            print(f"[amp] b {b_amp} does not fit the card: trying b {b_amp // 2}")
+            b_amp //= 2
+        for counts in per:
+            launches = {n: launches[n] + counts[n] for n in launches}
+        losses_a = [g[0] for g in got]
+        peak_a = torch.cuda.max_memory_allocated() if not rehearsal else 0
+        require(all(math.isfinite(x) for x in losses_a), f"[amp] non-finite loss {losses_a}")
+        require(losses_a[-1] < losses_a[0], f"[amp] the loss did not fall: {losses_a}")
+        require(exe_t.recomputed_forwards == [], "[amp] an __auto_grad__ re-ran a forward")
+        if not rehearsal:
+            require(all(c == amp_want for c in per), f"[amp] launches a step {per}, "
+                    f"want {amp_want}")
+        step = lambda: exe_t.run(main_a, feed=dict(feed_a),  # noqa: E731
+                                 fetch_list=[h_a["loss"]], scope=scope_a)
+        step_report("amp", b_amp, losses_a, ms, peak_a,
+                    bert_flops_per_token(amp_cfg, ts, tp), step)
+        if b_amp == amp_batches[-1]:
+            host_breakdown(step)
+        del scope_a, step
+    path_launches["amp"] = launches
+    print(f"[amp] launches over {TRAIN_STEPS} steps at each batch size: {launches}")
+    cfg2_amp = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    feed_2 = bert_pretrain_feed(np, np.random.RandomState(args.seed), cfg2_amp, tb, ts, tp)
+    card_vs_cpu("amp", lambda: amp_pretrain(cfg2_amp, tb, mlm_only=True, max_preds=tp),
+                feed_2, LR)
+
+    # ---- 5c. full: pretraining with both heads, bhsd, Lamb, loss scaling ---
+    # the NSP head and the masked-LM head over every position, attention in
+    # the bhsd layout (kernels #2 and #6), bf16 AMP with dynamic loss
+    # scaling around Lamb with a global-norm clip
+    full_cfg = BertConfig.tiny() if rehearsal else BertConfig()
+    full_cfg.attn_layout = "bhsd"
+    lamb = lambda: fluid.optimizer.Lamb(  # noqa: E731
+        FULL_LR, lamb_weight_decay=0.01, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0))
+    full_amp = dict(use_dynamic_loss_scaling=True)
+    main_f, startup_f, h_f, opt_f = amp_pretrain(full_cfg, tb, lamb, full_amp,
+                                                 mlm_only=False, max_preds=None)
+    layouts = {op.attr("layout") for op in main_f.global_block().ops
+               if op.type == "fused_multihead_attention"}
+    require(layouts == {"bhsd"}, f"[full] attention layouts {layouts}")
+    found_f = next(op.output("FoundInfinite")[0] for op in main_f.global_block().ops
+                   if op.type == "check_finite_and_unscale")
+    scale_f = opt_f.get_loss_scaling()
+    feed_f = bert_full_feed(np, np.random.RandomState(args.seed), full_cfg, tb, ts)
+    scope_f = fluid.Scope()
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    exe_t.run(startup_f, scope=scope_f)
+    print(f"[full] BERT hidden {full_cfg.hidden_size} x {full_cfg.num_layers} layers, b {tb} "
+          f"s {ts}, NSP + MLM over every position, bhsd, bf16 AMP with dynamic loss scaling, "
+          f"Lamb({FULL_LR}, lamb_weight_decay=0.01) + GradientClipByGlobalNorm(1.0): "
+          f"{len(main_f.global_block().ops)} ops")
+    kernels.reset_launch_counts()
+    got, ms, per = run_steps(main_f, scope_f, feed_f, [h_f["loss"], scale_f, found_f],
+                             TRAIN_STEPS, exe_t)
+    launches = kernels.launch_counts()
+    path_launches["full"] = launches
+    peak_f = torch.cuda.max_memory_allocated() if not rehearsal else 0
+    losses_f = [g[0] for g in got]
+    print(f"[full] loss scale a step {[g[1] for g in got]}, found_infinite "
+          f"{[bool(g[2]) for g in got]}; launches over {TRAIN_STEPS} steps: {launches}")
+    require(all(math.isfinite(x) for x in losses_f) and not any(g[2] for g in got),
+            f"[full] losses {losses_f}, found_infinite {[g[2] for g in got]}")
+    require(losses_f[-1] < losses_f[0], f"[full] the loss did not fall: {losses_f}")
+    if not rehearsal:
+        require(all(c == amp_want for c in per), f"[full] launches a step {per}, "
+                f"want {amp_want}")
+    step = lambda: exe_t.run(main_f, feed=dict(feed_f),  # noqa: E731
+                             fetch_list=[h_f["loss"]], scope=scope_f)
+    step_report("full", tb, losses_f, ms, peak_f,
+                bert_flops_per_token(full_cfg, ts), step)
+
+    # the overflow step: one non-finite mask weight until the decrease
+    # window closes (decr_every_n_nan_or_inf steps in a row, counted
+    # before the increment): found_infinite each step, the scale times
+    # decr_ratio at the end, every persistable finite
+    bad_feed = dict(feed_f, mask_weight=feed_f["mask_weight"].copy())
+    bad_feed["mask_weight"][0, 0] = np.nan
+    scale_before = float(to_numpy(scope_f.get(scale_f.name))[0])
+    decr_n, decr_ratio = opt_f._decr_every_n_nan_or_inf, opt_f._decr_ratio
+    bad, _, _ = run_steps(main_f, scope_f, bad_feed, [scale_f, found_f], decr_n + 1, exe_t)
+    finite = all(bool(np.isfinite(to_numpy(scope_f.get(v.name))).all())
+                 for v in main_f.list_vars() if v.persistable and scope_f.has(v.name))
+    print(f"[full] overflow: {decr_n + 1} steps with mask_weight[0, 0] = nan: "
+          f"found_infinite {[bool(g[1]) for g in bad]}, scale {scale_before} -> "
+          f"{[g[0] for g in bad]} (decr_ratio {decr_ratio}); every persistable finite: {finite}")
+    require(all(g[1] for g in bad), "[full] an overflow step was not found")
+    shrunk = max(float(np.float32(scale_before) * np.float32(decr_ratio)), 1.0)
+    require([g[0] for g in bad] == [scale_before] * decr_n + [shrunk],
+            "[full] the scale did not shrink by "
+            f"decr_ratio: {scale_before} -> {[g[0] for g in bad]}")
+    require(finite, "[full] a persistable is not finite after the overflow steps")
+    del scope_f, step
+
+    # card vs CPU at 2 layers: the same configuration, then the unfused
+    # path (use_flash_attention=False, fused_qkv, an untied MLM projection,
+    # AdamW, an L1 decay on the pooler, a clip by value), which launches no
+    # attention kernel
+    cfg2_full = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    cfg2_full.attn_layout = "bhsd"
+    feed_2f = bert_full_feed(np, np.random.RandomState(args.seed), cfg2_full, tb, ts)
+    card_vs_cpu("full", lambda: amp_pretrain(
+        cfg2_full, tb, lamb, full_amp, mlm_only=False, max_preds=None), feed_2f, FULL_LR)
+    cfg2_unf = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    cfg2_unf.use_flash_attention, cfg2_unf.fused_qkv, cfg2_unf.tie_mlm_weights = False, True, False
+
+    def pooler_l1(main_p):  # what ParamAttr(regularizer=L1Decay(...)) sets
+        main_p.global_block().var("pooler.w_0").regularizer = fluid.regularizer.L1Decay(1e-4)
+
+    got_launch = card_vs_cpu("unfused", lambda: amp_pretrain(
+        cfg2_unf, tb, lambda: fluid.optimizer.AdamW(
+            LR, weight_decay=0.01, grad_clip=fluid.clip.GradientClipByValue(1.0)),
+        full_amp, tweak=pooler_l1, mlm_only=False, max_preds=None), feed_2f, LR)
+    if not rehearsal:
+        require(got_launch["mha_short_fwd"] == got_launch["mha_short_bwd"] == 0
+                and got_launch["flash_fwd"] == got_launch["flash_bwd"] == 0,
+                f"[unfused] the unfused path launched an attention kernel: {got_launch}")
+
     # ---- 6. long: one attention training step at s 2048 ------------------
     lb, lh, lsq, _, ld = long_shape
     long_prog = fluid.Program()
@@ -1117,6 +1382,21 @@ def bert_pretrain_feed(np, rs, cfg, b, s, max_preds):
         "mask_weight": np.ones((b, max_preds), "float32"),
         "mask_pos": np.stack([rs.choice(s, max_preds, replace=False)
                               for _ in range(b)]).astype("int64"),
+    }
+
+
+def bert_full_feed(np, rs, cfg, b, s):
+    """The feed of the NSP head and the masked-LM head over every position:
+    random ids, a full input mask, labels at every position with 15% of
+    the weights 1, and random next-sentence labels."""
+    return {
+        "src_ids": rs.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "sent_ids": rs.randint(0, cfg.type_vocab_size, (b, s)).astype("int64"),
+        "pos_ids": np.tile(np.arange(s), (b, 1)).astype("int64"),
+        "input_mask": np.ones((b, s), dtype="float32"),
+        "mask_label": rs.randint(0, cfg.vocab_size, (b, s)).astype("int64"),
+        "mask_weight": (rs.rand(b, s) < 0.15).astype("float32"),
+        "nsp_label": rs.randint(0, 2, (b, 1)).astype("int64"),
     }
 
 

@@ -13,12 +13,16 @@ wrote in Pallas for the TPU are hand-written CUDA here
     exe.run(fluid.default_startup_program())
     loss, = exe.run(feed=feed, fetch_list=[h["loss"]])
 
-This package holds the ported slices so far: BERT encoder serving, BERT
-masked-LM pretraining (fp32), and ResNet training (fp32 and bf16 AMP,
-`contrib.mixed_precision.decorate`) and serving.
+This package holds the ported slices so far: BERT encoder serving; BERT
+pretraining (the masked-LM and next-sentence heads, every attention
+path of `BertConfig`) with SGD, Momentum, Adam, AdamW or Lamb, weight
+decay (`regularizer`) and gradient clipping (`clip`), in fp32 or under
+AMP with static or dynamic loss scaling (`contrib.mixed_precision.
+decorate`; fp16 on the CPU only); and ResNet training and serving.
 """
 
-from . import contrib, inference, initializer, io, layers, models, optimizer, param_attr
+from . import (clip, contrib, inference, initializer, io, layers, models, optimizer,
+               param_attr, regularizer)
 from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor
 from .framework import (

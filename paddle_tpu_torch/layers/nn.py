@@ -27,6 +27,13 @@ __all__ = [
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
+    "elementwise_max",
+    "transpose",
+    "split",
+    "slice",
+    "clip",
+    "clip_by_norm",
+    "square_error_cost",
     "conv2d",
     "pool2d",
     "batch_norm",
@@ -151,6 +158,7 @@ elementwise_add = _ew_layer("elementwise_add")
 elementwise_sub = _ew_layer("elementwise_sub")
 elementwise_mul = _ew_layer("elementwise_mul")
 elementwise_div = _ew_layer("elementwise_div")
+elementwise_max = _ew_layer("elementwise_max")
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
@@ -215,6 +223,74 @@ def reshape(x, shape, act=None, name=None):
     )
     return helper.append_activation(out, act)
 
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose2", name=name)
+    shape = tuple(x.shape[p] for p in perm) if x.shape else None
+    out = helper.create_variable_for_type_inference(x.dtype, shape)
+    xshape = helper.create_variable_for_type_inference(
+        x.dtype, (0,) + tuple(x.shape or ()), stop_gradient=True
+    )
+    helper.append_op(
+        type="transpose2",
+        inputs={"X": [x]},
+        outputs={"Out": [out], "XShape": [xshape]},
+        attrs={"axis": list(perm)},
+    )
+    return out
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    """`num_or_sections` equal parts, or parts of the listed sizes, along
+    `dim` -> the list of parts."""
+    helper = LayerHelper("split", name=name)
+    d = dim % len(input.shape)
+    if isinstance(num_or_sections, int):
+        sections = []
+        sizes = [input.shape[d] // num_or_sections] * num_or_sections
+    else:
+        sections = sizes = list(num_or_sections)
+    outs = []
+    for size in sizes:
+        shape = list(input.shape)
+        shape[d] = size
+        outs.append(helper.create_variable_for_type_inference(input.dtype, tuple(shape)))
+    helper.append_op(
+        type="split",
+        inputs={"X": [input]},
+        outputs={"Out": outs},
+        attrs={"axis": d, "num": 0 if sections else len(sizes), "sections": sections},
+    )
+    return outs
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", name=name)
+    shape = list(input.shape)
+    for a, s, e in zip(axes, starts, ends):
+        dim = shape[a]
+        if dim not in (-1, None):
+            s_ = s + dim if s < 0 else min(s, dim)
+            e_ = e + dim if e < 0 else min(e, dim)
+            shape[a] = max(e_ - s_, 0)
+    return _single_out(
+        helper, "slice", {"Input": [input]},
+        {"axes": list(axes), "starts": list(starts), "ends": list(ends),
+         "decrease_axis": []},
+        shape=tuple(shape),
+    )
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    return _single_out(helper, "clip", {"X": [x]}, {"min": min, "max": max},
+                       shape=x.shape)
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    return _single_out(helper, "clip_by_norm", {"X": [x]}, {"max_norm": max_norm},
+                       shape=x.shape)
 
 
 def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
@@ -430,6 +506,12 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
         attrs={"soft_label": soft_label, "ignore_index": ignore_index},
     )
     return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    return _single_out(helper, "square_error_cost", {"X": [input], "Y": [label]},
+                       shape=input.shape)
 
 
 def mean(x, name=None):

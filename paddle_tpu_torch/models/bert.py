@@ -1,11 +1,22 @@
-"""BERT encoder and masked-LM pretraining head, built through the port's
-layers exactly as `paddle_tpu/models/bert.py` builds them with its
-defaults (separate q/k/v projections, one fused attention op in the bshd
-layout, the MLM projection tied to the word embedding), so both packages
-emit the same Program op for op. The tensor-parallel PartitionSpec
-annotations of the JAX model are recorded on the Program
-(`_sharding_specs`, as tuples of axis names) and read by nothing yet:
-sharding is a later slice."""
+"""BERT encoder and pretraining heads, built through the port's layers
+exactly as `paddle_tpu/models/bert.py` builds them, so both packages emit
+the same Program op for op (equal var names are what give equal dropout
+masks). The config's switches are the JAX package's: the fused attention
+op in the bshd layout (no head transposes) or the bhsd layout (head
+transposes around it), or unfused attention (`use_flash_attention=False`:
+matmul, bias, softmax, dropout, matmul); separate q/k/v projections or
+one fused [h, 3h] projection and a split (`fused_qkv`); the MLM projection
+tied to the word embedding or a separate `mlm.out` fc
+(`tie_mlm_weights`). The heads: masked-LM over gathered positions
+(`max_preds`) or over every position, and, unless `mlm_only`, the
+next-sentence head on the first token. The JAX package's environment
+switches PADDLE_TPU_FUSED_QKV / PADDLE_TPU_ATTN_LAYOUT (TPU A/B knobs) are
+not read: with them unset the defaults are equal. `recompute` and
+pipeline stages raise (ROADMAP Queue 1, item 3, "recompute", and item 9).
+
+The tensor-parallel PartitionSpec annotations of the JAX model are
+recorded on the Program (`_sharding_specs`, as tuples of axis names) and
+read by nothing yet: sharding is a later slice."""
 
 from __future__ import annotations
 
@@ -33,6 +44,11 @@ class BertConfig:
         hidden_dropout=0.1,
         attention_dropout=0.1,
         initializer_range=0.02,
+        use_flash_attention=True,
+        recompute=False,
+        tie_mlm_weights=True,
+        fused_qkv=None,
+        attn_layout=None,
     ):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -44,6 +60,13 @@ class BertConfig:
         self.hidden_dropout = hidden_dropout
         self.attention_dropout = attention_dropout
         self.initializer_range = initializer_range
+        self.use_flash_attention = use_flash_attention
+        self.recompute = recompute
+        self.tie_mlm_weights = tie_mlm_weights
+        self.fused_qkv = bool(fused_qkv)
+        if (attn_layout or "bshd") not in ("bshd", "bhsd"):
+            raise ValueError(f"attn_layout must be 'bshd' or 'bhsd', got {attn_layout!r}")
+        self.attn_layout = attn_layout or "bshd"
 
     @staticmethod
     def base():
@@ -89,20 +112,44 @@ def _attention(x, attn_bias, cfg, name, is_test):
     b, s, h = x.shape
     nh = cfg.num_heads
     dh = cfg.hidden_size // nh
-    q = _fc(x, cfg.hidden_size, name + ".q", cfg, tp_spec=(None, "tp"),
-            bias_tp=("tp",))
-    k = _fc(x, cfg.hidden_size, name + ".k", cfg, tp_spec=(None, "tp"),
-            bias_tp=("tp",))
-    v = _fc(x, cfg.hidden_size, name + ".v", cfg, tp_spec=(None, "tp"),
-            bias_tp=("tp",))
-    # the fused op reads the head-split reshapes directly: no transposes
-    qh, kh, vh = (layers.reshape(t, [b, s, nh, dh]) for t in (q, k, v))
-    ctxv = layers.fused_multihead_attention(
-        qh, kh, vh, key_bias=attn_bias, sm_scale=1.0 / math.sqrt(dh),
-        attn_dropout=cfg.attention_dropout if not is_test else 0.0,
-        is_test=is_test, layout="bshd",
-    )
-    merged = layers.reshape(ctxv, [b, s, h])
+    if cfg.fused_qkv:
+        qkv = _fc(x, 3 * cfg.hidden_size, name + ".qkv", cfg, tp_spec=(None, "tp"),
+                  bias_tp=("tp",))
+        q, k, v = layers.split(qkv, 3, dim=2)
+    else:
+        q, k, v = (_fc(x, cfg.hidden_size, name + part, cfg, tp_spec=(None, "tp"),
+                       bias_tp=("tp",)) for part in (".q", ".k", ".v"))
+
+    def heads(t):  # [b, nh, s, dh]
+        return layers.transpose(layers.reshape(t, [b, s, nh, dh]), [0, 2, 1, 3])
+
+    if cfg.use_flash_attention:
+        # bshd: the fused op reads the head-split reshapes, no transposes
+        layout = cfg.attn_layout
+        if layout == "bshd":
+            qh, kh, vh = (layers.reshape(t, [b, s, nh, dh]) for t in (q, k, v))
+        else:
+            qh, kh, vh = (heads(t) for t in (q, k, v))
+        ctxv = layers.fused_multihead_attention(
+            qh, kh, vh, key_bias=attn_bias, sm_scale=1.0 / math.sqrt(dh),
+            attn_dropout=cfg.attention_dropout if not is_test else 0.0,
+            is_test=is_test, layout=layout,
+        )
+        if layout == "bshd":
+            merged = layers.reshape(ctxv, [b, s, h])
+        else:
+            merged = layers.reshape(layers.transpose(ctxv, [0, 2, 1, 3]), [b, s, h])
+    else:
+        qh, kh, vh = (heads(t) for t in (q, k, v))
+        scores = layers.matmul(qh, kh, transpose_y=True, alpha=1.0 / math.sqrt(dh))
+        if attn_bias is not None:
+            scores = layers.elementwise_add(scores, attn_bias)
+        probs = layers.softmax(scores)
+        if cfg.attention_dropout and not is_test:
+            probs = layers.dropout(probs, cfg.attention_dropout, is_test=is_test,
+                                   dropout_implementation="upscale_in_train")
+        ctxv = layers.matmul(probs, vh)  # [b, nh, s, dh]
+        merged = layers.reshape(layers.transpose(ctxv, [0, 2, 1, 3]), [b, s, h])
     return _fc(merged, cfg.hidden_size, name + ".out", cfg, tp_spec=("tp", None))
 
 
@@ -131,9 +178,18 @@ def _encoder_layer(x, attn_bias, cfg, name, is_test):
 
 
 def bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
-                 is_test=False):
+                 is_test=False, pp_stages=1):
     """Final hidden states [b, s, h]; with is_test=False, hidden and
-    attention dropout as the config sets them."""
+    attention dropout as the config sets them. Recomputation and pipeline
+    stages are not ported and raise."""
+    if cfg.recompute:
+        raise NotImplementedError(
+            "BertConfig.recompute needs RecomputeOptimizer and recompute_scope, which "
+            "are not ported yet (ROADMAP Queue 1, item 3, 'recompute')")
+    if pp_stages > 1:
+        raise NotImplementedError(
+            "pp_stages > 1 needs the pipeline executor, which is not ported yet "
+            "(ROADMAP Queue 1, item 9, parallelism)")
     init = TruncatedNormal(0.0, cfg.initializer_range)
     x, attn_bias = _bert_embedding(
         input_ids, segment_ids, position_ids, input_mask, cfg, is_test, init)
@@ -161,8 +217,11 @@ def _bert_embedding(input_ids, segment_ids, position_ids, input_mask, cfg, is_te
     )
     emb = _dropout(layers.layer_norm(emb, begin_norm_axis=2, name="bert.emb_ln"),
                    cfg, is_test)
-    # additive key bias from the [b, s] mask: (mask - 1) * 1e4, i.e. 0 keep
-    # and -1e4 drop, taken by the fused attention op as [b, s] directly
+    # additive key bias from the mask: (mask - 1) * 1e4, i.e. 0 keep and
+    # -1e4 drop; [b, s] for the fused op, [b, 1, 1, s] for the scores
+    if not cfg.use_flash_attention:
+        b, s = input_ids.shape[0], input_ids.shape[1]
+        input_mask = layers.reshape(input_mask, [b, 1, 1, s])
     attn_bias = layers.scale(input_mask, scale=1e4, bias=-1.0,
                              bias_after_scale=False)
     return emb, attn_bias
@@ -179,22 +238,30 @@ def tied_logits(x, table_name, vocab_size, bias_name):
     return layers.elementwise_add(logits, bias)
 
 
+def _mlm_logits(trans, cfg, num_flatten_dims):
+    """The vocab projection: tied to the word embedding (the default), or
+    a separate `mlm.out` fc."""
+    if cfg.tie_mlm_weights:
+        return tied_logits(trans, "bert.word_emb", cfg.vocab_size, "mlm.out_b")
+    return _fc(trans, cfg.vocab_size, "mlm.out", cfg, num_flatten_dims=num_flatten_dims,
+               tp_spec=(None, "tp"), bias_tp=("tp",))
+
+
 def build_bert_pretrain(cfg, batch_size, seq_len, is_test=False, mlm_only=False,
-                        max_preds=None):
-    """Declares the feeds and the masked-LM pretraining loss -> a dict of
-    handles (feeds, hidden, logits, mlm_loss, loss). Ids are [b, s] int64,
-    the mask and weights float32. The head scores only the masked
-    positions: feed `mask_pos` [b, max_preds] int64 positions in [0, s)
-    per row and `mask_label` / `mask_weight` [b, max_preds]; the gather is
-    flat over [b*s, h], with row offsets from an exclusive cumsum of a
-    batch-sized ones column. The MLM projection is the word embedding,
-    transposed. The NSP head (mlm_only=False) and the head over every
-    position (max_preds=None) come with a later slice."""
-    if not mlm_only or not max_preds:
-        raise NotImplementedError(
-            "build_bert_pretrain takes mlm_only=True and max_preds so far: the NSP "
-            "head (slice, pooler, tanh, mean) and the MLM head over every position "
-            "come with the next slice of the port")
+                        max_preds=None, pp_stages=1):
+    """Declares the feeds and the pretraining loss -> a dict of handles
+    (feeds, hidden, logits, mlm_loss, loss, and nsp_loss unless mlm_only).
+    Ids are [b, s] int64, the mask and weights float32.
+
+    With `max_preds` the masked-LM head scores only the masked positions:
+    feed `mask_pos` [b, max_preds] int64 positions in [0, s) per row and
+    `mask_label` / `mask_weight` [b, max_preds]; the gather is flat over
+    [b*s, h], with row offsets from an exclusive cumsum of a batch-sized
+    ones column. With max_preds=None it scores every position, and
+    `mask_label` / `mask_weight` are [b, s]. Unless `mlm_only`, the
+    next-sentence head takes the first token's hidden state through a tanh
+    pooler and a 2-way fc (feed `nsp_label` [b, 1] int64), and the loss is
+    the sum of both means."""
     data = layers.data
     input_ids = data("src_ids", [batch_size, seq_len], dtype="int64",
                      append_batch_size=False)
@@ -204,42 +271,74 @@ def build_bert_pretrain(cfg, batch_size, seq_len, is_test=False, mlm_only=False,
                         append_batch_size=False)
     input_mask = data("input_mask", [batch_size, seq_len], dtype="float32",
                       append_batch_size=False)
-    mlm_labels = data("mask_label", [batch_size, max_preds], dtype="int64",
-                      append_batch_size=False)
-    mlm_weights = data("mask_weight", [batch_size, max_preds], dtype="float32",
+    lbl_shape = [batch_size, max_preds] if max_preds else [batch_size, seq_len]
+    mlm_labels = data("mask_label", lbl_shape, dtype="int64", append_batch_size=False)
+    mlm_weights = data("mask_weight", lbl_shape, dtype="float32",
                        append_batch_size=False)
-    mask_pos = data("mask_pos", [batch_size, max_preds], dtype="int64",
-                    append_batch_size=False)
+    if max_preds:
+        mask_pos = data("mask_pos", [batch_size, max_preds], dtype="int64",
+                        append_batch_size=False)
 
     hidden = bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
-                          is_test)
-    ones = layers.fill_constant_batch_size_like(mask_pos, shape=[-1, 1],
-                                                dtype="int64", value=1)
-    row_id = layers.cumsum(ones, axis=0, exclusive=True)  # [b, 1]
-    flat_pos = layers.reshape(mask_pos + row_id * seq_len, [batch_size * max_preds])
-    flat = layers.reshape(hidden, [batch_size * seq_len, cfg.hidden_size])
-    picked = layers.gather(flat, flat_pos)  # [b * P, h]
-    trans = _fc(picked, cfg.hidden_size, "mlm.trans", cfg,
-                act={"type": "gelu", "approximate": True}, num_flatten_dims=1)
-    trans = layers.layer_norm(trans, begin_norm_axis=1, name="mlm.ln")
-    logits = tied_logits(trans, "bert.word_emb", cfg.vocab_size, "mlm.out_b")
-    labels = layers.reshape(mlm_labels, [batch_size * max_preds, 1])
-    per_tok = layers.softmax_with_cross_entropy(logits, labels)
-    w = layers.reshape(mlm_weights, [batch_size * max_preds, 1])
+                          is_test, pp_stages=pp_stages)
+    if max_preds:
+        ones = layers.fill_constant_batch_size_like(mask_pos, shape=[-1, 1],
+                                                    dtype="int64", value=1)
+        row_id = layers.cumsum(ones, axis=0, exclusive=True)  # [b, 1]
+        flat_pos = layers.reshape(mask_pos + row_id * seq_len, [batch_size * max_preds])
+        flat = layers.reshape(hidden, [batch_size * seq_len, cfg.hidden_size])
+        picked = layers.gather(flat, flat_pos)  # [b * P, h]
+        trans = _fc(picked, cfg.hidden_size, "mlm.trans", cfg,
+                    act={"type": "gelu", "approximate": True}, num_flatten_dims=1)
+        trans = layers.layer_norm(trans, begin_norm_axis=1, name="mlm.ln")
+        logits = _mlm_logits(trans, cfg, num_flatten_dims=1)
+        labels = layers.reshape(mlm_labels, [batch_size * max_preds, 1])
+        per_tok = layers.softmax_with_cross_entropy(logits, labels)
+        w = layers.reshape(mlm_weights, [batch_size * max_preds, 1])
+    else:
+        trans = _fc(hidden, cfg.hidden_size, "mlm.trans", cfg,
+                    act={"type": "gelu", "approximate": True})
+        trans = layers.layer_norm(trans, begin_norm_axis=2, name="mlm.ln")
+        logits = _mlm_logits(trans, cfg, num_flatten_dims=2)
+        labels = layers.reshape(mlm_labels, [batch_size, seq_len, 1])
+        per_tok = layers.reshape(layers.softmax_with_cross_entropy(logits, labels),
+                                 [batch_size, seq_len])
+        w = mlm_weights
     masked = layers.elementwise_mul(per_tok, w)
     denom = layers.reduce_sum(w)
     mlm_loss = layers.elementwise_div(
         layers.reduce_sum(masked),
         layers.elementwise_add(denom, layers.fill_constant([1], "float32", 1e-6)),
     )
-    return {
+    handles = {
         "feeds": ["src_ids", "sent_ids", "pos_ids", "input_mask", "mask_label",
-                  "mask_weight", "mask_pos"],
+                  "mask_weight"] + (["mask_pos"] if max_preds else []),
         "hidden": hidden,
         "logits": logits,
         "mlm_loss": mlm_loss,
         "loss": mlm_loss,
     }
+    if not mlm_only:
+        nsp_labels = data("nsp_label", [batch_size, 1], dtype="int64",
+                          append_batch_size=False)
+        cls = layers.slice(hidden, [1], [0], [1])  # [b, 1, h]
+        cls = layers.reshape(cls, [batch_size, cfg.hidden_size])
+        pooled = layers.fc(
+            cls, cfg.hidden_size, act="tanh",
+            param_attr=ParamAttr(name="pooler.w_0", initializer=TruncatedNormal(0.0, 0.02)),
+            bias_attr=ParamAttr(name="pooler.b_0", initializer=Constant(0.0)),
+        )
+        nsp_logits = layers.fc(
+            pooled, 2,
+            param_attr=ParamAttr(name="nsp.w_0", initializer=TruncatedNormal(0.0, 0.02)),
+            bias_attr=ParamAttr(name="nsp.b_0", initializer=Constant(0.0)),
+        )
+        nsp_loss = layers.mean(layers.softmax_with_cross_entropy(nsp_logits, nsp_labels))
+        handles["feeds"].append("nsp_label")
+        handles["nsp_loss"] = nsp_loss
+        handles["loss"] = layers.elementwise_add(layers.reshape(mlm_loss, [1]),
+                                                 layers.reshape(nsp_loss, [1]))
+    return handles
 
 
 def bert_flops_per_token(cfg, seq_len=None, max_preds=None) -> float:

@@ -6,6 +6,20 @@ kernel, and nowhere else, so a run can show which kernels its main path
 went through. A wrapper given a CPU tensor computes the kernel's plain
 version instead; given a CUDA tensor it launches the kernel or raises."""
 
+# every kernel takes float32 and bf16; an fp16 input on the card raises
+# TypeError with this note, and nothing falls back to a plain version
+FP16_NOT_WRITTEN = ("float16 kernels are not written yet (ROADMAP Queue 1, \"fp16 "
+                    "versions of kernels #1-#8\"); fp16 AMP runs on the CPU so far, "
+                    "bfloat16 runs on the card")
+
+
+def fp16_note(*dtypes) -> str:
+    """FP16_NOT_WRITTEN, after a space, when any of `dtypes` is float16."""
+    import torch
+
+    return f" ({FP16_NOT_WRITTEN})" if torch.float16 in dtypes else ""
+
+
 LAUNCHES = {
     "mha_short_fwd": 0,
     "mha_short_bwd": 0,

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, fp16_note
 from ._build import load
 
 NEG_INF = -1e30
@@ -363,7 +363,8 @@ def _check_inputs(name, q, k, v, bias, dropout, layout, more=()):
     if q.dtype not in (torch.float32, torch.bfloat16) or not (
             k.dtype == v.dtype == q.dtype):
         raise TypeError(f"{name}: q, k, v must share dtype float32 or bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}"
+                        + fp16_note(q.dtype, k.dtype, v.dtype))
     kshape = (b, sk, h, d) if layout == "bshd" else (b, h, sk, d)
     if q.dim() != 4 or tuple(k.shape) != kshape or tuple(v.shape) != kshape:
         raise ValueError(f"{name}: k and v must be {kshape} for q {tuple(q.shape)}")

@@ -44,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, fp16_note
 from ._build import load
 
 __all__ = [
@@ -159,7 +159,7 @@ def _check(name, x, w, mats=(), vecs=()):
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"{name}: x and w must share dtype float32 or bfloat16, got "
-                        f"{x.dtype}, {w.dtype}")
+                        f"{x.dtype}, {w.dtype}" + fp16_note(x.dtype, w.dtype))
     for t, want, dtype in ([(m, tuple(x.shape), x.dtype) for m in mats]
                            + [(v, (x.shape[1],), torch.float32) for v in vecs]
                            + [(x, tuple(x.shape), x.dtype), (w, tuple(w.shape), x.dtype)]):

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCHES, fp16_note
 from ._build import load
 
 __all__ = ["LnGeometry", "ln_bwd", "ln_bwd_geometry", "ln_bwd_plain", "ln_bwd_plan"]
@@ -123,7 +123,8 @@ def ln_bwd(x2, dy2, mean, rstd, scale):
     n, k = x2.shape
     if x2.dtype not in (torch.float32, torch.bfloat16) or dy2.dtype != x2.dtype:
         raise TypeError("layer_norm_bwd: x and dy must share dtype float32 or "
-                        f"bfloat16, got {x2.dtype}, {dy2.dtype}")
+                        f"bfloat16, got {x2.dtype}, {dy2.dtype}"
+                        + fp16_note(x2.dtype, dy2.dtype))
     for name, t, shape in (("x", x2, (n, k)), ("dy", dy2, (n, k)), ("mean", mean, (n,)),
                            ("rstd", rstd, (n,)), ("scale", scale, (k,))):
         if tuple(t.shape) != shape or not t.is_contiguous() or t.device != x2.device:

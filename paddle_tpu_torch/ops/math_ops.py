@@ -1,7 +1,8 @@
-"""Elementwise, activation, matmul, reduction and scan op lowerings:
-elementwise_add / sub / mul / div (fluid axis broadcast) with the linear
-grad op of add and sub, scale, mul, matmul, gelu, relu, sum, reduce_sum,
-mean, top_k and cumsum. The large `mul` / `matmul` products stay
+"""Elementwise, activation, matmul, reduction, norm and scan op lowerings:
+elementwise_add / sub / mul / div / max (fluid axis broadcast) with the
+linear grad op of add and sub, scale, mul, matmul, gelu, relu, tanh, sqrt,
+sign, clip, sum, reduce_sum, mean, squared_l2_norm, clip_by_norm, top_k
+and cumsum. The large `mul` / `matmul` products stay
 `torch.matmul`, as the JAX package leaves them to XLA; under bf16 AMP they
 take their inputs in bf16 (`ctx.amp_cast`, math_ops.py:315-363 there)."""
 
@@ -101,6 +102,7 @@ for _name, _fn in {
     "elementwise_sub": torch.sub,
     "elementwise_mul": torch.mul,
     "elementwise_div": torch.div,
+    "elementwise_max": torch.maximum,
 }.items():
     if _name in ("elementwise_add", "elementwise_sub"):
         register_op(_name, grad=_ew_linear_grad_maker(_name))(_ew(_fn))
@@ -160,9 +162,36 @@ def _gelu(ctx, op):
     ctx.out(op, "Out", torch.nn.functional.gelu(x, approximate=approximate))
 
 
-@register_op("relu")
-def _relu(ctx, op):
-    ctx.out(op, "Out", torch.relu(ctx.in_(op, "X")))
+def _unary(name, fn, **reg_kwargs):
+    register_op(name, **reg_kwargs)(lambda ctx, op: ctx.out(op, "Out", fn(ctx.in_(op, "X"))))
+
+
+_unary("relu", torch.relu)
+_unary("tanh", torch.tanh)
+_unary("sqrt", torch.sqrt)
+_unary("sign", torch.sign, differentiable=False)
+
+
+@register_op("clip")
+def _clip(ctx, op):
+    ctx.out(op, "Out", torch.clamp(ctx.in_(op, "X"), op.attr("min"), op.attr("max")))
+
+
+@register_op("squared_l2_norm")
+def _squared_l2_norm(ctx, op):
+    """sum(x^2) as a [1] tensor; the JAX package registers it twice with
+    this one function (math_ops.py:443, loss_ops.py:127 there)."""
+    ctx.out(op, "Out", torch.sum(torch.square(ctx.in_(op, "X"))).reshape(1))
+
+
+@register_op("clip_by_norm")
+def _clip_by_norm(ctx, op):
+    """x * (max_norm / ||x||) where ||x|| > max_norm, else x: a zero
+    norm keeps x (math_ops.py:598-603 there)."""
+    x = ctx.in_(op, "X")
+    max_norm = op.attr("max_norm")
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    ctx.out(op, "Out", torch.where(norm > max_norm, x * (max_norm / norm), x))
 
 
 @register_op("mean")

@@ -1,7 +1,7 @@
 """conv2d, pool2d, batch_norm (forward and grad), layer_norm (forward and
 grad), dropout (forward and grad), softmax (forward and grad),
-softmax_with_cross_entropy (forward and grad), cross_entropy and
-lookup_table lowerings.
+softmax_with_cross_entropy (forward and grad), cross_entropy,
+square_error_cost and lookup_table lowerings.
 
 Convolutions go to `F.conv2d` (cuDNN on the card), as the JAX package
 leaves them to `lax.conv_general_dilated` outside any Pallas kernel. The
@@ -564,6 +564,11 @@ def _softmax_with_cross_entropy(ctx, op):
                                torch.zeros((), dtype=loss.dtype, device=loss.device))
     ctx.out(op, "Softmax", torch.exp(logp).to(logits.dtype))
     ctx.out(op, "Loss", loss.to(logits.dtype))
+
+
+@register_op("square_error_cost")
+def _square_error_cost(ctx, op):
+    ctx.out(op, "Out", torch.square(ctx.in_(op, "X") - ctx.in_(op, "Y")))
 
 
 @register_op("lookup_table", no_grad_inputs=("Ids",))

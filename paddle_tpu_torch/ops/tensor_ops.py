@@ -1,5 +1,6 @@
-"""Shape, creation and indexing op lowerings: reshape2, fill_constant,
-fill_constant_batch_size_like, assign, gather and the random
+"""Shape, creation and indexing op lowerings: reshape2, transpose,
+transpose2, split, slice, fill_constant, fill_constant_batch_size_like,
+assign, gather and the random
 initializers of the startup program. Random ops draw from an
 explicit torch.Generator on the context's device: their values differ
 from the JAX package's threefry streams, so parity tests carry weights
@@ -31,11 +32,58 @@ def _reshape2(ctx, op):
     ctx.out(op, "XShape", x.new_empty((0,) + tuple(x.shape)))
 
 
+@register_op("transpose")
+def _transpose(ctx, op):
+    ctx.out(op, "Out", ctx.in_(op, "X").permute(*op.attr("axis")))
+
+
+@register_op("transpose2")
+def _transpose2(ctx, op):
+    x = ctx.in_(op, "X")
+    ctx.out(op, "Out", x.permute(*op.attr("axis")))
+    ctx.out(op, "XShape", x.new_empty((0,) + tuple(x.shape)))
+
+
+@register_op("split")
+def _split(ctx, op):
+    """`sections` sizes along `axis`, or `num` equal parts; the grad of
+    the parts is their cotangents concatenated back (autograd's)."""
+    x = ctx.in_(op, "X")
+    axis = op.attr("axis", 0)
+    sections = op.attr("sections", [])
+    size = list(sections) if sections else x.shape[axis] // op.attr("num", 0)
+    for i, part in enumerate(torch.split(x, size, dim=axis)):
+        ctx.out(op, "Out", part, idx=i)
+
+
+@register_op("slice")
+def _slice(ctx, op):
+    """Starts and ends per axis, negative ones from the end, clamped to
+    the dim; `decrease_axis` drops those axes. The grad is the cotangent
+    zero-padded back to the input's shape (autograd's)."""
+    x = ctx.in_(op, "Input")
+    idx = [slice(None)] * x.dim()
+    for a, s, e in zip(op.attr("axes"), op.attr("starts"), op.attr("ends")):
+        dim = x.shape[a]
+        s = s + dim if s < 0 else min(s, dim)
+        e = e + dim if e < 0 else min(e, dim)
+        idx[a] = slice(s, e)
+    out = x[tuple(idx)]
+    decrease = op.attr("decrease_axis", [])
+    if decrease:
+        out = out.reshape([d for i, d in enumerate(out.shape) if i not in decrease])
+    ctx.out(op, "Out", out)
+
+
 @register_op("fill_constant", differentiable=False)
 def _fill_constant(ctx, op):
+    """`str_value`, when set, takes the place of `value`
+    (tensor_ops.py:376-383 there)."""
+    value = op.attr("value", 0.0)
+    if op.attr("str_value", ""):
+        value = float(op.attr("str_value"))
     dtype = TORCH_DTYPE(op.attr("dtype", "float32"))
-    ctx.out(op, "Out", torch.full(tuple(op.attr("shape", [1])),
-                                  op.attr("value", 0.0), dtype=dtype,
+    ctx.out(op, "Out", torch.full(tuple(op.attr("shape", [1])), value, dtype=dtype,
                                   device=ctx.device))
 
 

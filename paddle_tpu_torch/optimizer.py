@@ -3,12 +3,15 @@ tagged with the Optimize role, as `paddle_tpu/optimizer.py` builds them:
 the same learning-rate var, accumulator names and startup fill ops, so
 both packages hold the same persistables under the same names.
 
-Ported so far: SGD, Momentum and Adam in static-graph mode. Regularization and
-gradient clipping come with a later slice and raise here."""
+Ported so far, in static-graph mode: SGD, Momentum, Adam, AdamW and Lamb,
+with weight decay (`regularization=`, or a ParamAttr's `regularizer`,
+regularizer.py) and gradient clipping (`grad_clip=`, or the program-wide
+`clip.set_gradient_clip`)."""
 
 from __future__ import annotations
 
 from .backward import append_backward
+from .clip import get_gradient_clip
 from .framework import (
     Variable,
     core_op_role,
@@ -17,9 +20,10 @@ from .framework import (
     unique_name,
 )
 from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
-           "Adam", "AdamOptimizer"]
+           "Adam", "AdamOptimizer", "AdamW", "Lamb", "LambOptimizer"]
 
 
 class Optimizer:
@@ -27,13 +31,11 @@ class Optimizer:
 
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None, parameter_list=None):
-        if regularization is not None or grad_clip is not None:
-            raise NotImplementedError(
-                "regularization and gradient clipping (regularizer.py, clip.py) "
-                "come with a later slice of the port")
         if parameter_list is not None:
             raise NotImplementedError("dygraph optimizers are not ported yet")
         self._learning_rate = learning_rate
+        self.regularization = regularization
+        self._grad_clip = grad_clip
         self._name = name
         self._accumulators = {}
         self._lr_var_cache = None
@@ -93,11 +95,17 @@ class Optimizer:
         return append_backward(loss, parameter_list, no_grad_set)
 
     def apply_gradients(self, params_grads):
+        """Weight decay, then clipping (this optimizer's, else the one
+        `set_gradient_clip` set), then one update op per parameter, in the
+        JAX package's order (optimizer.py:150-166 there)."""
         program = default_main_program()
         block = program.global_block()
-        if any(getattr(p, "regularizer", None) is not None for p, _ in params_grads):
-            raise NotImplementedError(
-                "parameter regularizers come with a later slice of the port")
+        if self.regularization is not None or any(
+                p.regularizer is not None for p, _ in params_grads):
+            params_grads = append_regularization_ops(params_grads, self.regularization)
+        clip = self._grad_clip if self._grad_clip is not None else get_gradient_clip()
+        if clip is not None:
+            params_grads = clip(params_grads)
         lr = self._create_lr_var(block)
         self._create_accumulators(block, [p for p, _ in params_grads])
         for pg in params_grads:
@@ -157,22 +165,55 @@ class AdamOptimizer(Optimizer):
             self._add_accumulator("beta1_pow_acc", p, self._beta1, shape=[1])
             self._add_accumulator("beta2_pow_acc", p, self._beta2, shape=[1])
 
+    def _adam_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon}
+
     def _append_optimize_op(self, block, pg, lr):
         p, g = pg
         acc = {n: self._get_accumulator(n, p)
                for n in ("moment1", "moment2", "beta1_pow_acc", "beta2_pow_acc")}
         self._op(
-            block, "adam",
+            block, self.type,
             {"Param": [p], "Grad": [g], "Moment1": [acc["moment1"]],
              "Moment2": [acc["moment2"]], "Beta1Pow": [acc["beta1_pow_acc"]],
              "Beta2Pow": [acc["beta2_pow_acc"]], "LearningRate": [lr]},
             {"ParamOut": [p], "Moment1Out": [acc["moment1"]],
              "Moment2Out": [acc["moment2"]], "Beta1PowOut": [acc["beta1_pow_acc"]],
              "Beta2PowOut": [acc["beta2_pow_acc"]]},
-            {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon},
+            self._adam_attrs(),
         )
+
+
+class AdamW(AdamOptimizer):
+    """Adam with decoupled weight decay `weight_decay` (the `adamw` op's
+    coeff); Adam's accumulators."""
+
+    type = "adamw"
+
+    def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, **kw)
+        self._coeff = weight_decay
+
+    def _adam_attrs(self):
+        return {**super()._adam_attrs(), "coeff": self._coeff}
+
+
+class LambOptimizer(AdamOptimizer):
+    """Lamb: Adam's moments with a layer-wise trust ratio and weight decay
+    `lamb_weight_decay` inside the update; Adam's accumulators."""
+
+    type = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
+                 beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1, beta2, epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+
+    def _adam_attrs(self):
+        return {**super()._adam_attrs(), "weight_decay": self._weight_decay}
 
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+Lamb = LambOptimizer

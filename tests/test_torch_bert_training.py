@@ -3,6 +3,13 @@
 - Each lowering the BERT pretrain step adds, and its grad, through both
   packages' Executors: the same tiny Program built with each package's
   layers, the same numpy inputs, `gradients(out, inputs, cotangent)`.
+  This covers the lowerings of full pretraining too: transpose2, split
+  (the parts' cotangents concatenated back), slice (zero-padded), tanh,
+  sqrt, sign, elementwise_max, clip, clip_by_norm (clipped, kept and at
+  a zero norm), squared_l2_norm, square_error_cost, fill_constant's
+  str_value, check_finite_and_unscale (finite, with an inf, with a nan:
+  zeros by selection) and update_loss_scaling over a scripted run of
+  found_inf that closes both windows.
 - The port's `build_bert_pretrain` + `Adam.minimize` Program equals the
   JAX one op by op (types, slots, var names, attrs): `rng_for` hashes the
   names, so equal names are what makes the dropout masks equal.
@@ -164,6 +171,109 @@ def _layer_norm(fluid):
     return _with_grads(fluid, out, [x, block.var("ln.w_0"), block.var("ln.w_1")])
 
 
+def _with_grads_multi(fluid, outs, inputs):
+    """outs + d(sum_i outs_i . g_i)/d(inputs) for fed cotangents g0, g1, ..."""
+    gs = [_data(fluid, f"g{i}", list(o.shape), grad=False) for i, o in enumerate(outs)]
+    return list(outs) + fluid.gradients(list(outs), inputs, target_gradients=gs)
+
+
+def _unary_op(layer, **kw):
+    def build(fluid):
+        x = _data(fluid, "x", [3, 4, 5])
+        out = getattr(fluid.layers, layer)(x, **kw)
+        return _with_grads(fluid, out, [x]) if layer != "sign" else [out]
+    return build
+
+
+def _transpose(fluid):
+    x = _data(fluid, "x", [3, 4, 5])
+    return _with_grads(fluid, fluid.layers.transpose(x, [2, 0, 1]), [x])
+
+
+def _split(sections):
+    def build(fluid):
+        x = _data(fluid, "x", [3, 4, 5])
+        return _with_grads_multi(fluid, fluid.layers.split(x, sections, dim=-1), [x])
+    return build
+
+
+def _slice(fluid):
+    x = _data(fluid, "x", [3, 4, 5])
+    out = fluid.layers.slice(x, [1, 2], [1, -4], [3, 100])
+    return _with_grads(fluid, out, [x])
+
+
+def _square_error_cost(fluid):
+    x, y = (_data(fluid, n, [3, 4, 5]) for n in ("x", "y"))
+    return _with_grads(fluid, fluid.layers.square_error_cost(x, y), [x, y])
+
+
+def _squared_l2_norm(fluid):
+    """The lowering through a hand-appended op, as GradientClipByGlobalNorm
+    appends it."""
+    x = _data(fluid, "x", [3, 4, 5])
+    block = fluid.default_main_program().global_block()
+    out = block.create_var(name="sq", shape=(1,), dtype="float32")
+    block.append_op("squared_l2_norm", {"X": [x]}, {"Out": [out]}, {})
+    return _with_grads(fluid, out, [x])
+
+
+def _fill_constant_str_value(fluid):
+    """str_value, when set, over value (ROADMAP's case)."""
+    block = fluid.default_main_program().global_block()
+    out = block.create_var(name="c", shape=(2,), dtype="float32")
+    block.append_op("fill_constant", {}, {"Out": [out]},
+                    {"shape": [2], "value": 0.0, "str_value": "3.5", "dtype": "float32"})
+    return [out]
+
+
+def _check_finite_and_unscale(fluid):
+    block = fluid.default_main_program().global_block()
+    xs = [_data(fluid, n, [3, 4, 5], grad=False) for n in ("x", "y")]
+    scale = _data(fluid, "scale", [1], grad=False)
+    outs = [block.create_var(name=f"u{i}", shape=(3, 4, 5), dtype="float32") for i in range(2)]
+    found = block.create_var(name="found", shape=(1,), dtype="bool")
+    block.append_op("check_finite_and_unscale", {"X": xs, "Scale": [scale]},
+                    {"Out": outs, "FoundInfinite": [found]}, {})
+    return outs + [found]
+
+
+# found_inf over eight steps: two finite steps close the growth window
+# (incr_every_n_steps 1: the count before the increment exceeds 1), then
+# bad steps close the decrease window (decr_every_n_nan_or_inf 1) twice,
+# then growth again
+FOUND_SEQ = [False, False, False, True, True, True, True, False, False, False]
+
+
+def _update_loss_scaling(fluid):
+    block = fluid.default_main_program().global_block()
+    scale = _data(fluid, "scale", [1], grad=False)
+    good = _data(fluid, "good", [1], dtype="int32", grad=False)
+    bad = _data(fluid, "bad", [1], dtype="int32", grad=False)
+    fetch = []
+    for i, _ in enumerate(FOUND_SEQ):
+        found = _data(fluid, f"f{i}", [1], dtype="bool", grad=False)
+        nxt = [block.create_var(name=f"{n}{i}", shape=(1,), dtype=d)
+               for n, d in (("s", "float32"), ("gs", "int32"), ("bs", "int32"))]
+        block.append_op(
+            "update_loss_scaling",
+            {"FoundInfinite": [found], "PrevLossScaling": [scale], "InGoodSteps": [good],
+             "InBadSteps": [bad]},
+            {"LossScalingOut": [nxt[0]], "OutGoodSteps": [nxt[1]], "OutBadSteps": [nxt[2]]},
+            {"incr_every_n_steps": 1, "decr_every_n_nan_or_inf": 1, "incr_ratio": 2.0,
+             "decr_ratio": 0.5})
+        scale, good, bad = nxt
+        fetch += nxt
+    return fetch
+
+
+def _poisoned(value):
+    x = RS.randn(3, 4, 5).astype(np.float32)
+    x[1, 2, 3] = value
+    return dict(x=x, y=RS.randn(3, 4, 5).astype(np.float32),
+                scale=np.array([1024.0], np.float32))
+
+
 OP_CASES = {
     "elementwise_mul": (_binary("elementwise_mul", [4, 5], -1), dict(y=Y45, g=G345)),
     "elementwise_div": (_binary("elementwise_div", [4], 1), dict(y=Y4, g=G345)),
@@ -190,6 +300,36 @@ OP_CASES = {
         g=RS.rand(6, 1).astype(np.float32))),
     "layer_norm_grad": (_layer_norm, dict(x=(2 * RS.randn(3, 4, 16)).astype(np.float32),
                                           g=RS.randn(3, 4, 16).astype(np.float32))),
+    "transpose2": (_transpose, dict(g=RS.randn(5, 3, 4).astype(np.float32))),
+    "split_num": (_split(5), {f"g{i}": RS.randn(3, 4, 1).astype(np.float32)
+                              for i in range(5)}),
+    "split_sections": (_split([1, 3, 1]), dict(g0=RS.randn(3, 4, 1).astype(np.float32),
+                                               g1=RS.randn(3, 4, 3).astype(np.float32),
+                                               g2=RS.randn(3, 4, 1).astype(np.float32))),
+    "slice": (_slice, dict(g=RS.randn(3, 2, 4).astype(np.float32))),
+    "tanh": (_unary_op("tanh"), dict(g=G345)),
+    "sqrt": (_unary_op("sqrt"), dict(x=(RS.rand(3, 4, 5) + 0.1).astype(np.float32), g=G345)),
+    "sign": (_unary_op("sign"), dict(x=np.where(RS.rand(3, 4, 5) < 0.2, 0.0, X345)
+                                     .astype(np.float32))),
+    "elementwise_max": (_binary("elementwise_max", [4, 5], -1),
+                        dict(y=RS.randn(4, 5).astype(np.float32), g=G345)),
+    "clip": (_unary_op("clip", min=-0.5, max=0.8), dict(g=G345)),
+    "clip_by_norm_clipped": (_unary_op("clip_by_norm", max_norm=2.0), dict(g=G345)),
+    "clip_by_norm_kept": (_unary_op("clip_by_norm", max_norm=100.0), dict(g=G345)),
+    "clip_by_norm_zero": (_unary_op("clip_by_norm", max_norm=1.0),
+                          dict(x=np.zeros((3, 4, 5), np.float32), g=G345)),
+    "squared_l2_norm": (_squared_l2_norm, dict(g=np.array([0.7], np.float32))),
+    "square_error_cost": (_square_error_cost,
+                          dict(y=RS.randn(3, 4, 5).astype(np.float32), g=G345)),
+    "fill_constant_str_value": (_fill_constant_str_value, {}),
+    "check_finite_and_unscale": (_check_finite_and_unscale, dict(
+        x=X345, y=RS.randn(3, 4, 5).astype(np.float32), scale=np.array([1024.0], np.float32))),
+    "check_finite_and_unscale_inf": (_check_finite_and_unscale, _poisoned(np.inf)),
+    "check_finite_and_unscale_nan": (_check_finite_and_unscale, _poisoned(np.nan)),
+    "update_loss_scaling": (_update_loss_scaling, dict(
+        scale=np.array([8.0], np.float32), good=np.zeros(1, np.int32),
+        bad=np.zeros(1, np.int32),
+        **{f"f{i}": np.array([f]) for i, f in enumerate(FOUND_SEQ)})),
 }
 
 
@@ -202,7 +342,16 @@ def test_op_and_grad_match_jax(name):
     assert len(jax_out) == len(port_out)
     for j, t in zip(jax_out, port_out):
         assert j.shape == t.shape
+        assert j.dtype == t.dtype or j.dtype.kind == t.dtype.kind == "i"  # JAX: int32
         np.testing.assert_allclose(t, j, **TOL)
+    if name.startswith("check_finite"):  # zeros by selection: no nan leaks
+        assert port_out[2][0] == name.endswith(("inf", "nan"))
+        assert all(np.isfinite(u).all() for u in port_out[:2])
+    if name == "fill_constant_str_value":
+        assert port_out[0].tolist() == [3.5, 3.5]
+    if name == "update_loss_scaling":  # the windows crossed both ways
+        scales = [float(v[0]) for v in port_out[::3]]
+        assert max(scales) > 8.0 and min(scales) < 8.0, scales
     if name.startswith("dropout"):  # some kept and some dropped, grads on the same ones
         kept = port_out[0] != 0
         assert 0.5 < kept.mean() < 0.9

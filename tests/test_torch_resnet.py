@@ -648,8 +648,28 @@ def test_custom_black_list_keeps_fp32():
                                     dict(use_dynamic_loss_scaling=True),
                                     dict(amp_dtype="float16", use_dynamic_loss_scaling=False)])
 def test_fp16_and_loss_scaling_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="loss scaling"):
-        tmp.decorate(tfluid.optimizer.Momentum(0.1, 0.9), **kwargs)
+    """fp16 AMP and loss scaling are ported: `decorate` takes them, and
+    `minimize` appends the finite gate and, under dynamic scaling (fp16's
+    default), the window op. What still raises is an fp16 input to a
+    kernel on the card: each kernel's dtype check adds the ROADMAP note
+    (tests/test_torch_bert_pretrain.py holds that on the card)."""
+    import torch
+
+    from paddle_tpu_torch.ops.kernels import fp16_note
+
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
+        x = _data(tfluid, "x", [4, 6], grad=False)
+        loss = tfluid.layers.mean(tfluid.layers.fc(x, 3))
+        opt = tmp.decorate(tfluid.optimizer.Momentum(0.1, 0.9), **kwargs)
+        opt.minimize(loss)
+    types = [op.type for op in main.global_block().ops]
+    dynamic = kwargs.get("use_dynamic_loss_scaling", kwargs.get("amp_dtype") == "float16")
+    assert "check_finite_and_unscale" in types and "momentum" in types
+    assert ("update_loss_scaling" in types) == dynamic
+    assert main._amp_dtype == kwargs.get("amp_dtype", "bfloat16")
+    assert "fp16 versions of kernels" in fp16_note(torch.float16)
+    assert fp16_note(torch.bfloat16, torch.float32) == ""
 
 
 def test_adaptive_pool_raises():
