@@ -4,7 +4,8 @@
 1. device   the card's name, power limit and count; no CUDA -> exit 1
 2. build    nvcc builds every kernel of ops/kernels/csrc/ from this checkout
 3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-            fp32 and bf16, at the main paths' shapes (the flash forward
+            fp32, bf16 and (#1-#8) fp16 at one fp16 ulp of the largest
+            output, at the main paths' shapes (the flash forward
             through the fused_multihead_attention op); times from CUDA
             events beside each kernel's bound and its library yardstick
             (F.scaled_dot_product_attention, forward or backward alone;
@@ -17,8 +18,12 @@
             forward on the same inputs, and torch.profiler gives the
             device time of each of the two launches of the short backward
             at BERT's shape and of the flash backward at the long step's;
-            the LayerNorm backward at five shapes (both of its paths), its
-            two launches equal bit for bit and one device kernel a call
+            the LayerNorm backward at six shapes (both of its paths), its
+            two launches equal bit for bit and one device kernel a call;
+            the short forward / backward and the LayerNorm backward at the
+            Transformer's shapes too (b 256, 8 heads, s 64: causal and
+            not, each with a key bias, dropout 0.1 on the backward; rows
+            16384 x 512)
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -48,6 +53,12 @@
             this configuration and the unfused path (use_flash_attention
             False, fused_qkv, an untied MLM projection, AdamW, an L1 decay on
             the pooler, a clip by value), which launches no attention kernel
+5d fp16    BERT under mixed_precision.decorate(Adam 1e-4, amp_dtype
+            "float16") with dynamic loss scaling, b 8, s 128: 2 layers at
+            base width, 3 steps card vs CPU within one fp16 ulp; then 5
+            steps at full depth, the loss falls, the scale fetched each
+            step, the short forward / backward and LayerNorm backward
+            kernels of a step all in their fp16 versions (torch.profiler)
 6. long     one fused_multihead_attention training step at s 2048 through
             append_backward: one flash forward and one flash backward
             launch, dQ / dK / dV within 1e-4 of the plain backward
@@ -65,10 +76,22 @@
             the trained fp32 program's clone(for_test=True), exported with
             save_inference_model, served by AnalysisPredictor at b 8 on the
             card and on the CPU. The ResNet path runs none of the kernels
-9. result   a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+9. transformer  bench.py:bench_transformer: TransformerConfig.base() at b 256
+            (an out-of-memory error fails the run), s 64, mixed_precision.decorate(Adam
+            1e-4) in bf16: 5 steps, the loss falls, every step launches 18
+            short forward (6 causal), 18 short backward (6 causal) and 30
+            LayerNorm backward kernels; step time, target tokens/s,
+            TFLOP/s, peak memory, one profiled step. Then from the trained
+            scope, b 8: the encode program once (6 short forward), the
+            decode step fed its cross K / V (12 short forward, 6 causal),
+            its logits against the full is_test graph's; the decode step's
+            p50. Then 2 layers at base width card vs CPU, the fused path
+            and the unfused one (no attention kernel)
+10. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
-Each main path (serve, train, amp, full, long, fused, resnet) runs with every launch
+Each main path (serve, train, amp, full, fp16, long, fused, resnet,
+transformer, decode) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that was not launched fails the run.
 
@@ -109,6 +132,7 @@ CARD_PEAKS = {
     "H200": (4.8e12, 67e12, 989e12),
 }
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # kernel vs plain, same card
+KERNEL_DTYPES = ("float32", "bfloat16", "float16")  # #1-#8; #9-#10 take no fp16
 REQUESTS = 4  # BERT-base /predict requests in the serving path's run
 TRAIN_STEPS = 5  # BERT-base steps on one batch in the training path's run
 PARITY_STEPS = 3  # card vs CPU steps of the 2-layer BERT at base width
@@ -137,11 +161,37 @@ RN_PARITY_BATCH, RN_SERVE_BATCH = 2, 8
 RN_LOSS_RTOL, RN_STAT_RTOL, RN_GRAD_NRTOL = 1e-4, 5e-4, 0.15
 # card vs CPU softmax outputs of the served eval program
 RN_SERVE_ATOL = 1e-4
+# the Transformer (bench.py:bench_transformer): batch, sequence length, and
+# the batch of the incremental decode and of the card-vs-CPU steps
+TF_BATCH, TF_SEQ, TF_INFER_BATCH = 256, 64, 8
+# the decode step's logits against the full is_test graph's, on the card:
+# the JAX package's gate (tests/test_decoding.py:369-374)
+DECODE_RTOL, DECODE_ATOL = 1e-5, 1e-6
 
 
 def require(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+# significant bits and smallest normal of the 16-bit AMP types
+SIG_BITS = {"bfloat16": (8, 2.0**-126), "float16": (11, 2.0**-14)}
+
+
+def ulp(x, dtype):
+    """One ulp of `dtype` (bfloat16 or float16) at |x|."""
+    bits, tiny = SIG_BITS[dtype]
+    return 2.0 ** (math.floor(math.log2(max(abs(x), tiny))) - (bits - 1))
+
+
+def kernel_tol(dtype, ref):
+    """A kernel's gate against its plain version: TOL[dtype]; fp16 one fp16
+    ulp of the largest finite |ref|, never tighter than the fp32 gate."""
+    if dtype != "float16":
+        return TOL[dtype]
+    top = ref.float().abs()
+    top = float(top[top.isfinite()].max()) if bool(top.isfinite().any()) else 0.0
+    return max(TOL["float32"], ulp(top, "float16"))
 
 
 def card_peaks(name):
@@ -265,6 +315,9 @@ def main():
         flash_attention_plain)
     from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.resnet import RESNET50_TRAIN_FLOPS_PER_IMG, resnet
+    from paddle_tpu_torch.models.transformer import (
+        TransformerConfig, build_transformer, build_transformer_decode_step,
+        build_transformer_encode, transformer_flops_per_trg_token)
     from paddle_tpu_torch.ops.kernels import fused_block as fb
     from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain, ln_bwd_plan
     from paddle_tpu_torch.ops.kernels.mha_short import (
@@ -380,20 +433,27 @@ def main():
     if rehearsal:
         checks = [("mha_short_fwd", (2, 4, 32, 32, 16), "bshd", True, False, False),
                   ("mha_short_fwd", (1, 2, 20, 13, 16), "bshd", False, True, False),
-                  ("flash_fwd", (1, 2, 600, 600, 16), "bhsd", True, True, True)]
+                  ("flash_fwd", (1, 2, 600, 600, 16), "bhsd", True, True, True),
+                  ("mha_short_fwd", (2, 4, 16, 16, 16), "bshd", True, True, False)]
     else:
         checks = [("mha_short_fwd", (8, 12, 128, 128, 64), "bshd", True, False, False),
                   ("mha_short_fwd", (8, 12, 128, 128, 64), "bhsd", True, False, False),
                   ("mha_short_fwd", (8, 12, 512, 512, 64), "bshd", True, False, False),
                   ("mha_short_fwd", (2, 12, 100, 77, 64), "bshd", False, True, False),
                   ("flash_fwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, True),
-                  ("flash_fwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, True)]
+                  ("flash_fwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, True),
+                  # the Transformer's (phase 9): the decoder's causal
+                  # self-attention and the encoder's and cross-attention's,
+                  # each with its [b, s] key bias from the padding masks
+                  ("mha_short_fwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, True, False),
+                  ("mha_short_fwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, False,
+                   False)]
     kernel_fns = {"mha_short_fwd": (short_attention, short_attention_plain),
                   "flash_fwd": (flash_attention, flash_attention_plain)}
     results = {}
     for name, shape, layout, bias_kind, causal, via_op in checks:
         wrapper, plain = kernel_fns[name]
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             q, k, v, bias = attn_inputs(shape, layout, dtype, bias_kind)
             kw = dict(bias=bias, causal=causal, layout=layout)
             if via_op:
@@ -408,8 +468,8 @@ def main():
                         f"{name}: the run did not launch the kernel")
             ref = plain(q, k, v, **kw)[0]
             err = float((out.float() - ref.float()).abs().max())
-            require(err <= TOL[dtype], f"{name} {shape} {dtype}: max abs err "
-                    f"{err} > tol {TOL[dtype]}")
+            tol = kernel_tol(dtype, ref)
+            require(err <= tol, f"{name} {shape} {dtype}: max abs err {err} > tol {tol}")
             ms = timed_ms(run)
             plain_ms = timed_ms(lambda: plain(q, k, v, **kw))
             lib_ms = sdpa_ms(q, k, v, bias, causal, layout)
@@ -420,10 +480,10 @@ def main():
             bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} "
                   f"bias={bias_kind} causal={causal} via_op={via_op}: max_abs_err "
-                  f"{err:.3e} (tol {TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"{err:.3e} (tol {tol:.3e}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"library_ms {lib_ms:.4f} bound_ms {bound:.4f} ({bound_by}){extra}")
             results.setdefault(name, []).append(dict(
-                shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                shape=shape, dtype=dtype, err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
             if name == "mha_short_fwd" and not rehearsal:
                 # where the cutover lies: the flash kernel at the same shape
@@ -431,14 +491,14 @@ def main():
                 print(f"[kernels] flash_fwd at the same shape: ms {ms_flash:.4f}")
     # dropout: the murmur mask in CUDA against the plain version's
     for name, (wrapper, plain) in kernel_fns.items():
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             q, k, v, bias = attn_inputs((2, 4, 100, 77, 64), "bshd", dtype, True)
             kw = dict(bias=bias, causal=True, dropout=0.2, seed=1234, layout="bshd")
             if name == "flash_fwd":
                 q = q[:, :64]  # sq <= sk: every row keeps a live key
-            err = float((wrapper(q, k, v, **kw)[0].float()
-                         - plain(q, k, v, **kw)[0].float()).abs().max())
-            require(err <= TOL[dtype], f"{name} dropout {dtype}: max abs err {err}")
+            ref = plain(q, k, v, **kw)[0]
+            err = float((wrapper(q, k, v, **kw)[0].float() - ref.float()).abs().max())
+            require(err <= kernel_tol(dtype, ref), f"{name} dropout {dtype}: max abs err {err}")
             print(f"[kernels] {name} dropout 0.2 {dtype}: max abs err {err:.3e}")
 
     def sdpa_bwd_ms(q, k, v, bias, causal, layout, dout):
@@ -462,23 +522,32 @@ def main():
     # the backward kernels, each at its main path's shape: D at BERT's
     # training shape (with dropout 0.1), in bhsd and causal sq > sk too;
     # E at the long-sequence step's, then at s 1000 without causal (no
-    # tile skipped, ragged tiles); C at the encoder's rows and mlm.ln's
+    # tile skipped, ragged tiles); C at the encoder's rows and mlm.ln's;
+    # D and C at the Transformer's shapes too (phase 9)
     if rehearsal:
         bwd_checks = [("mha_short_bwd", (2, 4, 32, 32, 16), "bshd", True, False, 0.1),
                       ("mha_short_bwd", (2, 4, 32, 32, 16), "bhsd", True, False, 0.1),
                       ("mha_short_bwd", (1, 2, 20, 13, 16), "bshd", False, True, 0.0),
                       ("flash_bwd", (1, 2, 600, 600, 16), "bhsd", True, True, 0.0),
-                      ("flash_bwd", (1, 2, 100, 100, 16), "bhsd", True, False, 0.0)]
-        ln_checks = [(64, 64), (10, 64), (10, 33)]
+                      ("flash_bwd", (1, 2, 100, 100, 16), "bhsd", True, False, 0.0),
+                      ("mha_short_bwd", (2, 4, 16, 16, 16), "bshd", True, True, 0.1)]
+        ln_checks = [(64, 64), (10, 64), (10, 33), (64, 512)]
     else:
         bwd_checks = [("mha_short_bwd", (8, 12, 128, 128, 64), "bshd", True, False, 0.1),
                       ("mha_short_bwd", (8, 12, 128, 128, 64), "bhsd", True, False, 0.1),
                       ("mha_short_bwd", (2, 12, 100, 77, 64), "bshd", False, True, 0.0),
                       ("flash_bwd", (2, 12, 2048, 2048, 64), "bhsd", True, True, 0.0),
-                      ("flash_bwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, 0.0)]
+                      ("flash_bwd", (2, 12, 1000, 1000, 64), "bhsd", True, False, 0.0),
+                      # the Transformer's (phase 9), with its attention dropout
+                      ("mha_short_bwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, True,
+                       0.1),
+                      ("mha_short_bwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, False,
+                       0.1)]
         # BERT's encoder rows and mlm.ln's, a ragged n, the register path's
-        # widest row, and a width on the general path
-        ln_checks = [(1024, 768), (160, 768), (1100, 128), (4096, 1024), (1024, 4096)]
+        # widest row, a width on the general path, and the Transformer's
+        # rows (b 256 x s 64 at d_model 512)
+        ln_checks = [(1024, 768), (160, 768), (1100, 128), (4096, 1024), (1024, 4096),
+                     (TF_BATCH * TF_SEQ, 512)]
     # the two launches of each backward kernel, read apart by torch.profiler
     bwd_launches = {"mha_short_bwd": ("short_bwd_dkv_kernel", "short_bwd_dq_kernel"),
                     "flash_bwd": ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")}
@@ -487,7 +556,7 @@ def main():
                "flash_bwd": (flash_attention, flash_attention_bwd, flash_attention_bwd_plain)}
     for name, shape, layout, bias_kind, causal, dropout in bwd_checks:
         fwd, wrapper, plain = bwd_fns[name]
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             q, k, v, bias = attn_inputs(shape, layout, dtype, bias_kind)
             # dO scaled so the bf16 grads stay below 2, where one bf16 ulp
             # is under the 2e-2 tolerance
@@ -503,9 +572,12 @@ def main():
                 require(kernels.launch_counts()[name] == before + 1,
                         f"{name}: the run did not launch the kernel")
             ref = plain(*args_, **kw)
-            err = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
-            require(err <= TOL[dtype], f"{name} {shape} {dtype}: max abs err {err} > "
-                    f"tol {TOL[dtype]}")
+            # dq, dk, dv each at its own gate
+            errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
+            tols = [kernel_tol(dtype, r) for r in ref]
+            err, tol = max(errs), max(tols)
+            require(all(e <= t for e, t in zip(errs, tols)),
+                    f"{name} {shape} {dtype}: max abs errs {errs} > tols {tols}")
             ms = timed_ms(lambda: wrapper(*args_, **kw))
             plain_ms = timed_ms(lambda: plain(*args_, **kw))
             lib_ms = sdpa_bwd_ms(q, k, v, bias, causal, layout, dout)
@@ -516,10 +588,10 @@ def main():
             bound, bound_by = bound_ms(work, dtype, peaks, tensor_cores=True)
             print(f"[kernels] {name} b,h,sq,sk,d={shape} {layout} {dtype} bias={bias_kind} "
                   f"causal={causal} dropout={dropout}: max_abs_err {err:.3e} (tol "
-                  f"{TOL[dtype]}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                  f"{tol:.3e}) ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                   f"{lib_ms:.4f} (sdpa backward) bound_ms {bound:.4f} ({bound_by}){extra}")
             results.setdefault(name, []).append(dict(
-                shape=shape, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                shape=shape, dtype=dtype, err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
             first = next(c for c in bwd_checks if c[0] == name)
             if (shape, layout) == first[1:3] and not rehearsal:
@@ -529,7 +601,7 @@ def main():
                 print(f"[kernels] {name} {shape} {layout} {dtype} by launch (torch.profiler): "
                       f"launch 1 (dK, dV) ms {per[dkv]}, launch 2 (dQ) ms {per[dq]}")
     for n, k in ln_checks:
-        for dtype in ("float32", "bfloat16"):
+        for dtype in KERNEL_DTYPES:
             x = (2 * torch.randn(n, k, generator=gen, device=dev) + 0.5).to(getattr(torch, dtype))
             dy = torch.randn(n, k, generator=gen, device=dev).to(x.dtype)
             xf = x.float()
@@ -560,7 +632,8 @@ def main():
             err = float((got[0].float() - ref[0].float()).abs().max())
             err_sums = max(float((g - r).abs().max() / max(1.0, float(r.abs().max())))
                            for g, r in zip(got[1:], ref[1:]))
-            require(err <= TOL[dtype] and err_sums <= TOL["float32"],
+            tol = kernel_tol(dtype, ref[0])
+            require(err <= tol and err_sums <= TOL["float32"],
                     f"layer_norm_bwd n={n} k={k} {dtype}: max abs err {err}, "
                     f"dscale/dbias rel err {err_sums}")
             ms = timed_ms(lambda: ln_bwd(*args_))
@@ -572,12 +645,12 @@ def main():
                 dy, x, [k], lmean, lrstd, w, bb, [True, True, True]))
             bound, bound_by = ln_bwd_bound_ms(n, k, dtype, peaks)
             print(f"[kernels] layer_norm_bwd n={n} k={k} {dtype}: max_abs_err {err:.3e} "
-                  f"(tol {TOL[dtype]}), dscale/dbias rel err {err_sums:.3e}; ms {ms:.4f} "
+                  f"(tol {tol:.3e}), dscale/dbias rel err {err_sums:.3e}; ms {ms:.4f} "
                   f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
                   f"(native_layer_norm_backward) bound_ms {bound:.4f} ({bound_by}); "
                   f"bit for bit over two launches; {path}")
             results.setdefault("layer_norm_bwd", []).append(dict(
-                shape=(n, k), dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                shape=(n, k), dtype=dtype, err=err, tol=tol, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=bound, bound_by=bound_by))
 
     # the fused-block kernels (#9, #10) at the A/B's shapes: the three
@@ -897,16 +970,14 @@ def main():
         if not rehearsal:
             profile_step(torch, step, f"one {tag} step at b {b}")
 
-    def bf16_ulp(x):
-        """One bf16 ulp (8 significant bits) at |x|."""
-        return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0**-126))) - 7)
-
-    def card_vs_cpu(tag, build, feed, lr):
+    def card_vs_cpu(tag, build, feed, lr, amp_dtype="bfloat16"):
         """The same program and state on the card and on the CPU,
-        PARITY_STEPS steps each: each step's loss within one bf16 ulp of
-        the CPU loss; each persistable within phase 5's gates (2 * lr *
-        steps, all but CLOSE_FRAC of its elements within CLOSE_ATOL), each
-        widened by one bf16 ulp of the tensor's largest element."""
+        PARITY_STEPS steps each: each step's loss within one ulp of the
+        AMP type `amp_dtype` of the CPU loss; each persistable within
+        phase 5's gates (2 * lr * steps, all but CLOSE_FRAC of its elements
+        within CLOSE_ATOL), each widened by one ulp of the tensor's largest
+        element -> the card's launches over its steps."""
+        ulp_name = {"bfloat16": "bf16", "float16": "fp16"}[amp_dtype]
         main_p, startup_p, handles, _ = build()
         runs = []
         for place in (fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0), fluid.CPUPlace()):
@@ -926,7 +997,7 @@ def main():
                          time.perf_counter() - t0,
                          {n: c - before[n] for n, c in kernels.launch_counts().items()}))
         (card_l, _, card_scope, card_s, card_launch), (cpu_l, _, cpu_scope, cpu_s, _) = runs
-        loss_ok = all(abs(a - b_) <= bf16_ulp(b_) for a, b_ in zip(card_l, cpu_l))
+        loss_ok = all(abs(a - b_) <= ulp(b_, amp_dtype) for a, b_ in zip(card_l, cpu_l))
         atol = 2 * lr * PARITY_STEPS
         worst_excess, worst_name, n_far, n_all = -1.0, "", 0, 0
         for v in main_p.list_vars():
@@ -936,16 +1007,16 @@ def main():
             d = np.abs(to_numpy(card_scope.get(v.name)).astype(np.float64) - c)
             if not d.size:
                 continue
-            widen = bf16_ulp(float(np.abs(c).max()))
+            widen = ulp(float(np.abs(c).max()), amp_dtype)
             n_far += int((d > CLOSE_ATOL + widen).sum())
             n_all += d.size
             excess = float(d.max()) - (atol + widen)
             if excess > worst_excess:
                 worst_excess, worst_name = excess, f"{v.name} (max abs diff {d.max():.3e})"
         print(f"[{tag}] card vs CPU, {PARITY_STEPS} steps ({card_s:.1f} s on the card, "
-              f"{cpu_s:.1f} s on the CPU): losses {card_l} vs {cpu_l} (tol one bf16 ulp of "
-              f"the CPU loss); persistables: worst {worst_name}, {worst_excess:.3e} past "
-              f"its gate {atol:.1e} + one bf16 ulp of its largest element; {n_far} of "
+              f"{cpu_s:.1f} s on the CPU): losses {card_l} vs {cpu_l} (tol one {ulp_name} ulp "
+              f"of the CPU loss); persistables: worst {worst_name}, {worst_excess:.3e} past "
+              f"its gate {atol:.1e} + one {ulp_name} ulp of its largest element; {n_far} of "
               f"{n_all} elements beyond {CLOSE_ATOL} + that ulp (tol {CLOSE_FRAC:.0e} of "
               f"them); card launches {card_launch}")
         require(loss_ok, f"[{tag}] card vs CPU losses {card_l} vs {cpu_l}")
@@ -1099,6 +1170,62 @@ def main():
         require(got_launch["mha_short_fwd"] == got_launch["mha_short_bwd"] == 0
                 and got_launch["flash_fwd"] == got_launch["flash_bwd"] == 0,
                 f"[unfused] the unfused path launched an attention kernel: {got_launch}")
+
+    # ---- 5d. fp16: BERT pretraining under fp16 AMP ----------------------
+    # mp.decorate(Adam(1e-4), amp_dtype="float16") with dynamic loss scaling
+    # (fp16's default), bshd, b 8, s 128: at 2 layers 3 steps card vs CPU
+    # within one fp16 ulp; then 5 steps at full depth, the scale fetched
+    # each step, #1, #7 and #8 launched in their fp16 versions
+    fp16_amp = dict(amp_dtype="float16")
+    cfg2_16 = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    feed_16 = bert_pretrain_feed(np, np.random.RandomState(args.seed), cfg2_16, tb, ts, tp)
+    card_vs_cpu("fp16", lambda: amp_pretrain(cfg2_16, tb, amp=fp16_amp, mlm_only=True,
+                                             max_preds=tp), feed_16, LR, "float16")
+    cfg_16 = BertConfig.tiny() if rehearsal else BertConfig()
+    main_h, startup_h, h_h, opt_h = amp_pretrain(cfg_16, tb, amp=fp16_amp, mlm_only=True,
+                                                 max_preds=tp)
+    require(main_h._amp_dtype == "float16", f"[fp16] AMP dtype {main_h._amp_dtype}")
+    found_h = next(op.output("FoundInfinite")[0] for op in main_h.global_block().ops
+                   if op.type == "check_finite_and_unscale")
+    feed_h = bert_pretrain_feed(np, np.random.RandomState(args.seed), cfg_16, tb, ts, tp)
+    scope_h = fluid.Scope()
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    exe_t.run(startup_h, scope=scope_h)
+    kernels.reset_launch_counts()
+    got, ms, per = run_steps(main_h, scope_h, feed_h,
+                             [h_h["loss"], opt_h.get_loss_scaling(), found_h], TRAIN_STEPS,
+                             exe_t)
+    launches = kernels.launch_counts()
+    path_launches["fp16"] = launches
+    peak_h = torch.cuda.max_memory_allocated() if not rehearsal else 0
+    losses_h = [g[0] for g in got]
+    print(f"[fp16] BERT hidden {cfg_16.hidden_size} x {cfg_16.num_layers} layers, b {tb} s {ts} "
+          f"max_preds {tp}, fp16 AMP with dynamic loss scaling around Adam({LR}): loss scale a "
+          f"step {[g[1] for g in got]}, found_infinite {[bool(g[2]) for g in got]}; launches "
+          f"over {TRAIN_STEPS} steps: {launches}")
+    require(all(math.isfinite(x) for x in losses_h), f"[fp16] non-finite loss {losses_h}")
+    require(losses_h[-1] < losses_h[0], f"[fp16] the loss did not fall: {losses_h}")
+    step = lambda: exe_t.run(main_h, feed=dict(feed_h),  # noqa: E731
+                             fetch_list=[h_h["loss"]], scope=scope_h)
+    if not rehearsal:
+        require(all(c == amp_want for c in per), f"[fp16] launches a step {per}, "
+                f"want {amp_want}")
+        # the device's kernels of one step: #1, #7 (both launches) and #8
+        # in their __half instantiations, none in another type
+        per_call, sessions = kernels.device_kernels(step, calls=1)
+        ours = {n: c for n, c in per_call.items() if any(
+            k in n for k in ("mha_short_fwd_kernel", "short_bwd_d", "layer_norm_bwd_"))}
+        halves = {k: sum(c for n, c in ours.items() if k in n and "__half" in n)
+                  for k in ("mha_short_fwd_kernel", "short_bwd_dkv_kernel",
+                            "short_bwd_dq_kernel", "layer_norm_bwd_")}
+        print(f"[fp16] one step's attention and LayerNorm kernels (torch.profiler, {sessions} "
+              f"sessions): {ours}")
+        require(all(n for n in halves.values()) and all("__half" in n for n in ours),
+                f"[fp16] kernels of a step not all fp16: {ours}")
+    step_report("fp16", tb, losses_h, ms, peak_h, bert_flops_per_token(cfg_16, ts, tp), step)
+    del scope_h, step
 
     # ---- 6. long: one attention training step at s 2048 ------------------
     lb, lh, lsq, _, ld = long_shape
@@ -1321,7 +1448,167 @@ def main():
     print(f"[resnet] launches over the ResNet path (training, card vs CPU, serving): {launches}")
     require(launches == zero_launches, f"the ResNet path launched a kernel: {launches}")
 
-    # ---- 9. result ------------------------------------------------------
+    # ---- 9. transformer: bench_transformer's training and its decode ----
+    # TransformerConfig.base() (d_model 512, 8 heads, d_ff 2048, 6 + 6
+    # layers, vocab 30000, weight sharing, the fused attention op in bshd,
+    # dropout 0.1) at b 256, s 64 under mp.decorate(Adam(1e-4)) in bf16 (no
+    # loss scaling), the feed of bench.py:606-616; then the encode program
+    # once and the decode step fed its cross K / V, from the trained scope
+    tcfg = TransformerConfig.tiny() if rehearsal else TransformerConfig.base()
+    tf_b, tf_s = (4, 16) if rehearsal else (TF_BATCH, TF_SEQ)
+    inf_b = 2 if rehearsal else TF_INFER_BATCH
+
+    def tf_programs(cfg, b, kind="train"):
+        """-> (main, startup, handles, optimizer or None) of `kind`: train
+        (bf16 AMP around Adam), test, encode or step."""
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        main_p.random_seed = startup_p.random_seed = args.seed + 4
+        opt = None
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            if kind in ("train", "test"):
+                h = build_transformer(cfg, b, tf_s, tf_s, is_test=kind == "test")
+            elif kind == "encode":
+                h = build_transformer_encode(cfg, b, tf_s)
+            else:
+                h = build_transformer_decode_step(cfg, b, tf_s, tf_s)
+            if kind == "train":
+                opt = mixed_precision.decorate(fluid.optimizer.Adam(LR))
+                opt.minimize(h["loss"])
+        return main_p, startup_p, h, opt
+
+    def tf_feed(cfg, b, h, seed):
+        """bench.py's feed: ids in [1, vocab), full masks, positions."""
+        rng = np.random.RandomState(seed)
+        pos = np.tile(np.arange(tf_s), (b, 1)).astype("int64")
+        return {
+            "src_ids": rng.randint(1, cfg.src_vocab, (b, tf_s)).astype("int64"),
+            "trg_ids": rng.randint(1, cfg.trg_vocab, (b, tf_s)).astype("int64"),
+            "lbl_ids": rng.randint(1, cfg.trg_vocab, (b, tf_s)).astype("int64"),
+            "src_mask": np.ones((b, tf_s), "float32"),
+            "trg_mask": np.ones((b, tf_s), "float32"),
+            h.get("src_pos_name", f"src_emb_posids_{tf_s}"): pos,
+            h.get("trg_pos_name", f"trg_emb_posids_{tf_s}"): pos,
+        }
+
+    nl = tcfg.n_layers
+    tf_want = dict(zero_launches, mha_short_fwd=3 * nl, mha_short_bwd=3 * nl,
+                   layer_norm_bwd=5 * nl)
+    main_9, startup_9, h_9, _ = tf_programs(tcfg, tf_b)
+    feed_9 = tf_feed(tcfg, tf_b, h_9, args.seed)
+    scope_9 = fluid.Scope()
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    exe_t.run(startup_9, scope=scope_9)
+    kernels.reset_launch_counts()
+    got, ms, per = run_steps(main_9, scope_9, feed_9, [h_9["loss"]], TRAIN_STEPS, exe_t)
+    launches, causal = kernels.launch_counts(), kernels.causal_launch_counts()
+    path_launches["transformer"] = launches
+    causal_launches = {"transformer": causal}
+    peak_9 = torch.cuda.max_memory_allocated() if not rehearsal else 0
+    losses_9 = [g[0] for g in got]
+    tokens_9 = tf_b * tf_s
+    p50_9 = statistics.median(ms[1:])
+    flops_9 = transformer_flops_per_trg_token(tcfg, tf_s, tf_s) * tokens_9
+    n_drop = sum(op.type == "dropout" for op in main_9.global_block().ops)
+    print(f"[transformer] d_model {tcfg.d_model}, {tcfg.n_heads} heads, d_ff {tcfg.d_ff}, "
+          f"{nl} + {nl} layers, vocab {tcfg.trg_vocab}, b {tf_b} s {tf_s}, bf16 AMP around "
+          f"Adam({LR}), dropout {tcfg.dropout}: {len(main_9.global_block().ops)} ops, "
+          f"{n_drop} dropout ops; losses {losses_9}")
+    print(f"[transformer] launches over {TRAIN_STEPS} steps: {launches}; of them causal: "
+          f"{causal}")
+    print(f"[transformer] step time p50 {p50_9:.2f} ms over steps 2-{TRAIN_STEPS} (first "
+          f"{ms[0]:.2f} ms); {tokens_9 / p50_9 * 1e3:.0f} target tokens/s; "
+          f"{flops_9 / 1e12:.3f} TFLOP/step (transformer_flops_per_trg_token), "
+          f"{flops_9 / p50_9 / 1e9:.2f} TFLOP/s; max_memory_allocated {peak_9 / 2**20:.0f} MiB "
+          f"(startup state + {TRAIN_STEPS} steps); card {smi}")
+    require(all(math.isfinite(x) for x in losses_9), f"[transformer] losses {losses_9}")
+    require(losses_9[-1] < losses_9[0], f"[transformer] the loss did not fall: {losses_9}")
+    require(exe_t.recomputed_forwards == [], "[transformer] an __auto_grad__ re-ran a forward")
+    if not rehearsal:
+        require(all(c == tf_want for c in per), f"[transformer] launches a step {per}, "
+                f"want {tf_want}")
+        require(causal == dict(causal, mha_short_fwd=nl * TRAIN_STEPS,
+                               mha_short_bwd=nl * TRAIN_STEPS),
+                f"[transformer] causal launches {causal}, want {nl} of each a step")
+    step = lambda: exe_t.run(main_9, feed=dict(feed_9),  # noqa: E731
+                             fetch_list=[h_9["loss"]], scope=scope_9)
+    if not rehearsal:
+        _, busy_9, rows_9 = profile_step(torch, step, f"one transformer step at b {tf_b}")
+        int64_ms = sum(r[0] for r in rows_9 if "<long" in r[2] or "long>" in r[2])
+        print(f"[transformer] int64 elementwise kernels (the dropout masks' hash): "
+              f"{int64_ms:.2f} ms of {busy_9:.2f} ms busy ({int64_ms / max(busy_9, 1e-9):.2f})")
+    host_breakdown(step)
+
+    # incremental decode from the trained scope, fp32: the encode program
+    # once, the decode step fed its cross K / V, against the full is_test
+    # graph's logits
+    main_e, _, h_e, _ = tf_programs(tcfg, inf_b, "encode")
+    main_d, _, h_d, _ = tf_programs(tcfg, inf_b, "step")
+    main_f9, _, h_f9, _ = tf_programs(tcfg, inf_b, "test")
+    inf_feed = tf_feed(tcfg, inf_b, h_f9, args.seed + 1)
+    kv_names = [n for pair in h_e["cross_kv_names"] for n in pair]
+    kernels.reset_launch_counts()
+    enc_out = exe_t.run(main_e, feed={"src_ids": inf_feed["src_ids"],
+                                      "src_mask": inf_feed["src_mask"],
+                                      h_e["src_pos_name"]: inf_feed[h_e["src_pos_name"]]},
+                        fetch_list=kv_names, scope=scope_9, return_numpy=False)
+    enc_launch, enc_causal = kernels.launch_counts(), kernels.causal_launch_counts()
+    step_feed = {"trg_ids": inf_feed["trg_ids"], "src_mask": inf_feed["src_mask"],
+                 "trg_mask": inf_feed["trg_mask"],
+                 h_d["trg_pos_name"]: inf_feed[h_d["trg_pos_name"]]}
+    step_feed.update({f"dec{i}.cross.{kv}_cached": enc_out[2 * i + j]
+                      for i in range(nl) for j, kv in enumerate("kv")})
+    kernels.reset_launch_counts()
+    step_logits = exe_t.run(main_d, feed=dict(step_feed), fetch_list=[h_d["logits"]],
+                            scope=scope_9)[0]
+    step_launch, step_causal = kernels.launch_counts(), kernels.causal_launch_counts()
+    path_launches["decode"] = {n: enc_launch[n] + step_launch[n] for n in enc_launch}
+    causal_launches["decode"] = {n: enc_causal[n] + step_causal[n] for n in enc_causal}
+    full_logits = exe_t.run(main_f9, feed=dict(inf_feed), fetch_list=[h_f9["logits"]],
+                            scope=scope_9)[0]
+    step_ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        exe_t.run(main_d, feed=dict(step_feed), fetch_list=[h_d["logits"]], scope=scope_9)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    diff = np.abs(step_logits - full_logits)
+    excess = float((diff - (DECODE_ATOL + DECODE_RTOL * np.abs(full_logits))).max())
+    print(f"[decode] encode program ({len(main_e.global_block().ops)} ops) launches {enc_launch}"
+          f", causal {enc_causal}; decode step ({len(main_d.global_block().ops)} ops) launches "
+          f"{step_launch}, causal {step_causal}")
+    print(f"[decode] decode-step logits {step_logits.shape} against the full is_test graph's: "
+          f"max abs diff {float(diff.max()):.3e}, {excess:.3e} past rtol {DECODE_RTOL} + atol "
+          f"{DECODE_ATOL}")
+    print(f"[decode] decode step p50 {statistics.median(step_ms[1:]):.2f} ms (b {inf_b}, "
+          f"target prefix {tf_s}, {nl} layers, first {step_ms[0]:.2f} ms); card {smi}")
+    require(step_logits.shape == (inf_b, tf_s, tcfg.trg_vocab)
+            and bool(np.isfinite(step_logits).all()), "[decode] decode-step logits")
+    require(excess <= 0, "[decode] the decode step's logits differ from the full graph's")
+    if not rehearsal:
+        require(enc_launch == dict(zero_launches, mha_short_fwd=nl)
+                and step_launch == dict(zero_launches, mha_short_fwd=2 * nl)
+                and step_causal["mha_short_fwd"] == nl and enc_causal["mha_short_fwd"] == 0,
+                f"[decode] launches: encode {enc_launch}, step {step_launch} "
+                f"(causal {step_causal})")
+    del scope_9, step, enc_out, step_feed
+
+    # card vs CPU at 2 layers and base width, b 8: the fused path, then the
+    # unfused one (layers.assign of the causal triangle, matmul, softmax),
+    # which launches no attention kernel
+    cfg2_tf = TransformerConfig.tiny() if rehearsal else TransformerConfig(n_layers=2)
+    feed_tf = tf_feed(cfg2_tf, inf_b, {}, args.seed)
+    card_vs_cpu("transformer", lambda: tf_programs(cfg2_tf, inf_b), feed_tf, LR)
+    cfg2_tfu = TransformerConfig.tiny() if rehearsal else TransformerConfig(n_layers=2)
+    cfg2_tfu.use_flash_attention = False
+    got_launch = card_vs_cpu("transformer unfused", lambda: tf_programs(cfg2_tfu, inf_b),
+                             feed_tf, LR)
+    if not rehearsal:
+        require(all(got_launch[n] == 0 for n in ("mha_short_fwd", "mha_short_bwd", "flash_fwd",
+                                                 "flash_bwd")),
+                f"[transformer unfused] launched an attention kernel: {got_launch}")
+
+    # ---- 10. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -1342,11 +1629,22 @@ def main():
     main_dtype = {"fused_prologue_conv1x1": "bfloat16", "conv1x1_with_stats": "bfloat16"}
     for path, counts in path_launches.items():
         print(f"[result] launches on the {path} path's run: {counts}")
+    for path, counts in causal_launches.items():
+        print(f"[result] causal attention launches on the {path} path's run: {counts}")
     line = []
     for name, rows in results.items():
         dtype = main_dtype.get(name, "float32")
         main_row = next(r for r in rows if r["dtype"] == dtype)  # main-path shape
-        line.append({
+        # the first 16-bit rows at the main row's shape (its layout), where
+        # the kernel has them
+        other = {}
+        for tag, dt in (("bf16", "bfloat16"), ("fp16", "float16")):
+            row = next((r for r in rows[rows.index(main_row):] if r["dtype"] == dt
+                        and r["shape"] == main_row["shape"]), None)
+            if row is not None and dt != dtype:
+                other[tag] = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "tol")} | {"max_abs_err": row["err"]}
+        line.append({**other,
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": sum(c[name] for c in path_launches.values()),
@@ -1356,6 +1654,7 @@ def main():
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"],
             "shape": list(main_row["shape"]), "dtype": dtype,
+            "causal_launches": sum(c.get(name, 0) for c in causal_launches.values()),
         })
     require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
             "the result line must list every kernel")
@@ -1421,12 +1720,13 @@ def profile_step(torch, fn, what):
     busy_ms = sum(r[0] for r in rows)
     if not rows:
         print("[profile] torch.profiler shows no device time here")
-        return
+        return wall_ms, 0.0, rows
     print(f"[profile] {what}: wall {wall_ms:.2f} ms (under the "
           f"profiler), device busy {busy_ms:.2f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / wall_ms):.2f}")
     for ms, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {ms:8.3f} ms {100 * ms / busy_ms:5.1f}%  x{count:<4d} {key[:90]}")
+    return wall_ms, busy_ms, rows
 
 
 def kernel_device_ms(torch, fn, names, iters=20):

@@ -18,11 +18,14 @@ pretraining (the masked-LM and next-sentence heads, every attention
 path of `BertConfig`) with SGD, Momentum, Adam, AdamW or Lamb, weight
 decay (`regularizer`) and gradient clipping (`clip`), in fp32 or under
 AMP with static or dynamic loss scaling (`contrib.mixed_precision.
-decorate`; fp16 on the CPU only); and ResNet training and serving.
+decorate`, bf16 or fp16); ResNet training and serving; and the
+Transformer (`models.transformer`: training, and incremental decode
+through an encode and a decode-step program, with beam search in
+`decoding`).
 """
 
-from . import (clip, contrib, inference, initializer, io, layers, models, optimizer,
-               param_attr, regularizer)
+from . import (clip, contrib, decoding, inference, initializer, io, layers, models,
+               optimizer, param_attr, profiler, regularizer)
 from .backward import append_backward, calc_gradient, gradients
 from .executor import Executor
 from .framework import (

@@ -23,6 +23,7 @@ __all__ = [
     "TruncatedNormalInitializer",
     "Xavier",
     "XavierInitializer",
+    "NumpyArrayInitializer",
 ]
 
 
@@ -127,6 +128,32 @@ class XavierInitializer(Initializer):
             return UniformInitializer(-limit, limit, self.seed)(var, block)
         std = math.sqrt(2.0 / (fi + fo))
         return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """Fills the parameter with a given array through one `assign_value`
+    op: float values (float, bfloat16 vars) as `fp32_values`, others as
+    `int32_values`, as `paddle_tpu/initializer.py:176-197` emits it."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        values = self.value.astype(
+            "float32" if var.dtype.startswith("float") or var.dtype == "bfloat16"
+            else var.dtype
+        )
+        key = "fp32_values" if values.dtype == np.float32 else "int32_values"
+        return block.append_op(
+            "assign_value",
+            {},
+            {"Out": [var.name]},
+            {
+                "shape": list(var.shape),
+                "dtype": var.dtype,
+                key: values.flatten().tolist(),
+            },
+        )
 
 
 Constant = ConstantInitializer

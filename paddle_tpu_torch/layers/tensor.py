@@ -3,12 +3,15 @@ types, slots and attrs as its `paddle_tpu/layers/tensor.py` counterpart."""
 
 from __future__ import annotations
 
-from ..framework import default_startup_program
+import numpy as np
+
+from ..framework import Variable, default_startup_program
 from ..layer_helper import LayerHelper
 
 __all__ = [
     "create_global_var",
     "sums",
+    "assign",
     "fill_constant",
     "fill_constant_batch_size_like",
 ]
@@ -35,6 +38,29 @@ def sums(input, out=None):
         out = helper.create_variable_for_type_inference(xs[0].dtype, xs[0].shape)
     helper.append_op(type="sum", inputs={"X": xs}, outputs={"Out": [out]})
     return out
+
+
+def assign(input, output=None):
+    """A Variable through an `assign` op; an array (numpy or nested lists)
+    through an `assign_value` op that holds its values."""
+    helper = LayerHelper("assign")
+    if isinstance(input, Variable):
+        if output is None:
+            output = helper.create_variable_for_type_inference(input.dtype, input.shape)
+        helper.append_op(type="assign", inputs={"X": [input]}, outputs={"Out": [output]})
+        return output
+    arr = np.asarray(input)
+    if output is None:
+        output = helper.create_variable_for_type_inference(str(arr.dtype), arr.shape)
+    key = "fp32_values" if arr.dtype == np.float32 else "int32_values"
+    helper.append_op(
+        type="assign_value",
+        inputs={},
+        outputs={"Out": [output]},
+        attrs={"shape": list(arr.shape), "dtype": str(arr.dtype),
+               key: arr.flatten().tolist()},
+    )
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None):

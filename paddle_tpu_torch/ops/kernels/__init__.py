@@ -3,14 +3,16 @@ wrappers and plain PyTorch versions.
 
 Every wrapper adds one to its entry in `LAUNCHES` where it launches its
 kernel, and nowhere else, so a run can show which kernels its main path
-went through. A wrapper given a CPU tensor computes the kernel's plain
+went through; an attention launch with a causal mask also adds one to
+`CAUSAL_LAUNCHES`. A wrapper given a CPU tensor computes the kernel's plain
 version instead; given a CUDA tensor it launches the kernel or raises."""
 
-# every kernel takes float32 and bf16; an fp16 input on the card raises
-# TypeError with this note, and nothing falls back to a plain version
-FP16_NOT_WRITTEN = ("float16 kernels are not written yet (ROADMAP Queue 1, \"fp16 "
-                    "versions of kernels #1-#8\"); fp16 AMP runs on the CPU so far, "
-                    "bfloat16 runs on the card")
+# the attention and LayerNorm kernels (#1-#8) take float32, bf16 and fp16;
+# the fused-block kernels (#9-#10) float32 and bf16, and an fp16 input to
+# them on the card raises TypeError with this note (nothing falls back to
+# a plain version)
+FP16_NOT_WRITTEN = ("the fused-block kernels take float32 and bfloat16; their float16 "
+                    "versions are not written yet (ROADMAP Queue 2, \"fp16 for #9-#10\")")
 
 
 def fp16_note(*dtypes) -> str:
@@ -18,6 +20,14 @@ def fp16_note(*dtypes) -> str:
     import torch
 
     return f" ({FP16_NOT_WRITTEN})" if torch.float16 in dtypes else ""
+
+
+def dtype_code(dtype) -> int:
+    """The C entry points' code for a tensor dtype: 0 float32, 1 bfloat16,
+    2 float16 (csrc/attn_common.cuh ATTN_F32 / ATTN_BF16 / ATTN_F16)."""
+    import torch
+
+    return {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}[dtype]
 
 
 LAUNCHES = {
@@ -31,13 +41,23 @@ LAUNCHES = {
 }
 
 
+# of those, the attention launches with a causal mask (beside LAUNCHES,
+# where the wrapper adds to both)
+CAUSAL_LAUNCHES = {"mha_short_fwd": 0, "mha_short_bwd": 0, "flash_fwd": 0, "flash_bwd": 0}
+
+
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CAUSAL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def causal_launch_counts() -> dict:
+    return dict(CAUSAL_LAUNCHES)
 
 
 _MARKER = "spin_kernel"  # torch.cuda._sleep's kernel, which opens and closes a session

@@ -5,6 +5,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -29,6 +30,7 @@ __device__ __forceinline__ float attn_to_float(float x) { return x; }
 __device__ __forceinline__ float attn_to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float attn_to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T attn_from_float(float x);
@@ -40,9 +42,14 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 attn_from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as astype(bf16)
 }
+// round to nearest even, past 65504 to inf, as astype(float16)
+template <>
+__device__ __forceinline__ __half attn_from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // p is cast to v's dtype before P.V (mha_short.py:112,
-// flash_attention.py:146-149): a no-op for fp32, a bf16 rounding for bf16.
+// flash_attention.py:146-149): a no-op for fp32, a rounding for bf16 and fp16.
 template <typename T>
 __device__ __forceinline__ float attn_round_like(float x) {
   return attn_to_float(attn_from_float<T>(x));
@@ -91,3 +98,12 @@ static inline AttnBwdStrides attn_bwd_strides_from(const long long* s) {
   st.dvb = s[18]; st.dvs = s[19]; st.dvh = s[20];
   return st;
 }
+
+// The dtype codes of the C entry points: 0 float32, 1 bf16, 2 fp16. Each
+// entry point runs its kernel for the code's type and refuses any other
+// code.
+#define ATTN_F32 0
+#define ATTN_BF16 1
+#define ATTN_F16 2
+
+static inline long long attn_elem_size(int dtype) { return dtype == ATTN_F32 ? 4 : 2; }

@@ -27,6 +27,10 @@
 // TFLOP/s = 33 us. (The FMA units would need 481 us in fp32.)
 //
 // Design:
+// - fp16 takes the bf16 path: m16n8k16 on f16 inputs (the same fragments),
+//   fp32 sums, p_drop and dS rounded to fp16 where bf16 rounds them; a dS
+//   past fp16's 65504 (a large loss scale) becomes inf, as the Pallas
+//   kernel's astype(float16) gives it, and the step's finite check skips it.
 // - Every product on the tensor cores with warp-level mma.sync
 //   (mma_common.cuh): bf16 as m16n8k16 with fp32 accumulation, fp32 as
 //   3xTF32 on m16n8k8 (x = hi + lo; hi*hi + hi*lo + lo*hi keeps a product
@@ -559,13 +563,14 @@ static int flash_bwd_dispatch_d(const void* q, const void* k, const void* v,
                                   seed, vec, s);
 }
 
-// C entry point, bound with ctypes. strides: 21 element strides (b, s, h)
-// of q, k, v, dout, dq, dk, dv. bias: [B, sk] float32 or NULL. lse, delta:
-// [B, H, sq] float32. drop_div = 1 - rate. Returns the cudaError_t of the
-// launches (0 = success).
+// C entry point, bound with ctypes. dtype: ATTN_F32, ATTN_BF16 or ATTN_F16 (0,
+// 1, 2), the type of q, k, v, dout and the grads. strides: 21 element strides
+// (b, s, h) of q, k, v, dout, dq, dk, dv. bias: [B, sk] float32 or NULL. lse,
+// delta: [B, H, sq] float32. drop_div = 1 - rate. Returns the cudaError_t of
+// the launches (0 = success).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const float* bias,
                          const void* dout, const float* lse, const float* delta, void* dq,
-                         void* dk, void* dv, int is_bf16, int B, int H, int sq, int sk,
+                         void* dk, void* dv, int dtype, int B, int H, int sq, int sk,
                          int d, const long long* strides, float sm_scale, int causal,
                          int dropout_on, float drop_div, unsigned int thresh,
                          unsigned int seed, void* stream) {
@@ -574,17 +579,25 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const floa
     return (int)cudaErrorInvalidValue;
   const AttnBwdStrides st = attn_bwd_strides_from(strides);
   // 16-byte copies need every row of q, k, v and dO to start 16-byte aligned
-  const long long esz = is_bf16 ? 2 : 4;
+  const long long esz = attn_elem_size(dtype);
   bool vec = d % (16 / esz) == 0;
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && (strides[i] * esz) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return flash_bwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B,
-                                               H, sq, sk, d, st, sm_scale, causal, dropout_on,
-                                               drop_div, thresh, seed, vec, s);
-  return flash_bwd_dispatch_d<float>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, H, sq,
-                                     sk, d, st, sm_scale, causal, dropout_on, drop_div,
-                                     thresh, seed, vec, s);
+  switch (dtype) {
+    case ATTN_F32:
+      return flash_bwd_dispatch_d<float>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, H, sq,
+                                         sk, d, st, sm_scale, causal, dropout_on, drop_div,
+                                         thresh, seed, vec, s);
+    case ATTN_BF16:
+      return flash_bwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, dout, lse, delta, dq, dk, dv,
+                                                 B, H, sq, sk, d, st, sm_scale, causal,
+                                                 dropout_on, drop_div, thresh, seed, vec, s);
+    case ATTN_F16:
+      return flash_bwd_dispatch_d<__half>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, H,
+                                          sq, sk, d, st, sm_scale, causal, dropout_on,
+                                          drop_div, thresh, seed, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,6 +24,8 @@
 // 192 us in fp32.)
 //
 // Design, against what held the first (FMA) version back:
+// - fp16 takes the bf16 path: m16n8k16 on f16 inputs (the same fragments),
+//   fp32 sums, p rounded to fp16 before P V where bf16 rounds it to bf16.
 // - Products on the tensor cores with warp-level mma.sync
 //   (mma_common.cuh): bf16 as m16n8k16 with fp32 accumulation, fp32 as
 //   3xTF32 on m16n8k8 (x = hi + lo; hi*hi + hi*lo + lo*hi keeps a product
@@ -307,11 +309,12 @@ static int flash_fwd_dispatch_d(const void* q, const void* k, const void* v,
                                   causal, dropout_on, drop_div, thresh, seed, vec, s);
 }
 
-// C entry point, bound with ctypes. strides: 12 element strides (b, s, h)
-// of q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32.
-// Returns the cudaError_t of the launch (0 = success).
+// C entry point, bound with ctypes. dtype: ATTN_F32, ATTN_BF16 or ATTN_F16 (0,
+// 1, 2), the type of q, k, v and out. strides: 12 element strides (b, s, h) of
+// q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
-                         void* out, float* lse, int is_bf16, int B, int H, int sq,
+                         void* out, float* lse, int dtype, int B, int H, int sq,
                          int sk, int d, const long long* strides, float sm_scale,
                          int causal, int dropout_on, float drop_div, unsigned int thresh,
                          unsigned int seed, void* stream) {
@@ -319,16 +322,25 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, const floa
     return (int)cudaErrorInvalidValue;
   const AttnStrides st = attn_strides_from(strides);
   // 16-byte copies need every row of q, k and v to start 16-byte aligned
-  const long long esz = is_bf16 ? 2 : 4;
+  const long long esz = attn_elem_size(dtype);
   bool vec = d % (16 / esz) == 0;
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && (strides[i] * esz) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return flash_fwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
-                                               sm_scale, causal, dropout_on, drop_div,
-                                               thresh, seed, vec, s);
-  return flash_fwd_dispatch_d<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
-                                     causal, dropout_on, drop_div, thresh, seed, vec, s);
+  switch (dtype) {
+    case ATTN_F32:
+      return flash_fwd_dispatch_d<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                         sm_scale, causal, dropout_on, drop_div, thresh, seed,
+                                         vec, s);
+    case ATTN_BF16:
+      return flash_fwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                                 sm_scale, causal, dropout_on, drop_div,
+                                                 thresh, seed, vec, s);
+    case ATTN_F16:
+      return flash_fwd_dispatch_d<__half>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                          sm_scale, causal, dropout_on, drop_div, thresh, seed,
+                                          vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

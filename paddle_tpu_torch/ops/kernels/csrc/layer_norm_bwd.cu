@@ -12,7 +12,8 @@
 // the dscale terms are bf16(dy) * bf16(nrm), summed in fp32, as the JAX
 // package's layer_norm_grad computes them for bf16 X
 // (paddle_tpu/ops/nn_ops.py:598-605; the product of two bf16 is exact in
-// fp32).
+// fp32). fp16 x keeps the fp32 terms dy * nrm, as that lowering does for
+// every X but bf16.
 //
 // What bounds it on the H100: x, dy and dx once each plus the row stats;
 // about 11 operations an element, so the bytes (9.4 MB in fp32 at n 1024,
@@ -23,7 +24,7 @@
 // warps, the grid no larger than the card holds at once.
 // - One warp a row: warp w of the grid's T = blocks x W takes rows w,
 //   w + T, w + 2T, ... Lane l holds the vectors v = 32 j + l of V columns
-//   (V = 16 bytes: 4 fp32 or 8 bf16), so a row's loads are 16 bytes a lane.
+//   (V = 16 bytes: 4 fp32 or 8 bf16 / fp16), so a row's loads are 16 bytes a lane.
 // - Register path (16-byte aligned tensors, k % V == 0, k <= 1024): the
 //   row's VPL vectors a lane are loaded into registers, all before their
 //   first use, and the next row's loads are in flight during the current
@@ -43,6 +44,7 @@
 // two launches on the same inputs give the same bits.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,6 +71,7 @@ struct LnArgs {
 
 __device__ __forceinline__ float ln_to_float(float x) { return x; }
 __device__ __forceinline__ float ln_to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float ln_to_float(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T ln_from_float(float x);
@@ -78,9 +81,13 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 ln_from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half ln_from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
 
 // 16 bytes of T: V elements, unpacked from and packed into four 32-bit
-// words (element 2i of bf16 is the low half of word i)
+// words (element 2i of bf16 or fp16 is the low half of word i)
 template <typename T>
 struct LnVec;
 template <>
@@ -118,8 +125,32 @@ struct LnVec<__nv_bfloat16> {
   }
 };
 
+template <>
+struct LnVec<__half> {
+  static constexpr int V = 8;
+  __device__ static void unpack(const uint4& w, float (&f)[8]) {
+    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+  __device__ static uint32_t pack2(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ static uint4 pack(const float (&f)[8]) {
+    return make_uint4(pack2(f[0], f[1]), pack2(f[2], f[3]), pack2(f[4], f[5]),
+                      pack2(f[6], f[7]));
+  }
+};
+
 // one dscale term: dy * nrm in fp32; for bf16 x nrm rounded to bf16
-// first (dy is bf16 already), the product exact in fp32
+// first (dy is bf16 already), the product exact in fp32. fp16 keeps the
+// fp32 product, as the JAX package's layer_norm_grad does for any X but
+// bf16 (nn_ops.py:597-607)
 template <typename T>
 __device__ __forceinline__ float ln_dscale_term(float d, float nrm) {
   return d * nrm;
@@ -451,22 +482,41 @@ static const void* ln_kernel(int vec, int vpl, int warps, int k, size_t* smem) {
   return ln_reg_kernel<T, 1>(vpl);
 }
 
-static const void* ln_kernel_of(int is_bf16, int vec, int vpl, int warps, int k,
+// dtype: 0 float32, 1 bf16, 2 fp16
+static const void* ln_kernel_of(int dtype, int vec, int vpl, int warps, int k,
                                 size_t* smem) {
-  return is_bf16 ? ln_kernel<__nv_bfloat16>(vec, vpl, warps, k, smem)
-                 : ln_kernel<float>(vec, vpl, warps, k, smem);
+  switch (dtype) {
+    case 0:
+      return ln_kernel<float>(vec, vpl, warps, k, smem);
+    case 1:
+      return ln_kernel<__nv_bfloat16>(vec, vpl, warps, k, smem);
+    case 2:
+      return ln_kernel<__half>(vec, vpl, warps, k, smem);
+  }
+  return nullptr;
+}
+
+template <typename T>
+static cudaError_t ln_launch(const void* fn, const void* x, const void* dy, const float* mean,
+                             const float* rstd, const float* scale, void* dx, float* part,
+                             float* out, int n, int k, int blocks, int warps, size_t smem,
+                             cudaStream_t s) {
+  LnArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(dy), mean, rstd, scale,
+              static_cast<T*>(dx), part, out, n, k};
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, s);
 }
 
 // C entry points, bound with ctypes; each returns a cudaError_t (0 =
 // success).
 //
 // layer_norm_bwd_max_blocks: *blocks = the most blocks of the geometry's
-// kernel (is_bf16, vec, vpl, warps, k) the current device holds at once,
+// kernel (dtype, vec, vpl, warps, k) the current device holds at once,
 // the largest grid layer_norm_bwd may launch it with.
-extern "C" int layer_norm_bwd_max_blocks(int is_bf16, int vec, int vpl, int warps, int k,
+extern "C" int layer_norm_bwd_max_blocks(int dtype, int vec, int vpl, int warps, int k,
                                          int* blocks) {
   size_t smem = 0;
-  const void* fn = ln_kernel_of(is_bf16, vec, vpl, warps, k, &smem);
+  const void* fn = ln_kernel_of(dtype, vec, vpl, warps, k, &smem);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -481,7 +531,8 @@ extern "C" int layer_norm_bwd_max_blocks(int is_bf16, int vec, int vpl, int warp
   return *blocks > 0 ? 0 : (int)cudaErrorCooperativeLaunchTooLarge;
 }
 
-// layer_norm_bwd: x, dy, dx [n, k] contiguous, float32 or bf16 (is_bf16);
+// layer_norm_bwd: x, dy, dx [n, k] contiguous, float32, bf16 or fp16 (dtype
+// 0, 1, 2);
 // mean, rstd [n], scale [k] float32; part [blocks, 2k] float32 scratch; out
 // [2, k] float32 (dscale, dbias). With vec every one of x, dy, dx and scale
 // must be 16-byte aligned and k a multiple of 16 bytes of x's type. One
@@ -489,10 +540,10 @@ extern "C" int layer_norm_bwd_max_blocks(int is_bf16, int vec, int vpl, int warp
 // grid larger than the device holds at once is refused, never run.
 extern "C" int layer_norm_bwd(const void* x, const void* dy, const float* mean,
                               const float* rstd, const float* scale, void* dx, float* part,
-                              float* out, int is_bf16, int vec, int vpl, int warps, int n,
+                              float* out, int dtype, int vec, int vpl, int warps, int n,
                               int k, int blocks, void* stream) {
   size_t smem = 0;
-  const void* fn = ln_kernel_of(is_bf16, vec, vpl, warps, k, &smem);
+  const void* fn = ln_kernel_of(dtype, vec, vpl, warps, k, &smem);
   if (fn == nullptr || n < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   if (vec && (((uintptr_t)x | (uintptr_t)dy | (uintptr_t)dx | (uintptr_t)scale) & 15))
     return (int)cudaErrorMisalignedAddress;
@@ -500,18 +551,15 @@ extern "C" int layer_norm_bwd(const void* x, const void* dy, const float* mean,
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    LnArgs<__nv_bfloat16> a{static_cast<const __nv_bfloat16*>(x),
-                            static_cast<const __nv_bfloat16*>(dy), mean, rstd, scale,
-                            static_cast<__nv_bfloat16*>(dx), part, out, n, k};
-    void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, s);
-  } else {
-    LnArgs<float> a{static_cast<const float*>(x), static_cast<const float*>(dy), mean, rstd,
-                    scale, static_cast<float*>(dx), part, out, n, k};
-    void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, s);
-  }
+  if (dtype == 1)
+    err = ln_launch<__nv_bfloat16>(fn, x, dy, mean, rstd, scale, dx, part, out, n, k, blocks,
+                                   warps, smem, s);
+  else if (dtype == 2)
+    err = ln_launch<__half>(fn, x, dy, mean, rstd, scale, dx, part, out, n, k, blocks, warps,
+                            smem, s);
+  else
+    err = ln_launch<float>(fn, x, dy, mean, rstd, scale, dx, part, out, n, k, blocks, warps,
+                           smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

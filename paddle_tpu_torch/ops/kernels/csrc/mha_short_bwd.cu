@@ -26,6 +26,10 @@
 // us of bytes (bf16: 1.0 us of operations, 3.3 us of bytes).
 //
 // Design:
+// - fp16 takes the bf16 path: m16n8k16 on f16 inputs (the same fragments),
+//   fp32 sums, p_drop and dS rounded to fp16 where bf16 rounds them; a dS
+//   past fp16's 65504 (a large loss scale) becomes inf, as the Pallas
+//   kernel's astype(float16) gives it, and the step's finite check skips it.
 // - All five products run on the tensor cores with warp-level mma.sync
 //   (mma_common.cuh): bf16 as m16n8k16 with fp32 accumulation (bf16
 //   products are exact in fp32); fp32 as 3xTF32 on m16n8k8, x = hi + lo
@@ -403,14 +407,15 @@ static int short_bwd_dispatch_d(int d, const void* q, const void* k, const void*
 #undef SB_LAUNCH
 }
 
-// C entry point, bound with ctypes. strides: 21 element strides (b, s, h)
-// of q, k, v, dout, dq, dk, dv. bias: [B, sk] float32 or NULL. lse, delta:
-// [B, H, sq] float32. ds: scratch [B, H, sq, skp] of q's dtype, skp = sk
+// C entry point, bound with ctypes. dtype: ATTN_F32, ATTN_BF16 or ATTN_F16 (0,
+// 1, 2), the type of q, k, v, dout and the grads. strides: 21 element strides
+// (b, s, h) of q, k, v, dout, dq, dk, dv. bias: [B, sk] float32 or NULL. lse,
+// delta: [B, H, sq] float32. ds: scratch [B, H, sq, skp] of q's dtype, skp = sk
 // rounded up to a multiple of 8, written by launch 1 and read by launch 2.
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int mha_short_bwd(const void* q, const void* k, const void* v, const float* bias,
                              const void* dout, const float* lse, const float* delta,
-                             void* dq, void* dk, void* dv, void* ds, int is_bf16, int B,
+                             void* dq, void* dk, void* dv, void* ds, int dtype, int B,
                              int H, int sq, int sk, int d, const long long* strides,
                              float sm_scale, int causal, int dropout_on, float drop_mul,
                              unsigned int thresh, unsigned int seed, void* stream) {
@@ -419,17 +424,26 @@ extern "C" int mha_short_bwd(const void* q, const void* k, const void* v, const 
   const AttnBwdStrides st = attn_bwd_strides_from(strides);
   const int skp = (sk + 7) / 8 * 8;
   // 16-byte copies need every row of q, k, v and dO to start 16-byte aligned
-  const long long esz = is_bf16 ? 2 : 4;
+  const long long esz = attn_elem_size(dtype);
   bool vec = d % (16 / esz) == 0;
   const void* ptrs[4] = {q, k, v, dout};
   for (int i = 0; i < 4; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && (strides[i] * esz) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return short_bwd_dispatch_d<__nv_bfloat16>(d, q, k, v, bias, dout, lse, delta, dq, dk, dv,
-                                               ds, B, H, sq, sk, skp, st, sm_scale, causal,
-                                               dropout_on, drop_mul, thresh, seed, vec, s);
-  return short_bwd_dispatch_d<float>(d, q, k, v, bias, dout, lse, delta, dq, dk, dv, ds, B, H,
-                                     sq, sk, skp, st, sm_scale, causal, dropout_on, drop_mul,
-                                     thresh, seed, vec, s);
+  switch (dtype) {
+    case ATTN_F32:
+      return short_bwd_dispatch_d<float>(d, q, k, v, bias, dout, lse, delta, dq, dk, dv, ds, B,
+                                         H, sq, sk, skp, st, sm_scale, causal, dropout_on,
+                                         drop_mul, thresh, seed, vec, s);
+    case ATTN_BF16:
+      return short_bwd_dispatch_d<__nv_bfloat16>(d, q, k, v, bias, dout, lse, delta, dq, dk,
+                                                 dv, ds, B, H, sq, sk, skp, st, sm_scale,
+                                                 causal, dropout_on, drop_mul, thresh, seed,
+                                                 vec, s);
+    case ATTN_F16:
+      return short_bwd_dispatch_d<__half>(d, q, k, v, bias, dout, lse, delta, dq, dk, dv, ds,
+                                          B, H, sq, sk, skp, st, sm_scale, causal, dropout_on,
+                                          drop_mul, thresh, seed, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

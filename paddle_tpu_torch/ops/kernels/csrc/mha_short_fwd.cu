@@ -21,6 +21,8 @@
 // version's note counted 1.6 MB and called it bound by operations.)
 //
 // Design, against what held the first (FMA) version back:
+// - fp16 takes the bf16 path: m16n8k16 on f16 inputs (the same fragments),
+//   fp32 sums, p rounded to fp16 before P V where bf16 rounds it to bf16.
 // - Products on the tensor cores with mma.sync (mma_common.cuh): bf16 as
 //   m16n8k16 with fp32 accumulation, fp32 as 3xTF32 on m16n8k8 (one TF32
 //   pass perturbs S past the 1e-4 gate). The FMA loops fed every product
@@ -340,7 +342,7 @@ mha_short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if constexpr (sizeof(T) == 4)
           *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(x0, x1);
+          *reinterpret_cast<uint32_t*>(orow + col) = Mma16<T>::pack(x0, x1);
       } else {
         if (col < d) orow[col] = attn_from_float<T>(x0);
         if (col + 1 < d) orow[col + 1] = attn_from_float<T>(x1);
@@ -388,11 +390,12 @@ static int short_fwd_dispatch_d(const void* q, const void* k, const void* v,
                                   causal, dropout_on, drop_mul, thresh, seed, vec, s);
 }
 
-// C entry point, bound with ctypes. strides: 12 element strides (b, s, h)
-// of q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32.
-// Returns the cudaError_t of the launch (0 = success).
+// C entry point, bound with ctypes. dtype: ATTN_F32, ATTN_BF16 or ATTN_F16 (0,
+// 1, 2), the type of q, k, v and out. strides: 12 element strides (b, s, h) of
+// q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32. Returns
+// the cudaError_t of the launch (0 = success).
 extern "C" int mha_short_fwd(const void* q, const void* k, const void* v,
-                             const float* bias, void* out, float* lse, int is_bf16,
+                             const float* bias, void* out, float* lse, int dtype,
                              int B, int H, int sq, int sk, int d,
                              const long long* strides, float sm_scale, int causal,
                              int dropout_on, float drop_mul, unsigned int thresh,
@@ -402,16 +405,25 @@ extern "C" int mha_short_fwd(const void* q, const void* k, const void* v,
   const AttnStrides st = attn_strides_from(strides);
   // 16-byte copies need every row of q, k and v to start 16-byte aligned
   // (then d is even, and so are the rows of out, allocated like q)
-  const long long esz = is_bf16 ? 2 : 4;
+  const long long esz = attn_elem_size(dtype);
   bool vec = d % (16 / esz) == 0;
   const void* ptrs[4] = {q, k, v, out};
   for (int i = 0; i < 4; ++i) vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0;
   for (int i = 0; i < 12; ++i) vec = vec && (strides[i] * esz) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return short_fwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d,
-                                               st, sm_scale, causal, dropout_on, drop_mul,
-                                               thresh, seed, vec, s);
-  return short_fwd_dispatch_d<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
-                                     causal, dropout_on, drop_mul, thresh, seed, vec, s);
+  switch (dtype) {
+    case ATTN_F32:
+      return short_fwd_dispatch_d<float>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                         sm_scale, causal, dropout_on, drop_mul, thresh, seed,
+                                         vec, s);
+    case ATTN_BF16:
+      return short_fwd_dispatch_d<__nv_bfloat16>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                                 sm_scale, causal, dropout_on, drop_mul,
+                                                 thresh, seed, vec, s);
+    case ATTN_F16:
+      return short_fwd_dispatch_d<__half>(q, k, v, bias, out, lse, B, H, sq, sk, d, st,
+                                          sm_scale, causal, dropout_on, drop_mul, thresh, seed,
+                                          vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,5 @@
 // Warp-level tensor-core and async-copy helpers for Hopper (sm_90a), in
-// inline PTX: mma.sync m16n8k8 TF32 and m16n8k16 bf16 with fp32
+// inline PTX: mma.sync m16n8k8 TF32 and m16n8k16 bf16 / fp16 with fp32
 // accumulation, the TF32 rounding and the 3xTF32 split, cp.async copies
 // of 16 and 4 bytes, strided row tiles into shared memory, and fragment
 // loads from shared tiles.
@@ -11,10 +11,12 @@
 //   B tf32:          b0 (k t, n g), b1 (k t+4, n g)
 //   A bf16 m16n8k16: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..), a3 (g+8, 2t+8..)
 //   B bf16:          b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
-// Each bf16 register holds the lower k index in its low half.
+// Each bf16 register holds the lower k index in its low half. fp16's
+// m16n8k16 fragments are laid out as bf16's.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "attn_common.cuh"  // attn_from_float
@@ -54,6 +56,15 @@ __device__ __forceinline__ void mma_bf16_m16n8k16(float c[4], const uint32_t a[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+__device__ __forceinline__ void mma_f16_m16n8k16(float c[4], const uint32_t a[4],
+                                                 const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // Two floats, each already a bf16 value or rounded to one (to nearest
 // even), packed with `lo` in the low half.
 __device__ __forceinline__ uint32_t mma_pack_bf16(float lo, float hi) {
@@ -64,6 +75,47 @@ __device__ __forceinline__ uint32_t mma_pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint32_t mma_pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
+
+// The same for fp16: each float rounded to nearest even, a magnitude past
+// fp16's largest finite value (65504) to inf, as astype(float16) rounds.
+__device__ __forceinline__ uint32_t mma_pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t mma_pack_f16(__half lo, __half hi) {
+  return (uint32_t)__half_as_ushort(lo) | ((uint32_t)__half_as_ushort(hi) << 16);
+}
+
+// the m16n8k16 product and the float pair packing of a 16-bit type
+template <typename T>
+struct Mma16;
+template <>
+struct Mma16<__nv_bfloat16> {
+  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                             const uint32_t b[2]) {
+    mma_bf16_m16n8k16(c, a, b);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return mma_pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+    return mma_pack_bf16(lo, hi);
+  }
+};
+template <>
+struct Mma16<__half> {
+  static __device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
+                                             const uint32_t b[2]) {
+    mma_f16_m16n8k16(c, a, b);
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return mma_pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ uint32_t pack(__half lo, __half hi) {
+    return mma_pack_f16(lo, hi);
+  }
+};
 
 // cp.async of 16 bytes from device to shared memory; src_bytes 0 writes
 // 16 zero bytes and reads nothing (gmem must still be a valid address).
@@ -135,9 +187,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* sme
 }
 
 // ---- fragments by input type ---------------------------------------------
-// MmaOps<T>: the product step for T (float: 3xTF32 on m16n8k8, bf16: one
-// m16n8k16) and its fragment loads from shared tiles of T with row
-// stride ld (elements):
+// MmaOps<T>: the product step for T (float: 3xTF32 on m16n8k8, bf16 and
+// fp16: one m16n8k16) and its fragment loads from shared tiles of T with
+// row stride ld (elements):
 //   load_a     A row-major [m][k], rows m0.., depth k0..
 //   load_b_nk  B stored [n][k] (the k axis contiguous)
 //   load_b_kn  B stored [k][n]; for float it reads rows k0 + 2t, 2t + 1
@@ -147,7 +199,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* sme
 //              accumulator become the k-step's A (rows kept, columns as k)
 //   load_b_nk2 load_b_nk at k-steps k0 and k0 + K
 //   load_b_kn2 load_b_kn at n-tiles n0 and n0 + 8
-// (bf16's pairs are one ldmatrix each; rows 16-byte aligned)
+// (the 16-bit types' pairs are one ldmatrix each; rows 16-byte aligned)
 template <typename T>
 struct MmaOps;
 
@@ -213,47 +265,48 @@ struct MmaOps<float> {
   }
 };
 
-template <>
-struct MmaOps<__nv_bfloat16> {
-  typedef __nv_bfloat16 bf16;
+// bf16 and fp16: the same loads (ldmatrix moves any 16-bit type), the
+// product and the packing of the type
+template <typename T16>
+struct MmaOps16 {
   static constexpr int K = 16;
   struct A { uint32_t x[4]; };
   struct B { uint32_t x[2]; };
 
   static __device__ __forceinline__ void mma(float c[4], const A& a, const B& b) {
-    mma_bf16_m16n8k16(c, a.x, b.x);
+    Mma16<T16>::mma(c, a.x, b.x);
   }
-  static __device__ __forceinline__ uint32_t word(const bf16* p) {
+  static __device__ __forceinline__ uint32_t word(const T16* p) {
     return *reinterpret_cast<const uint32_t*>(p);
   }
-  static __device__ __forceinline__ void load_a(A& a, const bf16* s, int ld, int m0, int k0) {
+  static __device__ __forceinline__ void load_a(A& a, const T16* s, int ld, int m0, int k0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const bf16* p = s + (m0 + g) * ld + k0 + 2 * t;
+    const T16* p = s + (m0 + g) * ld + k0 + 2 * t;
     a.x[0] = word(p);
     a.x[1] = word(p + 8 * ld);
     a.x[2] = word(p + 8);
     a.x[3] = word(p + 8 * ld + 8);
   }
-  static __device__ __forceinline__ void load_a_kn(A& a, const bf16* s, int ld, int m0,
+  static __device__ __forceinline__ void load_a_kn(A& a, const T16* s, int ld, int m0,
                                                    int k0) {
     load_a(a, s, ld, m0, k0);
   }
-  static __device__ __forceinline__ void load_b_nk(B& b, const bf16* s, int ld, int n0,
+  static __device__ __forceinline__ void load_b_nk(B& b, const T16* s, int ld, int n0,
                                                    int k0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
+    const T16* p = s + (n0 + g) * ld + k0 + 2 * t;
     b.x[0] = word(p);
     b.x[1] = word(p + 8);
   }
-  static __device__ __forceinline__ void load_b_kn(B& b, const bf16* s, int ld, int k0,
+  static __device__ __forceinline__ void load_b_kn(B& b, const T16* s, int ld, int k0,
                                                    int n0) {
     const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-    const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
-    b.x[0] = mma_pack_bf16(p[0], p[ld]);
-    b.x[1] = mma_pack_bf16(p[8 * ld], p[9 * ld]);
+    const T16* p = s + (k0 + 2 * t) * ld + n0 + g;
+    b.x[0] = Mma16<T16>::pack(p[0], p[ld]);
+    b.x[1] = Mma16<T16>::pack(p[8 * ld], p[9 * ld]);
   }
   // matrices: rows n0.., columns k0, k0 + 8, k0 + 16, k0 + 24
-  static __device__ __forceinline__ void load_b_nk2(B& b0, B& b1, const bf16* s, int ld,
+  static __device__ __forceinline__ void load_b_nk2(B& b0, B& b1, const T16* s, int ld,
                                                     int n0, int k0) {
     const int lane = threadIdx.x & 31;
     uint32_t r[4];
@@ -264,7 +317,7 @@ struct MmaOps<__nv_bfloat16> {
     b1.x[1] = r[3];
   }
   // matrices (transposed): rows k0.. and k0 + 8.., columns n0 and n0 + 8
-  static __device__ __forceinline__ void load_b_kn2(B& b0, B& b1, const bf16* s, int ld,
+  static __device__ __forceinline__ void load_b_kn2(B& b0, B& b1, const T16* s, int ld,
                                                     int k0, int n0) {
     const int lane = threadIdx.x & 31, m = lane >> 3;
     uint32_t r[4];
@@ -274,11 +327,16 @@ struct MmaOps<__nv_bfloat16> {
     b1.x[0] = r[2];
     b1.x[1] = r[3];
   }
-  // two n8 tiles make one k16 step; each value rounds to bf16 here
+  // two n8 tiles make one k16 step; each value rounds to the type here
   static __device__ __forceinline__ void a_from_c(A& a, const float (*c)[4]) {
-    a.x[0] = mma_pack_bf16(c[0][0], c[0][1]);
-    a.x[1] = mma_pack_bf16(c[0][2], c[0][3]);
-    a.x[2] = mma_pack_bf16(c[1][0], c[1][1]);
-    a.x[3] = mma_pack_bf16(c[1][2], c[1][3]);
+    a.x[0] = Mma16<T16>::pack(c[0][0], c[0][1]);
+    a.x[1] = Mma16<T16>::pack(c[0][2], c[0][3]);
+    a.x[2] = Mma16<T16>::pack(c[1][0], c[1][1]);
+    a.x[3] = Mma16<T16>::pack(c[1][2], c[1][3]);
   }
 };
+
+template <>
+struct MmaOps<__nv_bfloat16> : MmaOps16<__nv_bfloat16> {};
+template <>
+struct MmaOps<__half> : MmaOps16<__half> {};

@@ -60,17 +60,23 @@ __global__ void mma_probe_kernel(const T* a, const T* b, const T* b2, float* c, 
   for (int e = 0; e < 4; ++e) c[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)] = acc[e];
 }
 
-extern "C" int mma_probe(const void* a, const void* b, const void* b2, float* c, int is_bf16,
+// dtype: 0 float32, 1 bf16, 2 fp16
+template <typename T>
+static void mma_probe_launch(const void* a, const void* b, const void* b2, float* c, int mode,
+                             cudaStream_t s) {
+  mma_probe_kernel<T><<<1, 32, 0, s>>>(static_cast<const T*>(a), static_cast<const T*>(b),
+                                       static_cast<const T*>(b2), c, mode);
+}
+
+extern "C" int mma_probe(const void* a, const void* b, const void* b2, float* c, int dtype,
                          int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    mma_probe_kernel<__nv_bfloat16><<<1, 32, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-        static_cast<const __nv_bfloat16*>(b2), c, mode);
+  if (dtype == 1)
+    mma_probe_launch<__nv_bfloat16>(a, b, b2, c, mode, s);
+  else if (dtype == 2)
+    mma_probe_launch<__half>(a, b, b2, c, mode, s);
   else
-    mma_probe_kernel<float><<<1, 32, 0, s>>>(static_cast<const float*>(a),
-                                             static_cast<const float*>(b),
-                                             static_cast<const float*>(b2), c, mode);
+    mma_probe_launch<float>(a, b, b2, c, mode, s);
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ import math
 
 import torch
 
-from . import LAUNCHES, fp16_note
+from . import CAUSAL_LAUNCHES, LAUNCHES, dtype_code
 from ._build import load
 
 NEG_INF = -1e30
@@ -204,12 +204,12 @@ def tf32_round(x):
 
 def _mma(a, b):
     """a @ b as the kernels' tensor cores make it, in float32. float32
-    inputs: 3xTF32 (a = hi + lo, hi*hi + hi*lo + lo*hi); bf16 inputs:
-    exact products. The TF32 products are exact in float64, where they are
+    inputs: 3xTF32 (a = hi + lo, hi*hi + hi*lo + lo*hi); bf16 and fp16
+    inputs: exact products. The TF32 products are exact in float64, where they are
     summed, and the sum rounds once to float32 (the card's fp32
     accumulation rounds at each step, a difference far below the
     tolerances)."""
-    if a.dtype == torch.bfloat16:
+    if a.dtype in (torch.bfloat16, torch.float16):
         return torch.matmul(a.double(), b.double()).float()
     ah, bh = tf32_round(a), tf32_round(b)
     al, bl = tf32_round(a - ah), tf32_round(b - bh)
@@ -360,11 +360,10 @@ def _check_inputs(name, q, k, v, bias, dropout, layout, more=()):
     b, h, sq, sk, d = _dims(q, k, layout)
     if not (q.is_cuda and all(t.device == q.device for t in (k, v, *more))):
         raise ValueError(f"{name}: every tensor must be a CUDA tensor on one device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or not (
+    if q.dtype not in (torch.float32, torch.bfloat16, torch.float16) or not (
             k.dtype == v.dtype == q.dtype):
-        raise TypeError(f"{name}: q, k, v must share dtype float32 or bfloat16, "
-                        f"got {q.dtype}, {k.dtype}, {v.dtype}"
-                        + fp16_note(q.dtype, k.dtype, v.dtype))
+        raise TypeError(f"{name}: q, k, v must share dtype float32, bfloat16 or float16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     kshape = (b, sk, h, d) if layout == "bshd" else (b, h, sk, d)
     if q.dim() != 4 or tuple(k.shape) != kshape or tuple(v.shape) != kshape:
         raise ValueError(f"{name}: k and v must be {kshape} for q {tuple(q.shape)}")
@@ -403,7 +402,7 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 None if bias is None else bias.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), int(q.dtype == torch.bfloat16),
+                out.data_ptr(), lse.data_ptr(), dtype_code(q.dtype),
                 b, h, sq, sk, d, strides, float(sm_scale), int(bool(causal)),
                 int(dropout > 0.0), float(_drop_scale(name, dropout)),
                 _dropout_thresh(dropout) if dropout > 0.0 else 0,
@@ -411,6 +410,7 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+    CAUSAL_LAUNCHES[name] += bool(causal)
     return out, lse
 
 
@@ -463,7 +463,7 @@ def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, drop
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), int(q.dtype == torch.bfloat16), b, h, sq, sk, d, strides,
+            dv.data_ptr(), dtype_code(q.dtype), b, h, sq, sk, d, strides,
             float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
             _dropout_thresh(dropout) if dropout > 0.0 else 0, int(seed) & 0xFFFFFFFF,
@@ -471,6 +471,7 @@ def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, drop
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+    CAUSAL_LAUNCHES[name] += bool(causal)
     return dq, dk, dv
 
 

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, fp16_note
+from . import LAUNCHES, dtype_code
 from ._build import load
 
 __all__ = ["LnGeometry", "ln_bwd", "ln_bwd_geometry", "ln_bwd_plain", "ln_bwd_plan"]
@@ -63,7 +63,9 @@ def ln_bwd_plain(x2, dy2, mean, rstd, scale):
     (dx [n, k] in x2's dtype, dscale [k] float32, dbias [k] float32), in
     float64 inside (the function of `_kernel`, layer_norm.py:23-35). With
     bf16 x the dscale terms are bf16(dy) * bf16(nrm), as the JAX package's
-    layer_norm_grad computes them for bf16 X (nn_ops.py:598-605)."""
+    layer_norm_grad computes them for bf16 X (nn_ops.py:598-605); fp16 x
+    keeps the unrounded terms dy * nrm, as that lowering and the Pallas
+    kernel do for every X but bf16."""
     x = x2.double()
     dy = dy2.double()
     nrm = (x - mean.double()[:, None]) * rstd.double()[:, None]
@@ -93,11 +95,11 @@ def _lib():
 
 
 @functools.cache
-def _max_blocks(lib, is_bf16: int, geo: LnGeometry, k: int, device: int) -> int:
+def _max_blocks(lib, dtype: int, geo: LnGeometry, k: int, device: int) -> int:
     """The most blocks of the geometry's kernel the device holds at once."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = lib.layer_norm_bwd_max_blocks(is_bf16, int(geo.vec > 1), geo.vpl, geo.warps, k,
+        rc = lib.layer_norm_bwd_max_blocks(dtype, int(geo.vec > 1), geo.vpl, geo.warps, k,
                                            ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"layer_norm_bwd: no grid for {geo} at k {k}: cudaError {rc}")
@@ -110,7 +112,7 @@ def ln_bwd_plan(x2, dy2, scale) -> tuple[LnGeometry, int]:
     n, k = x2.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (x2, dy2, scale))
     geo = ln_bwd_geometry(k, x2.dtype, aligned)
-    cap = _max_blocks(_lib(), int(x2.dtype == torch.bfloat16), geo, k, x2.device.index or 0)
+    cap = _max_blocks(_lib(), dtype_code(x2.dtype), geo, k, x2.device.index or 0)
     return geo, min(-(-n // geo.warps), cap)
 
 
@@ -121,10 +123,9 @@ def ln_bwd(x2, dy2, mean, rstd, scale):
     if x2.device.type == "cpu":
         return ln_bwd_plain(x2, dy2, mean, rstd, scale)
     n, k = x2.shape
-    if x2.dtype not in (torch.float32, torch.bfloat16) or dy2.dtype != x2.dtype:
-        raise TypeError("layer_norm_bwd: x and dy must share dtype float32 or "
-                        f"bfloat16, got {x2.dtype}, {dy2.dtype}"
-                        + fp16_note(x2.dtype, dy2.dtype))
+    if x2.dtype not in (torch.float32, torch.bfloat16, torch.float16) or dy2.dtype != x2.dtype:
+        raise TypeError("layer_norm_bwd: x and dy must share dtype float32, bfloat16 or "
+                        f"float16, got {x2.dtype}, {dy2.dtype}")
     for name, t, shape in (("x", x2, (n, k)), ("dy", dy2, (n, k)), ("mean", mean, (n,)),
                            ("rstd", rstd, (n,)), ("scale", scale, (k,))):
         if tuple(t.shape) != shape or not t.is_contiguous() or t.device != x2.device:
@@ -141,7 +142,7 @@ def ln_bwd(x2, dy2, mean, rstd, scale):
         out = torch.empty((2, k), dtype=torch.float32, device=x2.device)
         rc = _lib().layer_norm_bwd(
             x2.data_ptr(), dy2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), out.data_ptr(), int(x2.dtype == torch.bfloat16),
+            dx.data_ptr(), part.data_ptr(), out.data_ptr(), dtype_code(x2.dtype),
             int(geo.vec > 1), geo.vpl, geo.warps, n, k, blocks,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -20,7 +20,7 @@ import math
 
 import torch
 
-from . import LAUNCHES
+from . import CAUSAL_LAUNCHES, LAUNCHES, dtype_code
 from ._build import load
 from .flash_attention import (
     NEG_INF,
@@ -130,7 +130,7 @@ def short_attention(q, k, v, bias=None, causal=False, sm_scale=None,
                     dropout=0.0, seed=0, layout="bhsd"):
     """Short-sequence attention forward -> (out, lse). A CPU tensor runs
     the plain version. A CUDA tensor launches csrc/mha_short_fwd.cu (the
-    tensor cores: 3xTF32 for fp32, bf16 with fp32 sums) on the current
+    tensor cores: 3xTF32 for fp32, bf16 and fp16 with fp32 sums) on the current
     stream; it raises on what the kernel does not take (sq or sk > 512
     among it) and on a failed launch."""
     if q.device.type == "cpu":
@@ -226,7 +226,7 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if bias is None else bias.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), scratch.data_ptr(), int(q.dtype == torch.bfloat16), b, h, sq,
+            dv.data_ptr(), scratch.data_ptr(), dtype_code(q.dtype), b, h, sq,
             sk, d, strides, float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
             _dropout_thresh(dropout) if dropout > 0.0 else 0, int(seed) & 0xFFFFFFFF,
@@ -234,4 +234,5 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+    CAUSAL_LAUNCHES[name] += bool(causal)
     return dq, dk, dv

@@ -80,6 +80,20 @@ def _reduce_to_y(d, x, y, axis):
     return out.reshape(y.shape)
 
 
+def _sum_to_x(d, x):
+    """The cotangent summed down to x's shape where x broadcast against y
+    (a [b, 1, 1, t] padding bias plus a [1, 1, t, t] causal one). The JAX
+    lowering passes d through unreduced there (paddle_tpu/ops/math_ops.py
+    :131), which only its dead-op pass keeps from failing: no such grad is
+    live in its Programs."""
+    if tuple(d.shape) == tuple(x.shape):
+        return d
+    lead = d.dim() - x.dim()
+    red = tuple(range(lead)) + tuple(lead + i for i, n in enumerate(x.shape)
+                                     if n == 1 and d.shape[lead + i] != 1)
+    return d.float().sum(dim=red, keepdim=True).reshape(x.shape)
+
+
 def _ew_add_sub_grad(sign):
     def lower(ctx, op):
         d = ctx.in_(op, "GRAD_Out")
@@ -88,7 +102,7 @@ def _ew_add_sub_grad(sign):
         scale = op.attr("Scale_out", 1.0)
         if scale != 1.0:
             d = d * scale
-        ctx.out(op, "IGRAD_X", d.to(x.dtype))
+        ctx.out(op, "IGRAD_X", _sum_to_x(d, x).to(x.dtype))
         dy = _reduce_to_y(d, x, y, op.attr("axis", -1))
         ctx.out(op, "IGRAD_Y", (dy if sign > 0 else -dy).to(y.dtype))
 

@@ -1,6 +1,6 @@
 """Shape, creation and indexing op lowerings: reshape2, transpose,
 transpose2, split, slice, fill_constant, fill_constant_batch_size_like,
-assign, gather and the random
+assign, assign_value, gather and the random
 initializers of the startup program. Random ops draw from an
 explicit torch.Generator on the context's device: their values differ
 from the JAX package's threefry streams, so parity tests carry weights
@@ -102,6 +102,16 @@ def _assign(ctx, op):
     """An alias of X, not a copy: no lowering on the port's paths writes a
     tensor in place, so the two names may share one."""
     ctx.out(op, "Out", ctx.in_(op, "X"))
+
+
+@register_op("assign_value", differentiable=False)
+def _assign_value(ctx, op):
+    """The attr's values (`fp32_values`, `int32_values` or `values`) as a
+    tensor of `dtype` and `shape` (tensor_ops.py:415-420 there)."""
+    values = op.attr("fp32_values") or op.attr("int32_values") or op.attr("values")
+    out = torch.as_tensor(np.array(values), device=ctx.device)
+    ctx.out(op, "Out", out.to(TORCH_DTYPE(op.attr("dtype", "float32")))
+            .reshape(tuple(op.attr("shape"))))
 
 
 @register_op("gather", no_grad_inputs=("Index",))

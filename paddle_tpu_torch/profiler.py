@@ -1,0 +1,38 @@
+"""Named counters, the part of `paddle_tpu/profiler.py` (:30-60, 196-198)
+the ported slices call: `bump_counter`, `set_counter` and `counters`,
+always on and guarded by one lock (server threads bump concurrently). The
+Transformer's incremental decode bumps `cross_kv_reuse` once for each
+decoder layer whose cross-attention K/V arrive as feeds. The spans,
+tables and `CounterSet` come with the server slice (ROADMAP Queue 1,
+item 5)."""
+
+from __future__ import annotations
+
+import threading
+from collections import defaultdict
+
+__all__ = ["bump_counter", "set_counter", "counters"]
+
+_counters: dict[str, int] = defaultdict(int)  # monotonic named counts
+# the read-modify-write below is not atomic under the GIL
+_counters_lock = threading.Lock()
+
+
+def bump_counter(name: str, amount: int = 1) -> int:
+    """Add `amount` to the counter `name` -> its new value."""
+    with _counters_lock:
+        _counters[name] += amount
+        return _counters[name]
+
+
+def set_counter(name: str, value: int) -> int:
+    """Set the counter `name` to `value` (a gauge) -> that value."""
+    with _counters_lock:
+        _counters[name] = int(value)
+        return _counters[name]
+
+
+def counters() -> dict:
+    """A copy of every counter."""
+    with _counters_lock:
+        return dict(_counters)

@@ -27,8 +27,10 @@ tests/test_torch_resnet.py.
 
 The `gpu` tests (`python -m pytest -m gpu --noconftest
 tests/test_torch_bert_pretrain.py` on the card) check that an fp16 input
-to each kernel raises TypeError naming the ROADMAP entry, and run the
-bhsd BERT-tiny card against CPU."""
+to kernels #1-#8 runs their fp16 versions and agrees with the plain
+versions within one fp16 ulp, that it still raises TypeError naming the
+ROADMAP entry at the fused-block kernels (#9-#10), and run the bhsd
+BERT-tiny card against CPU."""
 
 import importlib
 import json
@@ -40,6 +42,7 @@ import torch
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch.ops.kernels import LAUNCHES
 from paddle_tpu_torch.scope import to_numpy
+from test_torch_kernels import fp16_ulp
 
 TINY = dict(vocab_size=128, hidden_size=64, num_layers=2, num_heads=4,
             intermediate_size=128, max_position=64)
@@ -301,34 +304,70 @@ def cuda_device():
 
 @pytest.mark.gpu
 def test_cuda_fp16_input_to_each_kernel_raises(cuda_device):
+    """An fp16 input on the card: kernels #1-#8 (attention and LayerNorm
+    backward) launch their fp16 versions and agree with their plain
+    versions within one fp16 ulp of each output's largest magnitude; the
+    fused-block kernels (#9-#10) still raise TypeError naming ROADMAP's
+    "fp16 for #9-#10" line and launch nothing."""
     from paddle_tpu_torch.ops.kernels import fused_block as fb
-    from paddle_tpu_torch.ops.kernels.flash_attention import (flash_attention,
-                                                              flash_attention_bwd)
-    from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd
-    from paddle_tpu_torch.ops.kernels.mha_short import short_attention, short_attention_bwd
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        attention_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from paddle_tpu_torch.ops.kernels.layer_norm import ln_bwd, ln_bwd_plain
+    from paddle_tpu_torch.ops.kernels.mha_short import (
+        short_attention, short_attention_bwd, short_attention_bwd_plain,
+        short_attention_plain)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def t(*shape, dtype=torch.float16):
-        return torch.randn(*shape, device=cuda_device, dtype=dtype)
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dtype)
 
-    q = t(2, 4, 64, 32)
-    lse = t(2, 4, 64, dtype=torch.float32)
+    q, k, v, do = t(2, 4, 64, 32), t(2, 4, 64, 32), t(2, 4, 64, 32), t(2, 4, 64, 32)
+    x, dy = t(8, 64), t(8, 64)
+    xf = x.float()
+    mean, rstd = xf.mean(1), torch.rsqrt(xf.var(1, unbiased=False) + 1e-5)
+    scale = t(64, dtype=torch.float32)
+
+    def bwd(fwd, fn):
+        out, lse = fwd(q, k, v, causal=True)
+        return lambda: fn(q, k, v, None, do, lse, attention_delta(out, do, "bhsd"), causal=True)
+
     calls = {
-        "mha_short_fwd": lambda: short_attention(q, q, q),
-        "mha_short_bwd": lambda: short_attention_bwd(q, q, q, None, q, lse, lse),
-        "flash_fwd": lambda: flash_attention(q, q, q),
-        "flash_bwd": lambda: flash_attention_bwd(q, q, q, None, q, lse, lse),
-        "layer_norm_bwd": lambda: ln_bwd(t(8, 64), t(8, 64), lse[0, 0, :8].contiguous(),
-                                         lse[0, 0, :8].contiguous(),
-                                         t(64, dtype=torch.float32)),
+        "mha_short_fwd": (lambda: short_attention(q, k, v, causal=True),
+                          lambda: short_attention_plain(q, k, v, causal=True)),
+        "mha_short_bwd": (bwd(short_attention_plain, short_attention_bwd),
+                          bwd(short_attention_plain, short_attention_bwd_plain)),
+        "flash_fwd": (lambda: flash_attention(q, k, v, causal=True),
+                      lambda: flash_attention_plain(q, k, v, causal=True)),
+        "flash_bwd": (bwd(flash_attention_plain, flash_attention_bwd),
+                      bwd(flash_attention_plain, flash_attention_bwd_plain)),
+        "layer_norm_bwd": (lambda: ln_bwd(x, dy, mean, rstd, scale),
+                           lambda: ln_bwd_plain(x, dy, mean, rstd, scale)),
+    }
+    raises = {
         "fused_prologue_conv1x1": lambda: fb.fused_prologue_conv1x1(
             t(64, 64), t(64, dtype=torch.float32), t(64, dtype=torch.float32), t(64, 64),
             t(64, 64)),
         "conv1x1_with_stats": lambda: fb.conv1x1_with_stats(t(64, 64), t(64, 64)),
     }
-    assert sorted(calls) == sorted(LAUNCHES)
+    assert sorted([*calls, *raises]) == sorted(LAUNCHES)
+    for name, (call, plain) in calls.items():
+        before = LAUNCHES[name]
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        assert LAUNCHES[name] == before + 1, name
+        for g, r in zip(got, ref):
+            if g.dtype == torch.float16:
+                err = float((g.float() - r.float()).abs().max())
+                assert err <= fp16_ulp(r.float().cpu().numpy()), (name, err)
+            else:  # lse, dscale, dbias: float32
+                np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                           atol=1e-4 * max(1.0, float(r.abs().max())),
+                                           rtol=0, err_msg=name)
     before = dict(LAUNCHES)
-    for name, call in calls.items():
-        with pytest.raises(TypeError, match="fp16 versions of kernels"):
+    for name, call in raises.items():
+        with pytest.raises(TypeError, match="fp16 for #9-#10"):
             call()
     assert LAUNCHES == before
 

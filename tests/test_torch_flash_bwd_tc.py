@@ -56,6 +56,7 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
 )
 from test_torch_flash_fwd_tc import EDGE_CASES, _edge_id, steady_torch_cpu  # noqa: F401
 from test_torch_kernels import CASES as FWD_CASES
+from test_torch_kernels import fp16_ulp
 from test_torch_short_bwd_tc import _single_pass_tf32
 from test_torch_training_kernels import CASES as BWD_CASES
 from test_torch_training_kernels import KEY_SEED, _inputs, _jax_grads
@@ -88,13 +89,17 @@ def _args(case, device="cpu"):
     return (qt, kt, vt, bt, dot, lse, attention_delta(out, dot, layout)), kw
 
 
-def _tol(dtype):
+def _tol(dtype, ref=None):
+    """fp32: summation order; bf16 one bf16 ulp; fp16 one fp16 ulp of
+    `ref`'s largest magnitude."""
+    if dtype == "float16":
+        return dict(atol=fp16_ulp(ref), rtol=0)
     return GPU_TOL if dtype == "float32" else BF16_TOL
 
 
 def _assert_close_on_card(got, ref, dtype):
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
-    tol = dict(BF16_TOL)
+    tol = dict(BF16_TOL) if dtype == "bfloat16" else _tol(dtype, ref)
     if dtype == "float32":
         tol = dict(atol=1e-5 * max(1.0, float(np.abs(ref).max())), rtol=1e-5)
     np.testing.assert_allclose(got, ref, **tol)
@@ -117,7 +122,8 @@ def _check_against_plain(case):
         if dtype == "float32":
             assert _gpu_margin(m, p) <= 0.5
         else:
-            np.testing.assert_allclose(m.float().numpy(), p.float().numpy(), **BF16_TOL)
+            p = p.float().numpy()
+            np.testing.assert_allclose(m.float().numpy(), p, **_tol(dtype, p))
     return mirror
 
 
@@ -135,7 +141,7 @@ def test_mirror_matches_pallas_kernels(case, monkeypatch):
     ref = _jax_grads("flash", q, k, v, do, bias, causal, kw["sm_scale"], dropout, layout,
                      dtype)
     for m, r in zip(flash_attention_bwd_mirror(*args, **kw), ref):
-        np.testing.assert_allclose(m.float().numpy(), r, **_tol(dtype))
+        np.testing.assert_allclose(m.float().numpy(), r, **_tol(dtype, r))
 
 
 @pytest.mark.parametrize("case", EDGE_CASES, ids=_edge_id)
@@ -187,7 +193,7 @@ def _with_dtype(case, dtype):
 
 
 CUDA_CASES = list(dict.fromkeys(
-    [_with_dtype(c, dt) for c in MIRROR_CASES for dt in ("float32", "bfloat16")]
+    [_with_dtype(c, dt) for c in MIRROR_CASES for dt in ("float32", "bfloat16", "float16")]
     + EDGE_CASES))
 
 
@@ -204,7 +210,7 @@ def test_cuda_flash_bwd_matches_plain(case, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_flash_bwd_strided_views(dtype, cuda_device):
     """q, k, v and dO as views into wider bshd tensors (rows not 16-byte
     aligned): the kernel's scalar copies."""
@@ -218,7 +224,7 @@ def test_cuda_flash_bwd_strided_views(dtype, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_flash_bwd_is_deterministic(dtype, cuda_device):
     """No atomics: two launches on the same inputs agree bit for bit."""
     args, kw = _args(("bhsd", 2, 4, 700, 900, 64, True, True, dtype, 0.2), cuda_device)

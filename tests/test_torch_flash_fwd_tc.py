@@ -31,7 +31,8 @@ from paddle_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd_mirror,
     flash_attention_plain,
 )
-from test_torch_kernels import CASES, SEED, _case_id, _inputs, _jax_flash, _torch_inputs
+from test_torch_kernels import (CASES, SEED, _case_id, _inputs, _jax_flash, _tol,
+                                _torch_inputs, fp16_ulp)
 from test_torch_short_bwd_tc import _single_pass_tf32
 
 # the flash cases of the kernel tests (every row has a live key), and the
@@ -53,9 +54,18 @@ EDGE_SHAPES = [
     ("bhsd", 1, 2, 513, 1000, 64, True, True),
 ]
 EDGE_CASES = [(*s, dtype, dropout) for s in EDGE_SHAPES
-              for dtype in ("float32", "bfloat16") for dropout in (0.0, 0.2)]
+              for dtype in ("float32", "bfloat16") for dropout in (0.0, 0.2)] + [
+    (*s, "float16", 0.2) for s in EDGE_SHAPES[:2]]
 GPU_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 on the card: summation order only
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _atol(dtype, ref):
+    """ATOL[dtype]; fp16: one fp16 ulp of the largest magnitude of an fp16
+    output, the fp32 gate for a float32 one (lse)."""
+    if dtype != "float16":
+        return ATOL[dtype]
+    return ATOL["float32"] if ref.dtype == torch.float32 else fp16_ulp(ref.float().numpy())
 
 
 def _edge_id(c):
@@ -97,9 +107,9 @@ def test_mirror_matches_plain(case):
     out, lse = _run(flash_attention_fwd_mirror, *args)
     ref_out, ref_lse = _run(flash_attention_plain, *args)
     assert out.dtype == getattr(torch, dtype) and out.shape == q.shape
-    np.testing.assert_allclose(out.float().numpy(), ref_out.float().numpy(), atol=ATOL[dtype],
-                               rtol=0)
-    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=ATOL[dtype], rtol=0)
+    np.testing.assert_allclose(out.float().numpy(), ref_out.float().numpy(),
+                               atol=_atol(dtype, ref_out), rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=_atol(dtype, ref_lse), rtol=0)
     if dtype == "float32":  # 3xTF32 keeps well inside the card's fp32 tolerance
         assert _gpu_margin(out, ref_out) <= 0.1 and _gpu_margin(lse, ref_lse) <= 0.1
 
@@ -113,8 +123,10 @@ def test_mirror_matches_pallas_kernel(case, monkeypatch):
                                   dtype)
     out, lse = _run(flash_attention_fwd_mirror, q, k, v, bias, causal, dtype, dropout, layout)
     tol = GPU_TOL if dtype == "float32" else dict(atol=2e-2, rtol=0)
+    if dtype == "float16":
+        tol = dict(atol=fp16_ulp(ref_out), rtol=0)
     np.testing.assert_allclose(out.float().numpy(), ref_out, **tol)
-    np.testing.assert_allclose(lse.numpy(), ref_lse, **tol)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, **(GPU_TOL if dtype == "float16" else tol))
 
 
 @pytest.mark.parametrize("s", [512, 2048])
@@ -140,9 +152,10 @@ def test_mirror_edges_match_plain(case):
     args = (q, k, v, bias, causal, dtype, dropout, layout)
     out, lse = _run(flash_attention_fwd_mirror, *args)
     ref_out, ref_lse = _run(flash_attention_plain, *args)
-    np.testing.assert_allclose(out.float().numpy(), ref_out.float().numpy(), atol=ATOL[dtype],
-                               rtol=0)
-    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=ATOL[dtype], rtol=1e-6)
+    np.testing.assert_allclose(out.float().numpy(), ref_out.float().numpy(),
+                               atol=_atol(dtype, ref_out), rtol=0)
+    np.testing.assert_allclose(lse.numpy(), ref_lse.numpy(), atol=_atol(dtype, ref_lse),
+                               rtol=1e-6)
     if dtype == "float32":
         assert _gpu_margin(out, ref_out) <= 0.1
     if causal and sq > sk:
@@ -165,10 +178,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _cuda_tol(dtype):
-    return GPU_TOL if dtype == "float32" else dict(atol=2e-2, rtol=0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", EDGE_CASES, ids=_edge_id)
 def test_cuda_flash_fwd_edges_match_plain(case, cuda_device):
@@ -180,13 +189,13 @@ def test_cuda_flash_fwd_edges_match_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES["flash_fwd"] == before + 1
     ref_out, ref_lse = _run(flash_attention_plain, *args)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().cpu().numpy(),
-                               **_cuda_tol(dtype))
-    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_cuda_tol(dtype))
+    ref_out = ref_out.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out, **_tol(dtype, ref_out))
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_tol(dtype))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_flash_fwd_strided_views(dtype, cuda_device):
     """q, k, v as views into a wider bshd tensor (rows not 16-byte
     aligned): the kernel's scalar copies."""
@@ -198,13 +207,13 @@ def test_cuda_flash_fwd_strided_views(dtype, cuda_device):
     kw = dict(bias=bt, causal=True, dropout=0.2, seed=SEED, layout="bshd")
     out, lse = flash_attention(*views, **kw)
     ref_out, ref_lse = flash_attention_plain(*views, **kw)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().cpu().numpy(),
-                               **_cuda_tol(dtype))
-    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_cuda_tol(dtype))
+    ref_out = ref_out.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out, **_tol(dtype, ref_out))
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_tol(dtype))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_flash_fwd_is_deterministic(dtype, cuda_device):
     """No atomics: two launches on the same inputs agree bit for bit."""
     q, k, v, bias = _inputs("bhsd", 2, 4, 700, 900, 64, True)

@@ -41,6 +41,8 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.contrib.mixed_precision\n"
         "import paddle_tpu_torch.ops.kernels.fused_block\n"
         "import paddle_tpu_torch.clip, paddle_tpu_torch.regularizer, paddle_tpu_torch.layers.ops\n"
+        "import paddle_tpu_torch.decoding, paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.models.transformer\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )

@@ -9,7 +9,9 @@ tests hold each CUDA kernel against its plain version on the card and
 skip without one.
 
 Tolerances: fp32 atol 1e-5 / rtol 1e-5 (summation order only); bf16
-atol 2e-2 (about one bf16 ulp of the outputs).
+atol 2e-2 (about one bf16 ulp of the outputs); fp16 one fp16 ulp of the
+outputs' largest magnitude (p rounds to fp16 before P V on both sides,
+and may round the other way), lse (float32) at the fp32 gate.
 
 The card has no JAX, so this file imports the JAX package inside the CPU
 tests only; on the card run
@@ -47,6 +49,11 @@ CASES = [
     ("flash", "bshd", 1, 2, 100, 150, 64, True, True, "bfloat16", 0.0),
     ("flash", "bhsd", 2, 2, 128, 128, 64, True, False, "float32", 0.2),
     ("flash", "bshd", 1, 2, 64, 77, 32, True, True, "bfloat16", 0.2),
+    # fp16 (AMP with amp_dtype="float16"): BERT's shape, causal sq > sk
+    # with dropout, and the flash kernel bias + causal
+    ("short", "bshd", 2, 4, 128, 128, 64, True, False, "float16", 0.0),
+    ("short", "bhsd", 1, 2, 100, 77, 32, True, True, "float16", 0.2),
+    ("flash", "bhsd", 1, 2, 100, 150, 64, True, True, "float16", 0.0),
 ]
 
 
@@ -138,8 +145,22 @@ def _jax_flash(q, k, v, bias, causal, scale, dropout, layout, dtype):
     return _bhsd(out, layout), lse
 
 
-def _tol(dtype):
-    return dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=2e-2, rtol=0)
+def fp16_ulp(ref):
+    """One fp16 ulp (11 significant bits) of the largest finite magnitude
+    in `ref`."""
+    ref = np.abs(np.asarray(ref, np.float64))
+    top = float(ref[np.isfinite(ref)].max(initial=2.0**-14))
+    return float(np.exp2(np.floor(np.log2(max(top, 2.0**-14))) - 10))
+
+
+def _tol(dtype, ref=None):
+    """The gate of an output of `dtype` against `ref`; a float32 output
+    (lse) of fp16 inputs takes the fp32 gate."""
+    if dtype == "float32" or (dtype == "float16" and ref is None):
+        return dict(atol=1e-5, rtol=1e-5)
+    if dtype == "float16":
+        return dict(atol=fp16_ulp(ref), rtol=0)
+    return dict(atol=2e-2, rtol=0)
 
 
 def _torch_inputs(q, k, v, bias, dtype, device="cpu"):
@@ -184,12 +205,11 @@ def test_plain_matches_pallas_kernel(case, monkeypatch):
                        sm_scale=scale, dropout=dropout, seed=SEED, layout=layout)
     assert LAUNCHES == launches  # a CPU tensor never launches a kernel
     assert out.dtype == getattr(torch, dtype) and out.shape == q.shape
-    np.testing.assert_allclose(out.float().numpy(), ref_out, **_tol(dtype))
+    np.testing.assert_allclose(out.float().numpy(), ref_out, **_tol(dtype, ref_out))
     np.testing.assert_allclose(lse.numpy(), ref_lse, **_tol(dtype))
     if dropout == 0.0:  # the public entry points take a threefry key instead
-        np.testing.assert_allclose(
-            out.float().numpy(),
-            _jax_public(kernel, q, k, v, bias, causal, layout, dtype), **_tol(dtype))
+        pub = _jax_public(kernel, q, k, v, bias, causal, layout, dtype)
+        np.testing.assert_allclose(out.float().numpy(), pub, **_tol(dtype, pub))
 
 
 def _attention_op_program(fluid, layout, b, h, sq, sk, d, causal):
@@ -282,8 +302,8 @@ def test_cuda_kernel_matches_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES[name] == before + 1
     ref_out, ref_lse = plain_fn(*args, **kw)
-    np.testing.assert_allclose(out.float().cpu().numpy(),
-                               ref_out.float().cpu().numpy(), **_tol(dtype))
+    ref_out = ref_out.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out, **_tol(dtype, ref_out))
     np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_tol(dtype))
 
 

@@ -13,8 +13,9 @@ FMAs, the mirror does not; the tolerances below hold both.
 
 Tolerances against the plain version and the Pallas kernel: dx at
 `_tol(dtype)` (fp32 atol 1e-5 / rtol 1e-5, summation order only; bf16
-atol 2e-2, about one bf16 ulp of these gradients); dscale / dbias at atol
-1e-4 fp32 and 2e-3 bf16 (with rtol 1e-5), sums of up to 4097 fp32 terms.
+atol 2e-2, about one bf16 ulp of these gradients; fp16 one fp16 ulp of
+dx's largest magnitude); dscale / dbias at atol 1e-4 fp32 and fp16 and
+2e-3 bf16 (with rtol 1e-5), sums of up to 4097 fp32 terms.
 
 The `gpu`-marked tests hold the CUDA kernel against the plain version
 and the mirror on the card, check that two launches agree bit for bit,
@@ -42,8 +43,11 @@ from test_torch_training_kernels import LN_CASES, _ln_inputs, _tol, _torch
 # register path's widest); 4096 and 6144 (the general path)
 SHAPES = sorted({(n, k) for n, k, _ in LN_CASES}) + [
     (1, 768), (4097, 768), (64, 33), (64, 100), (256, 1024), (64, 4096), (32, 6144)]
-CASES = [(n, k, dtype) for n, k in SHAPES for dtype in ("float32", "bfloat16")]
-SUM_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=2e-3, rtol=1e-5)}
+CASES = [(n, k, dtype) for n, k in SHAPES for dtype in ("float32", "bfloat16")] + [
+    (512, 768, "float16"), (64, 100, "float16"), (64, 4096, "float16")]
+# fp16 keeps the unrounded dscale terms, as fp32 does
+SUM_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=2e-3, rtol=1e-5),
+           "float16": dict(atol=1e-4, rtol=1e-5)}
 H100_SMS = 132  # the mirror's grid as on an H100 SXM holding one block an SM
 
 
@@ -141,7 +145,8 @@ def _inputs(n, k, dtype, device="cpu"):
 
 
 def _assert_close(got, ref, dtype, sums_tol=None):
-    tols = (_tol(dtype), sums_tol or SUM_TOL[dtype], sums_tol or SUM_TOL[dtype])
+    tols = (_tol(dtype, ref[0].float().cpu().numpy()), sums_tol or SUM_TOL[dtype],
+            sums_tol or SUM_TOL[dtype])
     for g, r, tol in zip(got, ref, tols):
         assert g.shape == r.shape
         np.testing.assert_allclose(g.float().cpu().numpy(), r.float().cpu().numpy(), **tol)
@@ -212,7 +217,7 @@ def test_mirror_matches_pallas_kernel(case, monkeypatch):
     _assert_close(got, [torch.from_numpy(np.array(r)) for r in ref], dtype)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_mirror_unaligned_scalar_loads(dtype):
     """Tensors that do not start on 16 bytes: the kernel's scalar loads,
     whose lanes take one column each."""
@@ -269,7 +274,7 @@ def test_cuda_ln_bwd_matches_plain_and_mirror(case, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("n, k", [(1024, 768), (4097, 768), (1100, 128), (64, 33),
                                   (64, 4096), (32, 6144)])
 def test_cuda_ln_bwd_is_deterministic(n, k, dtype, cuda_device):
@@ -292,7 +297,7 @@ def test_cuda_ln_bwd_is_one_kernel(n, k, dtype, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_ln_bwd_unaligned_inputs(dtype, cuda_device):
     """x and dy whose storage offset leaves them off 16 bytes take the
     scalar loads, on the kernel and not the plain version."""

@@ -650,8 +650,9 @@ def test_custom_black_list_keeps_fp32():
 def test_fp16_and_loss_scaling_raise(kwargs):
     """fp16 AMP and loss scaling are ported: `decorate` takes them, and
     `minimize` appends the finite gate and, under dynamic scaling (fp16's
-    default), the window op. What still raises is an fp16 input to a
-    kernel on the card: each kernel's dtype check adds the ROADMAP note
+    default), the window op. What still raises is an fp16 input to the
+    fused-block kernels (#9-#10) on the card: their dtype check adds the
+    note naming ROADMAP's "fp16 for #9-#10" line
     (tests/test_torch_bert_pretrain.py holds that on the card)."""
     import torch
 
@@ -668,7 +669,7 @@ def test_fp16_and_loss_scaling_raise(kwargs):
     assert "check_finite_and_unscale" in types and "momentum" in types
     assert ("update_loss_scaling" in types) == dynamic
     assert main._amp_dtype == kwargs.get("amp_dtype", "bfloat16")
-    assert "fp16 versions of kernels" in fp16_note(torch.float16)
+    assert "fp16 for #9-#10" in fp16_note(torch.float16)
     assert fp16_note(torch.bfloat16, torch.float32) == ""
 
 

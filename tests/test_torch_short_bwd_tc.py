@@ -22,13 +22,14 @@ import pytest
 import torch
 
 from paddle_tpu_torch.ops import prng
-from paddle_tpu_torch.ops.kernels import mha_short
+from paddle_tpu_torch.ops.kernels import dtype_code, mha_short
 from paddle_tpu_torch.ops.kernels.flash_attention import attention_delta, tf32_round
 from paddle_tpu_torch.ops.kernels.mha_short import (
     short_attention,
     short_attention_bwd_mirror,
     short_attention_bwd_plain,
 )
+from test_torch_kernels import fp16_ulp
 from test_torch_training_kernels import CASES, KEY_SEED, _case_id, _inputs, _jax_grads
 
 # the six fp32 short cases of the training-kernel tests, and BERT-base's
@@ -37,6 +38,7 @@ MIRROR_CASES = [c for c in CASES if c[0] == "short" and c[9] == "float32"] + [
     ("short", "bshd", 2, 12, 128, 128, 64, True, False, "float32", 0.1),
 ]
 BF16_CASES = [c for c in CASES if c[0] == "short" and c[9] == "bfloat16"]
+FP16_CASES = [c for c in CASES if c[0] == "short" and c[9] == "float16"]
 ATOL = 1e-4
 
 
@@ -79,6 +81,19 @@ def test_mirror_bf16_matches_plain(case):
                     short_attention_bwd_plain(*args, **kw)):
         assert m.dtype == torch.bfloat16
         np.testing.assert_allclose(m.float().numpy(), p.float().numpy(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("case", FP16_CASES, ids=_case_id)
+def test_mirror_fp16_matches_plain(case):
+    """fp16: exact products, fp32 sums; p_drop and dS rounded to fp16 as in
+    the plain version, so the two differ by one fp16 ulp of each grad's
+    largest magnitude at most."""
+    args, kw, _ = _run(case)
+    for m, p in zip(short_attention_bwd_mirror(*args, **kw),
+                    short_attention_bwd_plain(*args, **kw)):
+        assert m.dtype == torch.float16
+        p = p.float().numpy()
+        np.testing.assert_allclose(m.float().numpy(), p, atol=fp16_ulp(p), rtol=0)
 
 
 def _single_pass_tf32(a, b):
@@ -141,7 +156,7 @@ def mma_probe(tmp_path_factory):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("mode", [0, 1, 2])
 def test_cuda_mma_fragment_layouts(dtype, mode, cuda_device, mma_probe):
     """One 16 x 8 tile through each loader pair of mma_common.cuh:
@@ -157,7 +172,7 @@ def test_cuda_mma_fragment_layouts(dtype, mode, cuda_device, mma_probe):
                 for _ in range(3))
     c = torch.empty(16, 8, dtype=torch.float32, device=cuda_device)
     rc = fn(a.data_ptr(), b.data_ptr(), b2.data_ptr(), c.data_ptr(),
-            int(dtype == "bfloat16"), mode, torch.cuda.current_stream().cuda_stream)
+            dtype_code(tdt), mode, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert rc == 0
     a64, b64, b264 = (t.double() for t in (a, b, b2))
@@ -169,6 +184,8 @@ def test_cuda_mma_fragment_layouts(dtype, mode, cuda_device, mma_probe):
         c1 = (a64 @ b64.T).float()
         ref = c1.to(tdt).double() @ b264[:, :8]
     tol = 1e-5 * max(1.0, float(ref.abs().max()))
-    if dtype == "bfloat16" and mode == 2:
-        tol = 2e-2 * float(ref.abs().max())  # the first product's fp32 sums round to bf16
+    if dtype != "float32" and mode == 2:
+        # the first product's fp32 sums round to the 16-bit type: one ulp
+        # of its significand (8 bits bf16, 11 fp16) of the largest |ref|
+        tol = 2.0 ** (1 - {"bfloat16": 8, "float16": 11}[dtype]) * float(ref.abs().max())
     np.testing.assert_allclose(c.double().cpu().numpy(), ref.cpu().numpy(), atol=tol, rtol=0)

@@ -36,7 +36,7 @@ from paddle_tpu_torch.ops.kernels.mha_short import (
     short_attention_fwd_mirror,
     short_attention_plain,
 )
-from test_torch_kernels import SEED, _inputs, _jax_short, _torch_inputs
+from test_torch_kernels import SEED, _inputs, _jax_short, _tol, _torch_inputs
 from test_torch_short_bwd_tc import _single_pass_tf32
 
 # (layout, b, h, sq, sk, d, bias, causal, dtype, dropout): BERT's shape at
@@ -59,10 +59,13 @@ CASES = [
     ("bshd", 1, 2, 300, 500, 40, True, True, "float32", 0.0),
     ("bshd", 2, 2, 77, 77, 36, False, False, "bfloat16", 0.0),
     ("bhsd", 1, 3, 1, 200, 64, True, False, "float32", 0.0),
+    ("bshd", 2, 4, 128, 128, 64, True, False, "float16", 0.0),
+    ("bhsd", 1, 2, 100, 77, 64, True, True, "float16", 0.2),
 ]
 # the cases held against the Pallas kernels as well (interpret mode)
-PALLAS_CASES = [CASES[i] for i in (0, 1, 3, 4, 5, 6, 8, 10)]
+PALLAS_CASES = [CASES[i] for i in (0, 1, 3, 4, 5, 6, 8, 10, 14, 15)]
 GPU_TOL = dict(atol=1e-5, rtol=1e-5)  # fp32 on the card: summation order only
+_BITS = {"bfloat16": 8, "float16": 11}  # significant bits of the 16-bit types
 
 
 def _id(c):
@@ -96,13 +99,14 @@ def _gpu_margin(got, ref):
     return float(((got - ref).abs() / (1e-5 + 1e-5 * ref.abs())).max())
 
 
-def _assert_within_bf16_ulp(got, ref):
+def _assert_within_bf16_ulp(got, ref, bits=8):
     """|got - ref| <= one bf16 ulp of the outputs' largest magnitude (bf16
-    keeps 8 significant bits: ulp(x) = 2^(floor(log2 |x|) - 7)). An output
-    is a p-weighted mean of V, and p rounds to bf16 under another max, so
-    an output's error is on the scale of V, not of itself."""
+    keeps 8 significant bits: ulp(x) = 2^(floor(log2 |x|) - 7); fp16,
+    bits=11, 2^(floor(log2 |x|) - 10)). An output is a p-weighted mean of
+    V, and p rounds to the 16-bit type under another max, so an output's
+    error is on the scale of V, not of itself."""
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
-    ulp = np.exp2(np.floor(np.log2(np.abs(ref).max())) - 7)
+    ulp = np.exp2(np.floor(np.log2(np.abs(ref).max())) - (bits - 1))
     err = float(np.abs(got - ref).max())
     assert err <= ulp, (err, ulp)
 
@@ -119,7 +123,7 @@ def test_mirror_matches_plain(case):
     if dtype == "float32":  # 3xTF32 keeps well inside the card's fp32 tolerance
         assert _gpu_margin(out, ref_out) <= 0.1 and _gpu_margin(lse, ref_lse) <= 0.1
     else:
-        _assert_within_bf16_ulp(out.float().numpy(), ref_out.float().numpy())
+        _assert_within_bf16_ulp(out.float().numpy(), ref_out.float().numpy(), _BITS[dtype])
     if causal and sq > sk:  # rows 0 .. sq - sk - 1 see no key: 0, lse NEG_INF / 8
         dead = (slice(None), slice(0, sq - sk)) if layout == "bshd" else (
             slice(None), slice(None), slice(0, sq - sk))
@@ -138,7 +142,7 @@ def test_mirror_matches_pallas_kernel(case, monkeypatch):
     if dtype == "float32":
         np.testing.assert_allclose(out.numpy(), ref_out, **GPU_TOL)
     else:
-        _assert_within_bf16_ulp(out.float().numpy(), ref_out)
+        _assert_within_bf16_ulp(out.float().numpy(), ref_out, _BITS[dtype])
 
 
 def test_single_pass_tf32_misses_the_fp32_gate(monkeypatch):
@@ -152,7 +156,7 @@ def test_single_pass_tf32_misses_the_fp32_gate(monkeypatch):
     assert 100 * err3 <= 1e-4 < err1 / 5, (err3, err1)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_mirror_fully_masked_row_gives_zero(dtype):
     """A batch row whose keys the bias masks all (NEG_INF): the clamp keeps
     p = 0, so out is exactly 0 and lse NEG_INF / 8, as in Pallas."""
@@ -180,10 +184,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _cuda_tol(dtype):
-    return GPU_TOL if dtype == "float32" else dict(atol=2e-2, rtol=0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", CASES, ids=_id)
 def test_cuda_short_fwd_matches_plain(case, cuda_device):
@@ -193,13 +193,13 @@ def test_cuda_short_fwd_matches_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES["mha_short_fwd"] == before + 1
     ref_out, ref_lse = _run(short_attention_plain, case, cuda_device)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().cpu().numpy(),
-                               **_cuda_tol(dtype))
-    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_cuda_tol(dtype))
+    ref_out = ref_out.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out, **_tol(dtype, ref_out))
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_tol(dtype))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_short_fwd_strided_views(dtype, cuda_device):
     """q, k, v as views into a wider bshd tensor (rows not 16-byte
     aligned): the kernel's scalar copies and stores."""
@@ -211,13 +211,13 @@ def test_cuda_short_fwd_strided_views(dtype, cuda_device):
     kw = dict(bias=bt, causal=True, dropout=0.2, seed=SEED, layout="bshd")
     out, lse = short_attention(*views, **kw)
     ref_out, ref_lse = short_attention_plain(*views, **kw)
-    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out.float().cpu().numpy(),
-                               **_cuda_tol(dtype))
-    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_cuda_tol(dtype))
+    ref_out = ref_out.float().cpu().numpy()
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref_out, **_tol(dtype, ref_out))
+    np.testing.assert_allclose(lse.cpu().numpy(), ref_lse.cpu().numpy(), **_tol(dtype))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_short_fwd_is_deterministic(dtype, cuda_device):
     """No atomics: two launches on the same inputs agree bit for bit."""
     case = ("bhsd", 2, 4, 500, 300, 64, True, True, dtype, 0.2)
@@ -228,7 +228,7 @@ def test_cuda_short_fwd_is_deterministic(dtype, cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_cuda_short_fwd_fully_masked_row_gives_zero(dtype, cuda_device):
     q, k, v, bias = _inputs("bshd", 2, 2, 40, 70, 32, True)
     bias[1, :] = NEG_INF

@@ -42,6 +42,7 @@ from paddle_tpu_torch.ops.kernels.mha_short import (
     short_attention_bwd_plain,
     short_attention_plain,
 )
+from test_torch_kernels import _tol
 
 KEY_SEED = 7  # jax.random.key(KEY_SEED) on the JAX side
 
@@ -63,6 +64,10 @@ CASES = [
     ("flash", "bhsd", 2, 2, 128, 128, 64, True, False, "float32", 0.2),
     ("flash", "bshd", 1, 2, 100, 150, 64, True, True, "bfloat16", 0.0),
     ("flash", "bshd", 1, 2, 64, 77, 32, True, True, "bfloat16", 0.2),
+    # fp16: BERT's shape, causal sq > sk with dropout, flash causal + bias
+    ("short", "bshd", 2, 2, 128, 128, 64, True, False, "float16", 0.1),
+    ("short", "bhsd", 1, 2, 100, 77, 32, False, True, "float16", 0.0),
+    ("flash", "bshd", 1, 2, 64, 77, 32, True, True, "float16", 0.2),
 ]
 
 # on the card only (the Pallas kernels in interpret mode would take
@@ -136,10 +141,6 @@ def _jax_grads(kernel, q, k, v, do, bias, causal, scale, dropout, layout, dtype)
     return [g if kernel == "short" else _bhsd(g, layout) for g in grads]
 
 
-def _tol(dtype):
-    return dict(atol=1e-5, rtol=1e-5) if dtype == "float32" else dict(atol=2e-2, rtol=0)
-
-
 def _torch(arrays, dtype, device="cpu"):
     return [None if a is None else torch.from_numpy(a).to(device=device, dtype=dtype)
             for a in arrays]
@@ -171,7 +172,7 @@ def test_plain_backward_matches_pallas_kernels(case, monkeypatch):
     assert LAUNCHES == launches  # a CPU tensor never launches a kernel
     for g, r, t in zip(got, ref, (q, k, v)):
         assert g.dtype == getattr(torch, dtype) and g.shape == t.shape
-        np.testing.assert_allclose(g.float().numpy(), r, **_tol(dtype))
+        np.testing.assert_allclose(g.float().numpy(), r, **_tol(dtype, r))
 
 
 def test_short_backward_fully_masked_row_gives_zero(monkeypatch):
@@ -188,6 +189,45 @@ def test_short_backward_fully_masked_row_gives_zero(monkeypatch):
         np.testing.assert_allclose(g.numpy(), r, atol=1e-5, rtol=1e-5)
 
 
+def _overflow_inputs(layout="bshd"):
+    """fp16 inputs whose dS overflows fp16: q at 3 randn makes p peaky,
+    v and dO at 1000 randn (a loss-scaled cotangent) make dp ~ 1e7, so
+    p (dp - delta) scale passes 65504 on many pairs."""
+    q, k, v, do, _ = _inputs(layout, 1, 2, 64, 64, 64, False, seed=5)
+    return 3 * q, k, 1000 * v, 2000 * do
+
+
+def _overflow_tol(ref, other):
+    """dV (other None): one fp16 ulp; dQ / dK: one fp16 ulp of the largest
+    finite dS (2^15 <= |dS| <= 65504: 32) times the largest |operand|."""
+    if other is None:
+        return _tol("float16", ref)
+    return dict(atol=32.0 * float(np.abs(np.asarray(other, np.float32)).max()), rtol=0)
+
+
+def test_fp16_ds_overflow_gives_inf_as_pallas(monkeypatch):
+    """dS rounds to fp16 before dQ and dK in both packages: where it passes
+    65504 it is inf, so dQ and dK carry inf (and nan where an inf meets a
+    zero or an inf of the other sign) in the same places as the Pallas
+    backward's; dV, which dS does not reach, stays finite. The plain
+    version matches the non-finite pattern exactly; dV within one fp16
+    ulp; the finite values of dQ and dK within one fp16 ulp of the largest
+    finite dS (32, below 65504) times the largest |K| or |Q| they multiply:
+    a dS that rounds the other way (p in float64 here, in fp32 there)
+    moves a sum of dS K by that much."""
+    monkeypatch.setenv("PADDLE_TPU_PALLAS_INTERPRET", "1")
+    q, k, v, do = _overflow_inputs()
+    scale = 1.0 / np.sqrt(64)
+    ref = _jax_grads("short", q, k, v, do, None, False, scale, 0.0, "bshd", "float16")
+    got = _port_grads("short", q, k, v, do, None, False, scale, 0.0, "bshd", "float16")
+    assert not np.isfinite(ref[0]).all() and not np.isfinite(ref[1]).all()
+    assert np.isfinite(ref[2]).all()
+    for g, r, other in zip(got, ref, (k, q, None)):
+        g = g.float().numpy()
+        assert (np.isnan(g) == np.isnan(r)).all() and (np.isposinf(g) == np.isposinf(r)).all()
+        np.testing.assert_allclose(g, r, **_overflow_tol(r, other))
+
+
 # (n, k, dtype): BERT's encoder rows and mlm.ln's b * max_preds rows,
 # and a ragged n past the Pallas block
 LN_CASES = [
@@ -196,6 +236,7 @@ LN_CASES = [
     (1100, 128, "float32"),
     (64, 64, "float32"),
     (512, 768, "bfloat16"),
+    (512, 768, "float16"),
 ]
 
 
@@ -237,7 +278,7 @@ def test_ln_bwd_plain_matches_pallas_kernel(case, monkeypatch):
     assert LAUNCHES == launches
     assert got[0].dtype == tdt and got[1].dtype == got[2].dtype == torch.float32
     # dscale / dbias sum n rows: fp32 summation order over up to 1100 terms
-    tols = (_tol(dtype), dict(atol=1e-4, rtol=1e-5), dict(atol=1e-4, rtol=1e-5))
+    tols = (_tol(dtype, ref[0]), dict(atol=1e-4, rtol=1e-5), dict(atol=1e-4, rtol=1e-5))
     if dtype == "bfloat16":  # the sums of bf16-rounded inputs, in fp32 on both sides
         tols = (_tol(dtype), dict(atol=2e-3, rtol=1e-5), dict(atol=2e-3, rtol=1e-5))
     for g, r, tol in zip(got, ref, tols):
@@ -280,8 +321,33 @@ def test_cuda_backward_matches_plain(case, cuda_device):
     assert LAUNCHES[name] == before + 1
     ref = bwd_plain(qt, kt, vt, bt, dot, lse, delta, **kw)
     for g, r in zip(got, ref):
-        np.testing.assert_allclose(g.float().cpu().numpy(), r.float().cpu().numpy(),
-                                   **_tol(dtype))
+        r = r.float().cpu().numpy()
+        np.testing.assert_allclose(g.float().cpu().numpy(), r, **_tol(dtype, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["short", "flash"])
+def test_cuda_fp16_ds_overflow_gives_inf_as_plain(kernel, cuda_device):
+    """On the card the fp16 kernels round an overflowing dS to inf, as the
+    plain version (and the Pallas kernels) do: the same non-finite
+    pattern in dQ and dK, finite dV, the finite values within the gates of
+    test_fp16_ds_overflow_gives_inf_as_pallas; nothing is clamped."""
+    q, k, v, do = _overflow_inputs()
+    qt, kt, vt, dot = _torch((q, k, v, do), torch.float16, cuda_device)
+    fwd_plain, bwd, bwd_plain = (
+        (short_attention_plain, short_attention_bwd, short_attention_bwd_plain)
+        if kernel == "short" else
+        (flash_attention_plain, flash_attention_bwd, flash_attention_bwd_plain))
+    kw = dict(layout="bshd")
+    out, lse = fwd_plain(qt, kt, vt, **kw)
+    args = (qt, kt, vt, None, dot, lse, attention_delta(out, dot, "bshd"))
+    got, ref = bwd(*args, **kw), bwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert not bool(torch.isfinite(ref[0]).all()) and bool(torch.isfinite(ref[2]).all())
+    for g, r, other in zip(got, ref, (k, q, None)):
+        g, r = g.float().cpu().numpy(), r.float().cpu().numpy()
+        assert (np.isnan(g) == np.isnan(r)).all() and (np.isposinf(g) == np.isposinf(r)).all()
+        np.testing.assert_allclose(g, r, **_overflow_tol(r, other))
 
 
 @pytest.mark.gpu
@@ -297,7 +363,8 @@ def test_cuda_ln_bwd_matches_plain(case, cuda_device):
     torch.cuda.synchronize()
     assert LAUNCHES["layer_norm_bwd"] == before + 1
     ref = ln_bwd_plain(*args)
-    tols = (_tol(dtype), dict(atol=1e-4, rtol=1e-5), dict(atol=1e-4, rtol=1e-5))
+    tols = (_tol(dtype, ref[0].float().cpu().numpy()), dict(atol=1e-4, rtol=1e-5),
+            dict(atol=1e-4, rtol=1e-5))
     for g, r, tol in zip(got, ref, tols):
         np.testing.assert_allclose(g.float().cpu().numpy(), r.float().cpu().numpy(), **tol)
 
