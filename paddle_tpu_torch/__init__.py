@@ -21,12 +21,16 @@ AMP with static or dynamic loss scaling (`contrib.mixed_precision.
 decorate`, bf16 or fp16); ResNet training and serving; and the
 Transformer (`models.transformer`: training, and incremental decode
 through an encode and a decode-step program, with beam search in
-`decoding`).
+`decoding`). The Executor runs the JAX package's default Program passes
+(`passes/`: const_fold, copy_prop, dce, fuse_conv_bn, layout_opt,
+fuse_optimizer) over a cached clone of each Program before it walks it;
+PADDLE_TPU_PASSES=none turns them off.
 """
 
 from . import (clip, contrib, decoding, inference, initializer, io, layers, models,
-               optimizer, param_attr, profiler, regularizer)
+               optimizer, param_attr, passes, profiler, regularizer)
 from .backward import append_backward, calc_gradient, gradients
+from .compiler import BuildStrategy
 from .executor import Executor
 from .framework import (
     Program,

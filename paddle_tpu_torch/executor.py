@@ -21,6 +21,18 @@ through the graph its forward op recorded (ops/registry.py). The graph is
 dropped with the step: what the run writes back to the scope and returns
 is detached.
 
+Before the walk, the Program passes (passes/: the JAX package's default
+set, const_fold, copy_prop, dce, fuse_conv_bn, layout_opt and
+fuse_optimizer; PADDLE_TPU_PASSES overrides it) rewrite a clone of the
+Program, as the JAX executor runs them before its trace
+(executor.py:639-658 there). The rewritten clone is cached per Executor
+under what the passes read: the Program (its identity, `_version` and op
+count), the sorted feed names (not their shapes: the decode loop varies
+its batch), the fetch names, the scope (fuse_conv_bn folds its values),
+the AMP dtype and the resolved pass names. A second run of the same
+Program runs no pass. `last_pass_stats` holds the stats of the passes a
+run ran (None when it found them cached), with their wall time.
+
 Every run draws its randomness from the threefry key
 `fold_in(key(program.random_seed or 42), runs so far + 1)`, the key the
 JAX executor threads into the same run (executor.py:889-891 there), so
@@ -28,6 +40,9 @@ the dropout masks of the two packages agree.
 """
 
 from __future__ import annotations
+
+import time
+import weakref
 
 import numpy as np
 import torch
@@ -39,10 +54,10 @@ from .ops.registry import (
     TORCH_DTYPE,
     LoweringContext,
     graph_users,
-    lower_block,
     lower_forward_op,
     lower_op,
 )
+from .passes import apply_program_passes, resolve_pass_names
 from .place import CUDAPlace, Place
 from .scope import Scope, global_scope, to_numpy
 
@@ -101,8 +116,38 @@ class Executor:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._seed_counter = 0
-        # op types whose __auto_grad__ re-ran the forward in the last run
+        # op types whose __auto_grad__ re-ran the forward in the last run,
+        # and those whose forward the dead-op pass removed, so that their
+        # __auto_grad__ ran it, once
         self.recomputed_forwards = []
+        self.deferred_forwards = []
+        # pass-cache key -> (program ref, scope ref, rewritten program)
+        self._pass_cache = {}
+        self.last_pass_stats = None
+
+    def _passed_program(self, program, feed_names, fetch_names, scope):
+        """The program after the enabled passes, from the cache when this
+        Program, feed / fetch names, scope and pass set were seen."""
+        names = resolve_pass_names(None)
+        key = (id(program), program._version, len(program.global_block().ops),
+               tuple(sorted(feed_names)), tuple(fetch_names), id(scope),
+               getattr(program, "_amp_dtype", None), names)
+        hit = self._pass_cache.get(key)
+        # the entry holds weak references: an id is only reused by a new
+        # object after the old one died
+        if hit is not None and hit[0]() is program and hit[1]() is scope:
+            self.last_pass_stats = None
+            return hit[2]
+        self._pass_cache = {k: v for k, v in self._pass_cache.items()
+                            if v[0]() is not None and v[1]() is not None}
+        t0 = time.perf_counter()
+        passed, _, stats = apply_program_passes(
+            program, tuple(sorted(feed_names)), tuple(fetch_names), scope=scope)
+        if stats is not None:
+            stats["ms"] = (time.perf_counter() - t0) * 1e3
+        self.last_pass_stats = stats
+        self._pass_cache[key] = (weakref.ref(program), weakref.ref(scope), passed)
+        return passed
 
     @staticmethod
     def _state_read(block, feed_names):
@@ -131,6 +176,7 @@ class Executor:
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
+        program = self._passed_program(program, feed, fetch_names, scope)
         block = program.global_block()
 
         generator = torch.Generator(device=self.device)
@@ -167,9 +213,11 @@ class Executor:
             _run_training(ctx, block)
         else:
             with torch.inference_mode():
-                lower_block(ctx, block)
+                for op in block.ops:
+                    lower_op(ctx, op)
         self._seed_counter += 1
         self.recomputed_forwards = sorted(ctx.recomputed)
+        self.deferred_forwards = sorted(ctx.deferred)
 
         for op in block.ops:
             for n in op.output_arg_names():

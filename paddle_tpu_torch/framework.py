@@ -32,6 +32,7 @@ __all__ = [
     "grad_var_name",
     "core_op_role",
     "op_reads",
+    "op_has_sub_block",
     "block_external_reads",
     "cuda_places",
 ]
@@ -306,6 +307,12 @@ def _as_list(x):
 
 def _is_block_like(attr):
     return hasattr(attr, "ops") and hasattr(attr, "vars")
+
+
+def op_has_sub_block(op) -> bool:
+    """True when an op carries a control-flow sub-block attr (while / cond
+    bodies): the IR passes treat such ops conservatively."""
+    return any(_is_block_like(a) for a in op.attrs.values())
 
 
 def block_external_reads(sub_blk, acc=None):

@@ -1,7 +1,9 @@
 """Inference engine: AnalysisConfig / AnalysisPredictor over an export
 written by `save_inference_model` (either package's). The predictor runs
-the pruned program through the port's Executor on the card unless the
-config asked for the CPU (`disable_gpu()`)."""
+the pruned program through the port's Executor, with its own scope, on
+the card unless the config asked for the CPU (`disable_gpu()`); so the
+Executor's passes fold the export's eval batch norms into its convs
+(passes/fuse_conv_bn.py) at the first run."""
 
 from __future__ import annotations
 
@@ -25,12 +27,16 @@ __all__ = [
 
 class AnalysisConfig:
     """Predictor settings: the model directory and the device (the GPU
-    unless `disable_gpu()`)."""
+    unless `disable_gpu()`). `switch_ir_optim` / `ir_optim` are stored as
+    the JAX package's Config stores them (inference/__init__.py:47,72-76
+    there), and read by neither: the Executor runs the Program passes on
+    every program (PADDLE_TPU_PASSES=none turns them off)."""
 
     def __init__(self, model_dir=None):
         self._model_dir = model_dir
         self._use_gpu = True
         self._device_id = 0
+        self._ir_optim = True
 
     def set_model(self, model_dir):
         self._model_dir = model_dir
@@ -50,6 +56,12 @@ class AnalysisConfig:
 
     def gpu_device_id(self):
         return self._device_id
+
+    def switch_ir_optim(self, flag=True):
+        self._ir_optim = flag
+
+    def ir_optim(self):
+        return self._ir_optim
 
 
 class PaddleTensor:

@@ -63,7 +63,8 @@ def _explicit_pads(pad, spatial, ksize, strides, dilations):
 
 @register_op("conv2d")
 def _conv2d(ctx, op):
-    """Input NCHW, or NHWC with data_format "NHWC"; Filter OIHW in both.
+    """Input NCHW, or NHWC with data_format "NHWC" (channels_last on the
+    card); Filter OIHW in both.
     The optional Bias [O] and fused_act "relu" are what fuse_conv_bn
     emits. The JAX package rewrites the 7x7/s2 stem on few channels into a
     4x4/s1 conv over space-to-depth input (`_s2d_stem_conv`, a TPU lane
@@ -77,7 +78,12 @@ def _conv2d(ctx, op):
     dilations = list(op.attr("dilations", [1, 1]))
     groups = op.attr("groups", 1) or 1
     nhwc = op.attr("data_format", "NCHW") == "NHWC"
-    xc = x.permute(0, 3, 1, 2) if nhwc else x
+    # NHWC (passes/layout_opt.py) is channels_last memory: the NCHW view of
+    # a contiguous NHWC tensor, so cuDNN runs its NHWC kernels and writes a
+    # channels_last output. An input that arrives as a strided view (the
+    # boundary transpose of an NCHW tensor) is made channels_last here.
+    xc = (x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+          if nhwc else x)
     pads = _explicit_pads(_conv_padding(op.attr("paddings", [0, 0]), 2),
                           xc.shape[2:], w.shape[2:], strides, dilations)
     if all(lo == hi for lo, hi in pads):

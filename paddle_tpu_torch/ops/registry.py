@@ -28,7 +28,6 @@ __all__ = [
     "LoweringContext",
     "TORCH_DTYPE",
     "lower_op",
-    "lower_block",
     "lower_forward_op",
     "graph_users",
 ]
@@ -101,7 +100,9 @@ class LoweringContext:
     which dropout derives its masks exactly as the JAX package does.
     `tape` maps each forward op that recorded a graph (by its outputs) to
     the leaves its graph starts from; `recomputed` collects the op types
-    whose `__auto_grad__` had to re-run the forward because it had none."""
+    whose `__auto_grad__` had to re-run the forward because it had none,
+    and `deferred` those whose forward op the dead-op pass removed, so
+    that it runs once, in its `__auto_grad__`."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -114,6 +115,7 @@ class LoweringContext:
         self.is_test = is_test
         self.tape: dict[tuple, dict[str, torch.Tensor]] = {}
         self.recomputed: set[str] = set()
+        self.deferred: set[str] = set()
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -185,6 +187,7 @@ class LoweringContext:
                               self.rng_key, self.is_test)
         sub._rng_counter = self._rng_counter + 1000
         sub.recomputed = self.recomputed
+        sub.deferred = self.deferred
         return sub
 
 
@@ -223,11 +226,6 @@ def lower_op(ctx: LoweringContext, op):
         if note not in (getattr(e, "__notes__", None) or ()):
             e.add_note(note)
         raise
-
-
-def lower_block(ctx: LoweringContext, block):
-    for op in block.ops:
-        lower_op(ctx, op)
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +336,9 @@ def _auto_grad_lower(ctx, op):
     where the traversal stops), so no traversal shares a node with
     another's and the graph needs no retaining. Outputs without a
     cotangent contribute nothing; an input the graph does not reach gets
-    zeros. If the forward ran without a graph, this op re-runs that one
-    forward under enable_grad, as the JAX package re-lowers it."""
+    zeros. If the forward ran without a graph, or did not run (the
+    dead-op pass removed it), this op re-runs that one forward under
+    enable_grad, as the JAX package re-lowers it."""
     fwd_type = op.attr("fwd_type")
     fwd_inputs = op.attr("fwd_inputs")
     fwd_outputs = op.attr("fwd_outputs")
@@ -358,8 +357,11 @@ def _auto_grad_lower(ctx, op):
 
     leaves = ctx.tape.get(_tape_key(fwd_outputs), {})
     ins = [leaves.get(n) for _, _, n in diff_in]
-    outs = [ctx.get(n) for _, _, n in out_order]
-    if any(t is None for t in ins) or not any(
+    # an output is unbound where the dead-op pass dropped the forward op
+    # (passes/dce.py: an unfetched loss reaches no other op)
+    outs = [ctx.values.get(n) for _, _, n in out_order]
+    unbound = any(t is None for t in outs)
+    if unbound or any(t is None for t in ins) or not any(
             _is_float(t) and t.requires_grad for t in outs):
         ins = [ctx.get(n).detach().requires_grad_(True) for _, _, n in diff_in]
         sub = ctx.child()
@@ -372,8 +374,8 @@ def _auto_grad_lower(ctx, op):
         with torch.enable_grad():
             opdef.lower(sub, _FwdOpView(fwd_type, fwd_inputs, fwd_outputs,
                                         dict(op.attr("fwd_attrs") or {})))
+        (ctx.deferred if unbound else ctx.recomputed).add(fwd_type)
         outs = [sub.get(n) for _, _, n in out_order]
-        ctx.recomputed.add(fwd_type)
 
     ys, cts = [], []
     for (slot, i, _), y in zip(out_order, outs):

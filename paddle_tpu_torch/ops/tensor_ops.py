@@ -107,11 +107,18 @@ def _assign(ctx, op):
 @register_op("assign_value", differentiable=False)
 def _assign_value(ctx, op):
     """The attr's values (`fp32_values`, `int32_values` or `values`) as a
-    tensor of `dtype` and `shape` (tensor_ops.py:415-420 there)."""
+    tensor of `dtype` and `shape` (tensor_ops.py:415-420 there). Values
+    all equal (the constants passes/const_fold.py folds) are a fill on the
+    device, as fill_constant is: a copy from the host would wait for the
+    device's queue, in mid-step."""
     values = op.attr("fp32_values") or op.attr("int32_values") or op.attr("values")
+    dtype = TORCH_DTYPE(op.attr("dtype", "float32"))
+    shape = tuple(op.attr("shape"))
+    if values and all(v == values[0] for v in values):
+        ctx.out(op, "Out", torch.full(shape, values[0], dtype=dtype, device=ctx.device))
+        return
     out = torch.as_tensor(np.array(values), device=ctx.device)
-    ctx.out(op, "Out", out.to(TORCH_DTYPE(op.attr("dtype", "float32")))
-            .reshape(tuple(op.attr("shape"))))
+    ctx.out(op, "Out", out.to(dtype).reshape(shape))
 
 
 @register_op("gather", no_grad_inputs=("Index",))

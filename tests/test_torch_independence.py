@@ -90,3 +90,29 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--model-dir", str(tmp_path)])
     assert fluid.Executor(fluid.CPUPlace()).device == torch.device("cpu")
+
+
+def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
+    """The pass manager, each pass and BuildStrategy: pure IR code with the
+    port's own copies of what the JAX package's passes import."""
+    mods = ["paddle_tpu_torch.compiler", "paddle_tpu_torch.passes"] + [
+        f"paddle_tpu_torch.passes.{p.stem}"
+        for p in sorted((ROOT / "paddle_tpu_torch" / "passes").glob("*.py"))
+        if p.stem != "__init__"]
+    assert len(mods) == 9
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    files = sorted((ROOT / "paddle_tpu_torch" / "passes").glob("*.py")) + [
+        ROOT / "paddle_tpu_torch" / "compiler.py"]
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
