@@ -454,8 +454,16 @@ def main():
                 return f"{op_type} {n}"
         return "none found"
 
-    def passes_ab(tag, main_p, state0, feed, fetch, steps, amp_dtype=None, resnet=False,
-                  per_step=False):
+    def on_card(exe_, scope, main_p):
+        """Whether `exe_` runs on the card and every persistable of
+        `main_p` in `scope` lies there (always true in the rehearsal)."""
+        return rehearsal or (exe_.device.type == "cuda" and all(
+            scope.get(v.name).device.type == "cuda" for v in main_p.list_vars()
+            if v.persistable and scope.has(v.name)
+            and isinstance(scope.get(v.name), torch.Tensor)))
+
+    def passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype=None,
+                  resnet=False, per_step=False):
         """`steps` steps of `main_p` from `state0` with PADDLE_TPU_PASSES=none
         ("off") and with the default passes ("on"), each arm a fresh
         Executor and scope (the same dropout keys), the arms' steps
@@ -469,8 +477,10 @@ def main():
         steps into tensors that are rounding noise, such as the attention K
         biases' moments, whose grads are zero but for rounding). ResNet
         (`resnet`, each step from one state too): phase 8's card-vs-CPU
-        gates (the AMP loss within one bf16 ulp). Then one profiled step and
-        one host breakdown a arm -> {arm: summary}."""
+        gates (the AMP loss within one bf16 ulp). Each step of each arm runs
+        on the card and launches `want`, the main path's launches a step.
+        Then one profiled step and one host breakdown a arm -> {arm:
+        summary}."""
         elapsed(f"[passes] {tag}: A/B")
         # BERT and the Transformer: deterministic algorithms in both arms.
         # Without them two runs of one program from one state are not
@@ -479,12 +489,13 @@ def main():
         deterministic = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(not resnet or deterministic, warn_only=True)
         try:
-            return _passes_ab(tag, main_p, state0, feed, fetch, steps, amp_dtype, resnet,
-                              per_step or resnet)
+            return _passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype,
+                              resnet, per_step or resnet)
         finally:
             torch.use_deterministic_algorithms(deterministic)
 
-    def _passes_ab(tag, main_p, state0, feed, fetch, steps, amp_dtype, resnet, per_step):
+    def _passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype, resnet,
+                   per_step):
         arms = {}
         for mode in ("off", "on"):
             scope = fluid.Scope()
@@ -525,12 +536,18 @@ def main():
                     if not rehearsal:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
+                    before = kernels.launch_counts()
                     t0 = time.perf_counter()
                     out = a["exe"].run(main_p, feed=dict(feed), fetch_list=fetch,
                                        scope=a["scope"])
                     a["ms"].append((time.perf_counter() - t0) * 1e3)
                     if not rehearsal:
                         a["peak"] = max(a["peak"], torch.cuda.max_memory_allocated())
+                    got = {n: c - before[n] for n, c in kernels.launch_counts().items()}
+                require(on_card(a["exe"], a["scope"], main_p),
+                        f"[{tag}] {mode}: step {i + 1} did not run on the card")
+                require(rehearsal or got == want, f"[{tag}] {mode}: step {i + 1} launched "
+                        f"{got}, the main path {want} a step")
                 a["losses"].append(float(np.asarray(out[0]).reshape(-1)[0]))
                 a["stats"].append(a["exe"].last_pass_stats)
                 require(a["exe"].recomputed_forwards == [],
@@ -1184,7 +1201,8 @@ def main():
     host_breakdown(step)
     del scope_t
     # passes off against on, from the startup state (fp32, b 8)
-    pass_ab = {"train": passes_ab("train", main_t, state_t0, feed, [loss_t], TRAIN_STEPS)}
+    pass_ab = {"train": passes_ab("train", main_t, state_t0, feed, [loss_t], TRAIN_STEPS,
+                                  want)}
     del state_t0
 
     # card vs CPU: the same 2-layer program at base width, the same state
@@ -1377,7 +1395,8 @@ def main():
         if b_amp == amp_batches[-1]:
             host_breakdown(step)
             pass_ab["amp"] = passes_ab(f"amp b {b_amp}", main_a, state_a0, feed_a,
-                                       [h_a["loss"]], TRAIN_STEPS, amp_dtype="bfloat16")
+                                       [h_a["loss"]], TRAIN_STEPS, amp_want,
+                                       amp_dtype="bfloat16")
         del scope_a, step, state_a0
     path_launches["amp"] = launches
     print(f"[amp] launches over {TRAIN_STEPS} steps at each batch size: {launches}")
@@ -1441,7 +1460,7 @@ def main():
     step_report("full", tb, losses_f, ms, peak_f,
                 bert_flops_per_token(full_cfg, ts), step)
     pass_ab["full"] = passes_ab("full", main_f, state_f0, feed_f, [h_f["loss"], scale_f, found_f],
-                                TRAIN_STEPS, amp_dtype="bfloat16", per_step=True)
+                                TRAIN_STEPS, amp_want, amp_dtype="bfloat16", per_step=True)
     del state_f0
 
     # the overflow step: one non-finite mask weight until the decrease
@@ -1685,7 +1704,7 @@ def main():
         # passes off (NCHW, per-parameter momentum) against on (layout_opt's
         # NHWC as channels_last, fused_momentum), each step from one state
         pass_ab[f"resnet {tag}"] = passes_ab(
-            f"resnet {tag}", main_r, state_r0, rn_feed, [loss_r], RN_STEPS,
+            f"resnet {tag}", main_r, state_r0, rn_feed, [loss_r], RN_STEPS, zero_launches,
             amp_dtype="bfloat16" if amp else None, resnet=True)
         del state_r0
         if not amp:
@@ -1796,6 +1815,8 @@ def main():
                 a["ms"].append((time.perf_counter() - t0) * 1e3)
                 if not rehearsal:
                     a["peak"] = max(a["peak"], torch.cuda.max_memory_allocated())
+            require(on_card(a["pred"]._exe, a["pred"]._scope, a["pred"].program()),
+                    f"[passes] resnet serve, passes {mode}: the predictor ran off the card")
     serve_gap = float(np.abs(serve_ab["on"]["out"][0] - serve_ab["off"]["out"][0]).max())
     require(serve_gap <= RN_SERVE_ATOL, f"[passes] resnet serve: probabilities passes on vs "
             f"off max abs diff {serve_gap}")
@@ -1924,7 +1945,7 @@ def main():
     # passes off against on from the startup state: the host's issue time
     # against the busy time, and fused_adam's host time against adam's
     pass_ab["transformer"] = passes_ab("transformer", main_9, state_90, feed_9, [h_9["loss"]],
-                                       TRAIN_STEPS, amp_dtype="bfloat16")
+                                       TRAIN_STEPS, tf_want, amp_dtype="bfloat16")
     del state_90
 
     # incremental decode from the trained scope, fp32: the encode program

@@ -2,9 +2,11 @@
 (`paddle_tpu/compiler.py:76-104`, the pass knobs only).
 
 Each knob gates one pass of `passes/`; the PADDLE_TPU_PASSES environment
-variable overrides all of them. `CompiledProgram` (the mesh path), and the
-`fuse_layer_scan` and `auto_shard` knobs with their passes, are not ported
-yet (ROADMAP Queue 1, items 3 and 9).
+variable overrides all of them. A strategy reaches a run as
+`Executor.run(..., build_strategy=bs)`: the JAX package hands it over
+through `CompiledProgram` (the mesh path), which is not ported yet, nor
+are the `fuse_layer_scan` and `auto_shard` knobs with their passes
+(ROADMAP Queue 1, items 3 and 9).
 """
 
 from __future__ import annotations

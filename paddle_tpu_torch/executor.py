@@ -25,11 +25,17 @@ Before the walk, the Program passes (passes/: the JAX package's default
 set, const_fold, copy_prop, dce, fuse_conv_bn, layout_opt and
 fuse_optimizer; PADDLE_TPU_PASSES overrides it) rewrite a clone of the
 Program, as the JAX executor runs them before its trace
-(executor.py:639-658 there). The rewritten clone is cached per Executor
-under what the passes read: the Program (its identity, `_version` and op
-count), the sorted feed names (not their shapes: the decode loop varies
-its batch), the fetch names, the scope (fuse_conv_bn folds its values),
-the AMP dtype and the resolved pass names. A second run of the same
+(executor.py:639-658 there). `run`'s `build_strategy` (compiler.py) sets
+the pass knobs of a run; the JAX package takes it through CompiledProgram,
+which the port has not yet (ROADMAP Queue 1, item 9). The rewritten clone
+is cached per Executor, 256 entries at most, least recently used out
+first, under what the passes read: the Program (its identity, `_version`
+and op count), the sorted feed names (not their shapes: the decode loop
+varies its batch), the fetch names, the scope, the AMP dtype and the
+pass set's `cache_signature`. An entry whose passes read scope values
+(fuse_conv_bn folds the BN statistics and conv weights) holds only while
+the scope holds those same values: a training step writes new ones, and
+the next run of the eval clone folds again. A second run of the same
 Program runs no pass. `last_pass_stats` holds the stats of the passes a
 run ran (None when it found them cached), with their wall time.
 
@@ -43,6 +49,7 @@ from __future__ import annotations
 
 import time
 import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -57,7 +64,7 @@ from .ops.registry import (
     lower_forward_op,
     lower_op,
 )
-from .passes import apply_program_passes, resolve_pass_names
+from .passes import apply_program_passes, cache_signature, scope_reads_current
 from .place import CUDAPlace, Place
 from .scope import Scope, global_scope, to_numpy
 
@@ -76,6 +83,11 @@ def as_tensor(value, dtype, device) -> torch.Tensor:
 
 
 _TRAIN_ROLES = core_op_role.Backward | core_op_role.Optimize
+# the pass cache's size, the JAX executor's cap
+_PASS_CACHE_CAP = 256
+# a pass-cache entry's program when the passes changed nothing: the entry
+# then holds no strong reference to the user's Program
+_UNCHANGED = object()
 
 
 def _is_inference_program(program) -> bool:
@@ -121,32 +133,39 @@ class Executor:
         # __auto_grad__ ran it, once
         self.recomputed_forwards = []
         self.deferred_forwards = []
-        # pass-cache key -> (program ref, scope ref, rewritten program)
-        self._pass_cache = {}
+        # pass-cache key -> (program ref, scope ref, rewritten program or
+        # _UNCHANGED), in order of use
+        self._pass_cache = OrderedDict()
         self.last_pass_stats = None
 
-    def _passed_program(self, program, feed_names, fetch_names, scope):
+    def _passed_program(self, program, feed_names, fetch_names, scope,
+                        build_strategy=None):
         """The program after the enabled passes, from the cache when this
-        Program, feed / fetch names, scope and pass set were seen."""
-        names = resolve_pass_names(None)
+        Program, feed / fetch names, scope and pass set were seen and the
+        scope still holds the values the passes read."""
         key = (id(program), program._version, len(program.global_block().ops),
                tuple(sorted(feed_names)), tuple(fetch_names), id(scope),
-               getattr(program, "_amp_dtype", None), names)
-        hit = self._pass_cache.get(key)
+               getattr(program, "_amp_dtype", None), cache_signature(build_strategy))
+        hit = self._pass_cache.pop(key, None)
         # the entry holds weak references: an id is only reused by a new
         # object after the old one died
         if hit is not None and hit[0]() is program and hit[1]() is scope:
-            self.last_pass_stats = None
-            return hit[2]
-        self._pass_cache = {k: v for k, v in self._pass_cache.items()
-                            if v[0]() is not None and v[1]() is not None}
+            passed = program if hit[2] is _UNCHANGED else hit[2]
+            if scope_reads_current(passed, scope):
+                self._pass_cache[key] = hit
+                self.last_pass_stats = None
+                return passed
         t0 = time.perf_counter()
         passed, _, stats = apply_program_passes(
-            program, tuple(sorted(feed_names)), tuple(fetch_names), scope=scope)
+            program, tuple(sorted(feed_names)), tuple(fetch_names),
+            build_strategy=build_strategy, scope=scope)
         if stats is not None:
             stats["ms"] = (time.perf_counter() - t0) * 1e3
         self.last_pass_stats = stats
-        self._pass_cache[key] = (weakref.ref(program), weakref.ref(scope), passed)
+        self._pass_cache[key] = (weakref.ref(program), weakref.ref(scope),
+                                 _UNCHANGED if passed is program else passed)
+        if len(self._pass_cache) > _PASS_CACHE_CAP:
+            self._pass_cache.popitem(last=False)
         return passed
 
     @staticmethod
@@ -169,14 +188,19 @@ class Executor:
         fetch_list=None,
         scope: Scope = None,
         return_numpy: bool = True,
+        build_strategy=None,
     ):
+        """`build_strategy`: a compiler.BuildStrategy whose knobs choose
+        the passes of this run (PADDLE_TPU_PASSES overrides them); None
+        runs the default set."""
         program = program or default_main_program()
         scope = scope or global_scope()
         feed = feed or {}
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
-        program = self._passed_program(program, feed, fetch_names, scope)
+        program = self._passed_program(program, feed, fetch_names, scope,
+                                       build_strategy)
         block = program.global_block()
 
         generator = torch.Generator(device=self.device)

@@ -48,6 +48,7 @@ autoshard planner and a mesh (Queue 1, item 9).
 from __future__ import annotations
 
 import os
+import weakref
 
 from .. import profiler
 from ..framework import Program
@@ -57,6 +58,7 @@ __all__ = [
     "resolve_pass_names",
     "apply_program_passes",
     "cache_signature",
+    "scope_reads_current",
     "PassContext",
     "PASS_REGISTRY",
 ]
@@ -72,7 +74,8 @@ _PASS_ORDER: list[str] = []  # registration order == execution order
 class PassContext:
     """Per-application context handed to every pass. `scope` is the
     executor's scope when the caller has one (fuse_conv_bn reads the
-    parameter values through it); passes tolerate None."""
+    parameter values through it, with `read_scope`); passes tolerate
+    None."""
 
     def __init__(self, scope=None):
         self.scope = scope
@@ -80,6 +83,38 @@ class PassContext:
         # its op count (layout_opt may only rewrite attrs), so the manager
         # keeps the rewritten clone
         self.mutated = False
+        # name -> (weak reference, version) of each scope value a pass read
+        self.scope_reads = {}
+
+    def read_scope(self, name):
+        """The scope's value of `name`, recorded: the rewritten program
+        carries the record as `_scope_reads`, and `scope_reads_current`
+        tells whether the scope still holds those values."""
+        value = self.scope.get(name)
+        self.scope_reads[name] = (weakref.ref(value), _version(value))
+        return value
+
+
+def _version(value):
+    """A tensor's in-place version counter; None for an inference tensor
+    (it tracks none, and allows no in-place write outside inference mode)
+    or a numpy array."""
+    try:
+        return value._version
+    except (AttributeError, RuntimeError):
+        return None
+
+
+def scope_reads_current(program, scope) -> bool:
+    """Whether `scope` still holds, unmodified, every value the passes
+    read when they rewrote `program`. A training step writes new tensor
+    objects back to the scope, so after it a fold of the old values is
+    stale."""
+    for name, (ref, version) in getattr(program, "_scope_reads", {}).items():
+        value = scope.get(name) if scope.has(name) else None
+        if value is None or ref() is not value or _version(value) != version:
+            return False
+    return True
 
 
 def register_pass(name: str, strategy_knob: str = None, version: int = 1):
@@ -205,6 +240,7 @@ def apply_program_passes(
     if total_removed == 0 and not ctx.mutated:
         # nothing changed: run the original (identical) program
         return program, program.global_block(), stats
+    clone._scope_reads = ctx.scope_reads
     return clone, block, stats
 
 

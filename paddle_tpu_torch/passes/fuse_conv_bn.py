@@ -28,9 +28,11 @@ Safety gates:
   * the conv output feeds ONLY the bn; the bn's stats outputs are
     neither read nor fetched.
 
-The folded values snapshot the scope when the passes run. The Executor
-caches the rewritten program per scope, so parameters loaded into the
-same scope afterwards need a new Executor.
+The folded values snapshot the scope when the passes run. Each value
+the fold reads is recorded (`PassContext.read_scope`), and the Executor
+re-runs the passes once the scope holds another value under one of those
+names: a training step between two runs of its eval clone writes new
+parameters and statistics, and the next eval folds those.
 """
 
 from __future__ import annotations
@@ -128,10 +130,10 @@ def fold_conv_bn(program, block, feed_names, fetch_names, ctx=None):
                    for n in [w_name, *names.values()]):
             continue
 
-        w_value = scope.get(w_name)
+        w_value = ctx.read_scope(w_name)
         w = np.asarray(to_numpy(w_value), dtype=np.float32)
         gamma, beta, mean, var = (
-            np.asarray(to_numpy(scope.get(names[k])), dtype=np.float32)
+            np.asarray(to_numpy(ctx.read_scope(names[k])), dtype=np.float32)
             for k in ("gamma", "beta", "mean", "var"))
         device = (w_value.device if isinstance(w_value, torch.Tensor)
                   else torch.device("cpu"))

@@ -680,6 +680,95 @@ def test_pass_cache_second_run_runs_no_pass(monkeypatch):
     assert np.isfinite(loss_off).all()
 
 
+def test_run_build_strategy_chooses_the_passes():
+    """Executor.run's build_strategy gates the passes of that run, and the
+    pass set's cache_signature is part of the cache key."""
+    main, startup, loss = _guarded(tfluid, _regression)
+    scope, exe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    feed = {"x": np.ones((2, 8), np.float32), "y": np.ones((2, 1), np.float32)}
+    only_dce = tfluid.BuildStrategy()
+    for knob in ("constant_folding", "enable_inplace", "fuse_conv_bn", "enable_layout_opt",
+                 "fuse_all_optimizer_ops"):
+        setattr(only_dce, knob, False)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope, build_strategy=only_dce)
+    assert list(exe.last_pass_stats["passes"]) == ["dce"]
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope, build_strategy=only_dce)
+    assert exe.last_pass_stats is None
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    assert tuple(exe.last_pass_stats["passes"]) == DEFAULT_PASSES
+
+
+def test_pass_cache_is_capped_and_holds_no_unchanged_program(monkeypatch):
+    """At most _PASS_CACHE_CAP entries, the least recently used out first;
+    an entry whose passes changed nothing holds no strong reference to
+    the user's Program."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch import executor as executor_mod
+
+    monkeypatch.setattr(executor_mod, "_PASS_CACHE_CAP", 2)
+    feed = {"x": np.ones((2, 8), np.float32), "y": np.ones((2, 1), np.float32)}
+    scope, exe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
+    programs = []
+    for _ in range(3):
+        main, startup, loss = _guarded(tfluid, _regression)
+        exe.run(startup, scope=scope)
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        programs.append((main, loss))
+    assert len(exe._pass_cache) == 2
+    # the first program's entry went first; a run of it passes again
+    exe.run(programs[0][0], feed=feed, fetch_list=[programs[0][1]], scope=scope)
+    assert exe.last_pass_stats is not None and len(exe._pass_cache) == 2
+
+    monkeypatch.setenv("PADDLE_TPU_PASSES", "none")
+    main, startup, loss = _guarded(tfluid, _regression)
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    ref = weakref.ref(main)
+    del main, startup, loss
+    gc.collect()
+    assert ref() is None
+
+
+def test_eval_clone_folds_again_after_a_training_step(monkeypatch):
+    """Paddle's loop of train, eval, train, eval on one Executor and one
+    scope: each training step writes new conv weights and BN statistics,
+    so each eval after one folds them again (fuse_conv_bn's gate, rtol
+    1e-5 atol 1e-6, against the same loop with PADDLE_TPU_PASSES=none);
+    an eval with no step before it runs no pass. Only fuse_conv_bn runs,
+    so the training steps of the two loops are the same program and the
+    loops' states stay bit-equal."""
+    main, startup, (pred, loss) = _guarded(
+        tfluid, lambda f: _resnet(f, depth=18, b=4, hw=32, classes=10))
+    main.random_seed = startup.random_seed = 3
+    test = main.clone(for_test=True)
+    rs = np.random.RandomState(4)
+    feed = {"img": rs.rand(4, 3, 32, 32).astype("float32"),
+            "label": rs.randint(0, 10, (4, 1)).astype("int64")}
+    evals, stats = {}, {}
+    for mode in ("none", "fuse_conv_bn"):
+        monkeypatch.setenv("PADDLE_TPU_PASSES", mode)
+        scope, exe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
+        exe.run(startup, scope=scope)
+        evals[mode], stats[mode] = [], []
+        for _ in range(2):
+            exe.run(main, feed=dict(feed), fetch_list=[loss], scope=scope)
+            evals[mode].append(exe.run(test, feed=dict(feed), fetch_list=[pred],
+                                       scope=scope)[0])
+            stats[mode].append(exe.last_pass_stats)
+        exe.run(test, feed=dict(feed), fetch_list=[pred], scope=scope)
+        stats[mode].append(exe.last_pass_stats)
+    assert all(s["passes"]["fuse_conv_bn"] > 0 for s in stats["fuse_conv_bn"][:2])
+    assert stats["fuse_conv_bn"][2] is None
+    # the step between the evals moved the outputs well past the gate
+    assert np.abs(evals["none"][1] - evals["none"][0]).max() > 1e-3
+    for i, (on, off) in enumerate(zip(evals["fuse_conv_bn"], evals["none"])):
+        np.testing.assert_allclose(on, off, rtol=1e-5, atol=1e-6, err_msg=f"eval {i}")
+
+
 def test_profiler_counters_present():
     main, startup, loss = _guarded(tfluid, _regression)
     scope, exe = tfluid.Scope(), tfluid.Executor(tfluid.CPUPlace())
