@@ -87,11 +87,38 @@
             its logits against the full is_test graph's; the decode step's
             p50. Then 2 layers at base width card vs CPU, the fused path
             and the unfused one (no attention kernel)
-10. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+11. recompute  BERT-base as 5b trains it, with BertConfig(recompute=True)
+            (each encoder layer a recompute_scope segment) under
+            mixed_precision.decorate(RecomputeOptimizer(Adam 1e-4)) in
+            bf16, at b 256 and b 8 (an out-of-memory error fails the run):
+            5 steps each, the loss falls, every step launches 24 short
+            forward (the forward and each segment's recomputation), 12
+            short backward and no LayerNorm backward; step time, tokens/s,
+            peak memory beside 5b's at the same batch, one profiled step.
+            Then 2 layers at base width, 3 steps: card vs CPU, and the
+            recompute step vs the plain step on the card, at 5b's gates
+12. scan    PADDLE_TPU_FUSE_LAYER_SCAN=1 against the default passes, from
+            one state, the arms interleaved under deterministic
+            algorithms: BERT fp32 b 8, BERT bf16 b 256 and Transformer-base
+            b 256 s 64 bf16 (1343 -> 75 and 1755 -> 100 ops, as the JAX
+            package gives). Each arm's p50, host issue, busy and idle time,
+            peak memory, the scan_fused_* counters; losses and every
+            persistable bit-equal over 5 steps, the same launches a step,
+            no forward re-run
+13. conv    VGG-16 and SE-ResNeXt-50 at b 64, 224x224, 1000 classes under
+            mixed_precision.decorate(Momentum(lr, 0.9)) in bf16 (lr 0.01
+            for VGG, 0.1 for SE-ResNeXt), and
+            LeNet-5 at b 64, 1x28x28, fp32: 5 steps each, the loss falls,
+            step time, images/s, peak memory, one profiled step; no kernel
+            launched. Then VGG-11 and SE-ResNeXt-26 at b 2, 3 steps each
+            from one state card vs CPU at phase 8's gates; sigmoid,
+            adaptive pool2d, conv2d_transpose and conv3d, op and grads,
+            card vs CPU within 1e-4
+14. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
-transformer, decode) runs with every launch
+transformer, decode, recompute, scan, conv) runs with every launch
 count set to 0 just before it and read just after; a kernel of the path
 that was not launched fails the run.
 
@@ -198,16 +225,21 @@ PASS_AB_RTOL, PASS_AB_ATOL, PASS_AB_STATE = 1e-6, 1e-7, 1e-6
 
 @contextlib.contextmanager
 def passes_env(mode):
-    """PADDLE_TPU_PASSES=none for "off"; unset (the default set) for "on"."""
-    saved = os.environ.pop("PADDLE_TPU_PASSES", None)
+    """PADDLE_TPU_PASSES=none for "off"; unset (the default set) for "on";
+    the default set and PADDLE_TPU_FUSE_LAYER_SCAN=1 for "scan"."""
+    names = ("PADDLE_TPU_PASSES", "PADDLE_TPU_FUSE_LAYER_SCAN")
+    saved = {n: os.environ.pop(n, None) for n in names}
     if mode == "off":
         os.environ["PADDLE_TPU_PASSES"] = "none"
+    elif mode == "scan":
+        os.environ["PADDLE_TPU_FUSE_LAYER_SCAN"] = "1"
     try:
         yield
     finally:
-        os.environ.pop("PADDLE_TPU_PASSES", None)
-        if saved is not None:
-            os.environ["PADDLE_TPU_PASSES"] = saved
+        for n in names:
+            os.environ.pop(n, None)
+            if saved[n] is not None:
+                os.environ[n] = saved[n]
 
 
 def require(cond, msg):
@@ -361,6 +393,7 @@ def main():
         attention_delta, flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
     from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import lenet, se_resnext, vgg
     from paddle_tpu_torch.models.resnet import RESNET50_TRAIN_FLOPS_PER_IMG, resnet
     from paddle_tpu_torch.models.transformer import (
         TransformerConfig, build_transformer, build_transformer_decode_step,
@@ -412,15 +445,17 @@ def main():
                 if v.persistable and scope.has(v.name)
                 and isinstance(scope.get(v.name), torch.Tensor)}
 
-    def first_diff_op(main_p, state0, feed, fetch):
-        """One step from `state0` with the passes off and on, each op's
-        outputs summarised bit for bit (the sums of their bits, plain and
-        position-weighted) -> "type name" of the first op of the passed
-        program whose output differs from the same name's off value."""
+    def first_diff_op(main_p, state0, feed, fetch, modes=("off", "on")):
+        """One step from `state0` in each of the two pass `modes` (passes
+        off and on by default), each op's outputs summarised bit for bit
+        (the sums of their bits, plain and position-weighted) -> "type
+        name" of the first op of the second mode's program whose output
+        differs from the same name's value in the first."""
         from paddle_tpu_torch import executor as executor_mod
 
+        base, test = modes
         sums, orders = {}, {}
-        for mode in ("off", "on"):
+        for mode in modes:
             seen, order = {}, []
             saved = executor_mod.lower_op, executor_mod.lower_forward_op
 
@@ -449,8 +484,8 @@ def main():
             finally:
                 executor_mod.lower_op, executor_mod.lower_forward_op = saved
             sums[mode], orders[mode] = seen, order
-        for op_type, n in orders["on"]:
-            if n in sums["off"] and not torch.equal(sums["on"][n], sums["off"][n]):
+        for op_type, n in orders[test]:
+            if n in sums[base] and not torch.equal(sums[test][n], sums[base][n]):
                 return f"{op_type} {n}"
         return "none found"
 
@@ -463,7 +498,7 @@ def main():
             and isinstance(scope.get(v.name), torch.Tensor)))
 
     def passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype=None,
-                  resnet=False, per_step=False):
+                  resnet=False, per_step=False, modes=("off", "on"), exact=False):
         """`steps` steps of `main_p` from `state0` with PADDLE_TPU_PASSES=none
         ("off") and with the default passes ("on"), each arm a fresh
         Executor and scope (the same dropout keys), the arms' steps
@@ -480,7 +515,9 @@ def main():
         gates (the AMP loss within one bf16 ulp). Each step of each arm runs
         on the card and launches `want`, the main path's launches a step.
         Then one profiled step and one host breakdown a arm -> {arm:
-        summary}."""
+        summary}. `modes` names the two arms, passes_env's modes: the
+        layer-scan A/B runs ("on", "scan"), where `exact` asks the arms to
+        be bit-equal."""
         elapsed(f"[passes] {tag}: A/B")
         # BERT and the Transformer: deterministic algorithms in both arms.
         # Without them two runs of one program from one state are not
@@ -490,19 +527,20 @@ def main():
         torch.use_deterministic_algorithms(not resnet or deterministic, warn_only=True)
         try:
             return _passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype,
-                              resnet, per_step or resnet)
+                              resnet, per_step or resnet, modes, exact)
         finally:
             torch.use_deterministic_algorithms(deterministic)
 
     def _passes_ab(tag, main_p, state0, feed, fetch, steps, want, amp_dtype, resnet,
-                   per_step):
+                   per_step, modes, exact):
+        base, test = modes
         arms = {}
-        for mode in ("off", "on"):
+        for mode in modes:
             scope = fluid.Scope()
             for n, t in state0.items():
                 scope.set(n, t.clone())
             arms[mode] = dict(scope=scope, exe=fluid.Executor(ab_place), ms=[], losses=[],
-                              stats=[], peak=0)
+                              stats=[], peak=0, counters={})
         worst_loss, worst_state, worst_stat, worst_norm = 0.0, (0.0, ""), (0.0, ""), (0.0, "")
         bit_equal = True
         failed = []  # gates missed, raised after the A/B's lines are printed
@@ -528,11 +566,12 @@ def main():
 
         for i in range(steps):
             if per_step:
-                for n, t in snapshot(main_p, arms["off"]["scope"]).items():
-                    arms["on"]["scope"].set(n, t)
-            for mode in ("off", "on"):
+                for n, t in snapshot(main_p, arms[base]["scope"]).items():
+                    arms[test]["scope"].set(n, t)
+            for mode in modes:
                 a = arms[mode]
                 with passes_env(mode):
+                    counters0 = fluid.profiler.counters()
                     if not rehearsal:
                         torch.cuda.synchronize()
                         torch.cuda.reset_peak_memory_stats()
@@ -544,6 +583,10 @@ def main():
                     if not rehearsal:
                         a["peak"] = max(a["peak"], torch.cuda.max_memory_allocated())
                     got = {n: c - before[n] for n, c in kernels.launch_counts().items()}
+                if i == 0:  # the counters the passes bumped at the first run
+                    a["counters"] = {k: v - counters0.get(k, 0) for k, v in
+                                     fluid.profiler.counters().items()
+                                     if k.startswith("scan_fused") and v != counters0.get(k, 0)}
                 require(on_card(a["exe"], a["scope"], main_p),
                         f"[{tag}] {mode}: step {i + 1} did not run on the card")
                 require(rehearsal or got == want, f"[{tag}] {mode}: step {i + 1} launched "
@@ -553,7 +596,7 @@ def main():
                 require(a["exe"].recomputed_forwards == [],
                         f"[{tag}] {mode}: an __auto_grad__ re-ran a forward: "
                         f"{a['exe'].recomputed_forwards}")
-            l_off, l_on = arms["off"]["losses"][-1], arms["on"]["losses"][-1]
+            l_off, l_on = arms[base]["losses"][-1], arms[test]["losses"][-1]
             bit_equal = bit_equal and l_off == l_on
             if amp_dtype:
                 loss_ok = abs(l_on - l_off) <= ulp(l_off, amp_dtype) or not enforce
@@ -565,8 +608,8 @@ def main():
                 failed.append(f"step {i + 1}: losses {l_on} (on) vs {l_off} (off)")
             worst_loss = max(worst_loss, abs(l_on - l_off) / max(abs(l_off), 1e-30))
             if per_step:
-                on_state = snapshot(main_p, arms["on"]["scope"])
-                off_state = snapshot(main_p, arms["off"]["scope"])
+                on_state = snapshot(main_p, arms[test]["scope"])
+                off_state = snapshot(main_p, arms[base]["scope"])
                 maxs, norms, same = state_gap(on_state, off_state)
                 bit_equal = bit_equal and same
                 worst_state = max([worst_state] + maxs)
@@ -610,15 +653,17 @@ def main():
                      f"{RN_GRAD_NRTOL})")
         else:
             if not per_step:
-                maxs, _, same = state_gap(snapshot(main_p, arms["on"]["scope"]),
-                                          snapshot(main_p, arms["off"]["scope"]))
+                maxs, _, same = state_gap(snapshot(main_p, arms[test]["scope"]),
+                                          snapshot(main_p, arms[base]["scope"]))
                 bit_equal = bit_equal and same
                 worst_state = max(maxs)
             if worst_state[0] > PASS_AB_STATE:
                 failed.append(f"persistables: {worst_state} of their largest")
             gates = (f"persistables max|diff| / max|value| {worst_state[0]:.3e} "
                      f"({worst_state[1]}; tol {PASS_AB_STATE})")
-        for mode in ("off", "on"):
+        if exact and not bit_equal:
+            failed.append("the arms are not bit-equal")
+        for mode in modes:
             a = arms[mode]
             with passes_env(mode):
                 step = lambda: a["exe"].run(main_p, feed=dict(feed),  # noqa: E731
@@ -628,8 +673,8 @@ def main():
                     wall, busy, _ = profile_step(torch, step, f"{tag}, passes {mode}")
                     a["busy"], a["idle"] = busy, max(0.0, 1 - busy / wall)
                 a["host"] = host_breakdown(step, f"host {tag}, passes {mode}")
-        pass_note(f"{tag} A/B", arms["on"]["stats"][:2])
-        for mode in ("off", "on"):
+        pass_note(f"{tag} A/B", arms[test]["stats"][:2])
+        for mode in modes:
             a = arms[mode]
             a["p50"] = statistics.median(a["ms"][1:])
             opt_rows = {t: v for t, v in a["host"][2].items() if t in (
@@ -645,13 +690,15 @@ def main():
                   f"max_memory_allocated {a['peak'] / 2**20:.0f} MiB (both arms' state "
                   f"held); card {smi}")
         diff_at = "" if bit_equal or resnet else (
-            f"; first differing op {first_diff_op(main_p, state0, feed, fetch)}")
-        print(f"[passes] {tag}: losses off {arms['off']['losses']}, on "
-              f"{arms['on']['losses']}, max rel diff {worst_loss:.3e}; {gates}; "
+            f"; first differing op {first_diff_op(main_p, state0, feed, fetch, modes)}")
+        print(f"[passes] {tag}: losses {base} {arms[base]['losses']}, {test} "
+              f"{arms[test]['losses']}, max rel diff {worst_loss:.3e}; {gates}; "
               f"bit-equal {bit_equal}{diff_at}")
-        require(not failed, f"[{tag}] passes on vs off: {'; '.join(failed)}")
+        require(not failed, f"[{tag}] passes {test} vs {base}: {'; '.join(failed)}")
         return {m: dict(p50=arms[m]["p50"], busy=arms[m]["busy"], idle=arms[m]["idle"],
-                        host=arms[m]["host"][1], peak=arms[m]["peak"]) for m in arms}
+                        host=arms[m]["host"][1], peak=arms[m]["peak"],
+                        ops=(arms[m]["stats"][0] or {}).get("ops_after"),
+                        counters=arms[m]["counters"]) for m in arms}
 
     elapsed("phase 2")
     # ---- 2. build -------------------------------------------------------
@@ -1293,22 +1340,27 @@ def main():
         if not rehearsal:
             profile_step(torch, step, f"one {tag} step at b {b}")
 
-    def card_vs_cpu(tag, build, feed, lr, amp_dtype="bfloat16"):
+    def card_vs_cpu(tag, build, feed, lr, amp_dtype="bfloat16", second=None):
         """The same program and state on the card and on the CPU,
         PARITY_STEPS steps each: each step's loss within one ulp of the
         AMP type `amp_dtype` of the CPU loss; each persistable within
         phase 5's gates (2 * lr * steps, all but CLOSE_FRAC of its elements
         within CLOSE_ATOL), each widened by one ulp of the tensor's largest
-        element -> the card's launches over its steps."""
+        element -> the card's launches over its steps. `second`, a
+        (label, build) pair, puts another program on the card in the CPU
+        run's place, from the same state, under the same gates."""
         ulp_name = {"bfloat16": "bf16", "float16": "fp16"}[amp_dtype]
-        main_p, startup_p, handles, _ = build()
+        card = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+        what = f"card vs {second[0]} on the card" if second else "card vs CPU"
+        programs = [build(), second[1]() if second else None]
         runs = []
-        for place in (fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0), fluid.CPUPlace()):
+        for k, place in enumerate((card, card if second else fluid.CPUPlace())):
+            main_p, startup_p, handles, _ = programs[k] or programs[0]
             scope_p = fluid.Scope()
             exe_p = fluid.Executor(place)
             exe_p.run(startup_p, scope=scope_p)
             if runs:
-                fluid.io.set_persistables_from_numpy(scope_p, runs[0][1], "cpu")
+                fluid.io.set_persistables_from_numpy(scope_p, runs[0][1], exe_p.device)
             else:
                 state = {v.name: to_numpy(scope_p.get(v.name)) for v in main_p.list_vars()
                          if v.persistable and scope_p.has(v.name)}
@@ -1336,21 +1388,22 @@ def main():
             excess = float(d.max()) - (atol + widen)
             if excess > worst_excess:
                 worst_excess, worst_name = excess, f"{v.name} (max abs diff {d.max():.3e})"
-        print(f"[{tag}] card vs CPU, {PARITY_STEPS} steps ({card_s:.1f} s on the card, "
-              f"{cpu_s:.1f} s on the CPU): losses {card_l} vs {cpu_l} (tol one {ulp_name} ulp "
-              f"of the CPU loss); persistables: worst {worst_name}, {worst_excess:.3e} past "
+        print(f"[{tag}] {what}, {PARITY_STEPS} steps ({card_s:.1f} s, then {cpu_s:.1f} s): "
+              f"losses {card_l} vs {cpu_l} (tol one {ulp_name} ulp "
+              f"of the second loss); persistables: worst {worst_name}, {worst_excess:.3e} past "
               f"its gate {atol:.1e} + one {ulp_name} ulp of its largest element; {n_far} of "
               f"{n_all} elements beyond {CLOSE_ATOL} + that ulp (tol {CLOSE_FRAC:.0e} of "
               f"them); card launches {card_launch}")
-        require(loss_ok, f"[{tag}] card vs CPU losses {card_l} vs {cpu_l}")
+        require(loss_ok, f"[{tag}] {what}: losses {card_l} vs {cpu_l}")
         require(worst_excess <= 0 and n_far <= CLOSE_FRAC * n_all,
-                f"[{tag}] card vs CPU persistables: {worst_name}, {n_far} of {n_all} far")
+                f"[{tag}] {what}: persistables: {worst_name}, {n_far} of {n_all} far")
         return card_launch
 
     amp_cfg = train_cfg
     amp_want = dict(zero_launches, mha_short_fwd=amp_cfg.num_layers,
                     mha_short_bwd=amp_cfg.num_layers, layer_norm_bwd=2 * amp_cfg.num_layers + 2)
     amp_batches = [2, 4] if rehearsal else [8, 256]
+    amp_stats = {}  # batch -> (step p50 ms, peak bytes), beside phase 11's
     # the path's launches: the sum over its steps at each batch size (the
     # profiled and host-timed steps after them not counted)
     launches = dict(zero_launches)
@@ -1382,6 +1435,7 @@ def main():
             launches = {n: launches[n] + counts[n] for n in launches}
         losses_a = [g[0] for g in got]
         peak_a = torch.cuda.max_memory_allocated() if not rehearsal else 0
+        amp_stats[b_amp] = (statistics.median(ms[1:]), peak_a)
         require(all(math.isfinite(x) for x in losses_a), f"[amp] non-finite loss {losses_a}")
         require(losses_a[-1] < losses_a[0], f"[amp] the loss did not fall: {losses_a}")
         require(exe_t.recomputed_forwards == [], "[amp] an __auto_grad__ re-ran a forward")
@@ -2019,8 +2073,323 @@ def main():
                                                  "flash_bwd")),
                 f"[transformer unfused] launched an attention kernel: {got_launch}")
 
-    elapsed("phase 10")
-    # ---- 10. result ------------------------------------------------------
+    elapsed("phase 11")
+    # ---- 11. recompute: BERT-base under RecomputeOptimizer ----------------
+    # bench.py:bench_bert's recipe with BertConfig(recompute=True), each
+    # encoder layer one recompute_scope segment: mixed_precision.decorate(
+    # RecomputeOptimizer(Adam(1e-4))) in bf16, dropout 0.1, s 128, max_preds
+    # 20, at b 256 and b 8 (an out-of-memory error fails the run). The grads
+    # come from autograd over the forward with each layer in checkpoint: the
+    # short forward runs twice a layer (the forward and its recomputation),
+    # the short backward once, the LayerNorm backward kernel never (that
+    # grad is the autograd of the plain forward, as in the JAX step)
+    def recompute_cfg(cfg):
+        cfg.recompute = True
+        return cfg
+
+    rc_cfg = recompute_cfg(BertConfig.tiny() if rehearsal else BertConfig.base())
+    rc_opt = lambda: fluid.optimizer.RecomputeOptimizer(fluid.optimizer.Adam(LR))  # noqa: E731
+    rc_want = dict(zero_launches, mha_short_fwd=2 * rc_cfg.num_layers,
+                   mha_short_bwd=rc_cfg.num_layers)
+    rc_launches = dict(zero_launches)
+    kernels.reset_launch_counts()
+    for b_rc in reversed(amp_batches):
+        main_c, startup_c, h_c, _ = amp_pretrain(rc_cfg, b_rc, rc_opt, mlm_only=True,
+                                                 max_preds=tp)
+        require(getattr(main_c, "_recompute_loss", None) == h_c["loss"].name,
+                "[recompute] mixed_precision.decorate did not hand minimize to "
+                "RecomputeOptimizer")
+        segments = {op.attr("recompute_segment") for op in main_c.global_block().ops} - {None}
+        feed_c = bert_pretrain_feed(np, np.random.RandomState(args.seed), rc_cfg, b_rc, ts, tp)
+        scope_c = fluid.Scope()
+        if not rehearsal:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        exe_t.run(startup_c, scope=scope_c)
+        got, ms, per = run_steps(main_c, scope_c, feed_c, [h_c["loss"]], TRAIN_STEPS, exe_t,
+                                 tag=f"recompute b {b_rc}")
+        peak_c = torch.cuda.max_memory_allocated() if not rehearsal else 0
+        for counts in per:
+            rc_launches = {n: rc_launches[n] + counts[n] for n in rc_launches}
+        losses_c = [g[0] for g in got]
+        print(f"[recompute] BERT hidden {rc_cfg.hidden_size} x {rc_cfg.num_layers} layers, "
+              f"b {b_rc} s {ts}, bf16 AMP around RecomputeOptimizer(Adam({LR})): "
+              f"{len(main_c.global_block().ops)} ops, {len(segments)} recompute segments; "
+              f"launches a step {per[-1]}")
+        require(all(math.isfinite(x) for x in losses_c), f"[recompute] losses {losses_c}")
+        require(losses_c[-1] < losses_c[0], f"[recompute] the loss did not fall: {losses_c}")
+        require(exe_t.recomputed_forwards == [] and exe_t.deferred_forwards == [],
+                "[recompute] an __auto_grad__ ran: the step must skip the backward ops")
+        if not rehearsal:
+            require(all(c == rc_want for c in per), f"[recompute] launches a step {per}, "
+                    f"want {rc_want}")
+        step = lambda: exe_t.run(main_c, feed=dict(feed_c),  # noqa: E731
+                                 fetch_list=[h_c["loss"]], scope=scope_c)
+        step_report("recompute", b_rc, losses_c, ms, peak_c,
+                    bert_flops_per_token(rc_cfg, ts, tp), step)
+        p50_5b, peak_5b = amp_stats.get(b_rc, (float("nan"), 0))
+        p50_c = statistics.median(ms[1:])
+        print(f"[recompute] b {b_rc}: max_memory_allocated {peak_c / 2**20:.0f} MiB with "
+              f"recompute against {peak_5b / 2**20:.0f} MiB without (phase 5b, this run; "
+              f"ratio {peak_c / max(peak_5b, 1):.3f}); step p50 {p50_c:.2f} ms against "
+              f"{p50_5b:.2f} ms (ratio {p50_c / p50_5b:.3f}); card {smi}")
+        if b_rc == amp_batches[-1]:
+            host_breakdown(step, f"host recompute b {b_rc}")
+        del scope_c, step
+    path_launches["recompute"] = rc_launches
+    print(f"[recompute] launches over {TRAIN_STEPS} steps at each batch size: {rc_launches}")
+    # 2 layers at base width: the recompute step on the card against the
+    # CPU, then against the plain step on the card, from one state
+    cfg2_rc = recompute_cfg(BertConfig.tiny() if rehearsal else BertConfig(num_layers=2))
+    cfg2_plain = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
+    build_rc = lambda: amp_pretrain(cfg2_rc, tb, rc_opt, mlm_only=True,  # noqa: E731
+                                    max_preds=tp)
+    card_vs_cpu("recompute", build_rc, feed_2, LR)
+    card_vs_cpu("recompute", build_rc, feed_2, LR, second=(
+        "the plain step", lambda: amp_pretrain(cfg2_plain, tb, mlm_only=True, max_preds=tp)))
+
+    elapsed("phase 12")
+    # ---- 12. scan: fuse_layer_scan against the default passes --------------
+    # PADDLE_TPU_FUSE_LAYER_SCAN=1 against the default set, from one state,
+    # the arms' steps interleaved, under deterministic algorithms: BERT fp32
+    # b 8 (phase 5's program), BERT bf16 b 256 (phase 5b's) and the
+    # Transformer-base at b 256, s 64, bf16 (phase 9's). Losses and every
+    # persistable bit-equal over the steps, the same launches a step in both
+    # arms, no forward re-run
+    scan_cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    if rehearsal:
+        scan_cfg.num_layers = 4  # a forward run to fuse
+    scan_b = 4 if rehearsal else 256
+    nl_s = scan_cfg.num_layers
+    scan_want = dict(zero_launches, mha_short_fwd=nl_s, mha_short_bwd=nl_s,
+                     layer_norm_bwd=2 * nl_s + 2)
+    main_s1, startup_s1, loss_s1 = pretrain(scan_cfg)
+    main_s2, startup_s2, h_s2, _ = amp_pretrain(scan_cfg, scan_b, mlm_only=True, max_preds=tp)
+    main_s3, startup_s3, h_s3, _ = tf_programs(tcfg, tf_b)
+    scan_cases = [
+        (f"scan bert fp32 b {tb}", main_s1, startup_s1, feed, [loss_s1], None, 75),
+        (f"scan bert bf16 b {scan_b}", main_s2, startup_s2,
+         bert_pretrain_feed(np, np.random.RandomState(args.seed), scan_cfg, scan_b, ts, tp),
+         [h_s2["loss"]], "bfloat16", 75),
+        (f"scan transformer b {tf_b}", main_s3, startup_s3, feed_9, [h_s3["loss"]],
+         "bfloat16", 100),
+    ]
+    kernels.reset_launch_counts()
+    for tag, main_p, startup_p, feed_p, fetch_p, amp_dtype, ops_want in scan_cases:
+        want_p = tf_want if "transformer" in tag else scan_want
+        scope_p = fluid.Scope()
+        exe_t.run(startup_p, scope=scope_p)
+        state_p = snapshot(main_p, scope_p)
+        del scope_p
+        res = passes_ab(tag, main_p, state_p, feed_p, fetch_p, TRAIN_STEPS, want_p,
+                        amp_dtype=amp_dtype, modes=("on", "scan"), exact=True)
+        pass_ab[tag] = res
+        on, sc = res["on"], res["scan"]
+        print(f"[scan] {tag}: ops after the passes {on['ops']} (default) -> {sc['ops']} "
+              f"(with fuse_layer_scan), counters {sc['counters']}; step p50 "
+              f"{on['p50']:.2f} -> {sc['p50']:.2f} ms; host issue {on['host']:.2f} -> "
+              f"{sc['host']:.2f} ms; busy {on['busy']:.2f} -> {sc['busy']:.2f} ms, idle "
+              f"{on['idle']:.2f} -> {sc['idle']:.2f}; max_memory_allocated "
+              f"{on['peak'] / 2**20:.0f} -> {sc['peak'] / 2**20:.0f} MiB (both arms' state "
+              f"held); card {smi}")
+        if not rehearsal:
+            require(sc["ops"] == ops_want, f"[{tag}] {sc['ops']} ops after the passes with "
+                    f"fuse_layer_scan, the JAX package gives {ops_want}")
+        del state_p
+    path_launches["scan"] = kernels.launch_counts()
+    print(f"[scan] launches over the scan path (both arms, {TRAIN_STEPS} steps and a profiled "
+          f"and a timed step each): {path_launches['scan']}")
+
+    elapsed("phase 13")
+    # ---- 13. conv: VGG-16, SE-ResNeXt-50 and LeNet-5 training ---------------
+    # VGG-16 and SE-ResNeXt-50 at b 64, 224x224, 1000 classes,
+    # mixed_precision.decorate(Momentum(lr, 0.9)) in bf16; LeNet-5 at b 64,
+    # 1x28x28, fp32. Then VGG-11 and SE-ResNeXt-26 at b 2, 3 steps each from
+    # one state on the card and on the CPU, at phase 8's gates; then the new
+    # ops and their grads card vs CPU. The conv paths launch none of the
+    # kernels: their convolutions are cuDNN's, as the JAX package leaves
+    # them to XLA. SE-ResNeXt takes ResNet-50's lr 0.1 (bench_resnet);
+    # VGG and LeNet, whose fc stacks have no batch norm, take 0.01, the VGG
+    # paper's (at 0.1 VGG-16's loss went 6.97, 6.31, 6.56, 21.75, 42.5 on
+    # the card)
+    cv_b, cv_hw = (4, 32) if rehearsal else (64, 224)
+    cv_lrs = {"vgg": 0.01, "se_resnext": 0.01 if rehearsal else RN_LR, "lenet": 0.01}
+
+    def conv_programs(kind, b, hw, amp, depth=None, classes=1000):
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        main_p.random_seed = startup_p.random_seed = args.seed + 5
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            img = layers.data("img", [b, 1 if kind == "lenet" else 3, hw, hw],
+                              append_batch_size=False)
+            label = layers.data("label", [b, 1], dtype="int64", append_batch_size=False)
+            if kind == "vgg":
+                out = vgg.vgg(img, label, depth=depth, class_num=classes)
+            elif kind == "se_resnext":
+                out = se_resnext.se_resnext(img, label, depth=depth, class_num=classes)
+            else:
+                out = lenet.lenet5(img, label, class_num=classes)
+            opt = fluid.optimizer.Momentum(cv_lrs[kind], RN_MOMENTUM)
+            (mixed_precision.decorate(opt) if amp else opt).minimize(out[1])
+        return main_p, startup_p, out[1]
+
+    def conv_feed(b, channels, hw, classes, seed, device):
+        rs = np.random.RandomState(seed)
+        return {"img": torch.from_numpy(rs.rand(b, channels, hw, hw).astype("float32")).to(device),
+                "label": torch.from_numpy(rs.randint(0, classes, (b, 1)).astype("int64")).to(device)}
+
+    cv_place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    cv_launches = dict(zero_launches)
+    kernels.reset_launch_counts()
+    conv_cases = [("VGG-16", "vgg", 16, cv_b, cv_hw, 1000, True),
+                  (f"SE-ResNeXt-{26 if rehearsal else 50}", "se_resnext",
+                   26 if rehearsal else 50, cv_b, cv_hw, 1000, True),
+                  ("LeNet-5", "lenet", None, 8 if rehearsal else 64, 28, 10, False)]
+    for name, kind, depth, b, hw, classes, amp in conv_cases:
+        main_p, startup_p, loss_p = conv_programs(kind, b, hw, amp, depth, classes)
+        feed_p = conv_feed(b, 1 if kind == "lenet" else 3, hw, classes, args.seed, dev)
+        scope_p = fluid.Scope()
+        exe_p = fluid.Executor(cv_place)
+        if not rehearsal:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        exe_p.run(startup_p, scope=scope_p)
+        got, ms, per = run_steps(main_p, scope_p, feed_p, [loss_p], TRAIN_STEPS, exe_p,
+                                 tag=f"conv {name}")
+        peak_p = torch.cuda.max_memory_allocated() if not rehearsal else 0
+        for counts in per:
+            cv_launches = {n: cv_launches[n] + counts[n] for n in cv_launches}
+        losses_p = [g[0] for g in got]
+        p50_p = statistics.median(ms[1:])
+        print(f"[conv] {name}, b {b}, {hw}x{hw}, {'bf16 AMP around ' if amp else ''}"
+              f"Momentum({cv_lrs[kind]}, {RN_MOMENTUM}), {len(main_p.global_block().ops)} ops: losses "
+              f"{losses_p}; step time p50 {p50_p:.2f} ms over steps 2-{TRAIN_STEPS} (first "
+              f"{ms[0]:.2f} ms); {b / p50_p * 1e3:.1f} images/s; max_memory_allocated "
+              f"{peak_p / 2**20:.0f} MiB (startup state + {TRAIN_STEPS} steps); card {smi}")
+        require(all(math.isfinite(x) for x in losses_p), f"[conv] {name}: losses {losses_p}")
+        require(losses_p[-1] < losses_p[0], f"[conv] {name}: the loss did not fall: {losses_p}")
+        require(exe_p.recomputed_forwards == [], f"[conv] {name}: an __auto_grad__ re-ran a "
+                f"forward: {exe_p.recomputed_forwards}")
+        step = lambda: exe_p.run(main_p, feed=dict(feed_p),  # noqa: E731
+                                 fetch_list=[loss_p], scope=scope_p)
+        if not rehearsal:
+            profile_step(torch, step, f"one {name} training step at b {b}")
+        if kind != "lenet":
+            host_breakdown(step, f"host {name}")
+        del scope_p, exe_p, step
+    path_launches["conv"] = cv_launches
+    print(f"[conv] launches over {TRAIN_STEPS} steps of each model: {cv_launches}")
+    require(cv_launches == zero_launches, f"the conv path launched a kernel: {cv_launches}")
+
+    # card vs CPU: VGG-11 and SE-ResNeXt-26 at b 2, fp32, each of 3 steps
+    # from the same state, at phase 8's gates
+    for name, kind, depth in (("VGG-11", "vgg", 11), ("SE-ResNeXt-26", "se_resnext", 26)):
+        main_p, startup_p, loss_p = conv_programs(kind, RN_PARITY_BATCH, cv_hw, False, depth)
+        feed_c = conv_feed(RN_PARITY_BATCH, 3, cv_hw, 1000, args.seed + 1, dev)
+        feed_h = {n: t.cpu() for n, t in feed_c.items()}
+        scopes = {"card": fluid.Scope(), "cpu": fluid.Scope()}
+        exes = {"card": fluid.Executor(cv_place), "cpu": fluid.Executor(fluid.CPUPlace())}
+        exes["card"].run(startup_p, scope=scopes["card"])
+        exes["cpu"].run(startup_p, scope=scopes["cpu"])
+        persist = [v.name for v in main_p.list_vars() if v.persistable]
+        worst_loss, worst_stat, worst_grad = 0.0, (0.0, ""), (0.0, "")
+        for i in range(PARITY_STEPS):
+            state = {n: to_numpy(scopes["card"].get(n)) for n in persist
+                     if scopes["card"].has(n)}
+            fluid.io.set_persistables_from_numpy(scopes["cpu"], state, "cpu")
+            ls = {w: float(exes[w].run(main_p, feed=dict(feed_c if w == "card" else feed_h),
+                                       fetch_list=[loss_p], scope=scopes[w])[0].reshape(-1)[0])
+                  for w in ("card", "cpu")}
+            loss_rel = abs(ls["card"] - ls["cpu"]) / abs(ls["cpu"])
+            stat, grad = (0.0, ""), (0.0, "")
+            for n in persist:
+                a, c = to_numpy(scopes["card"].get(n)), to_numpy(scopes["cpu"].get(n))
+                if n.endswith((".mean", ".var")):
+                    stat = max(stat, (float(np.abs(a - c).max() / max(float(np.abs(c).max()),
+                                                                      1e-12)), n))
+                else:
+                    grad = max(grad, (float(np.linalg.norm(a - c) / max(
+                        float(np.linalg.norm(c)), 1e-12)), n))
+            print(f"[conv] card vs CPU, {name} b {RN_PARITY_BATCH} {cv_hw}x{cv_hw} fp32 step "
+                  f"{i + 1} from the same state: losses {ls['card']} vs {ls['cpu']} (rel diff "
+                  f"{loss_rel:.3e}, tol {RN_LOSS_RTOL}); running stats max|diff| / max|value| "
+                  f"{stat[0]:.3e} ({stat[1]}; tol {RN_STAT_RTOL}); parameters and velocities "
+                  f"|diff| / |value| {grad[0]:.3e} ({grad[1]}; tol {RN_GRAD_NRTOL})")
+            worst_loss = max(worst_loss, loss_rel)
+            worst_stat, worst_grad = max(worst_stat, stat), max(worst_grad, grad)
+        require(worst_loss <= RN_LOSS_RTOL and worst_stat[0] <= RN_STAT_RTOL
+                and worst_grad[0] <= RN_GRAD_NRTOL,
+                f"{name} card vs CPU: loss rel diff {worst_loss}, running stats "
+                f"{worst_stat}, parameters and velocities {worst_grad}")
+        del scopes, exes, state
+
+    # the new ops and their grads, card vs CPU on the same inputs
+    def op_case(build):
+        """A program of one op and the grads of its inputs -> (main, startup,
+        fetch list)."""
+        main_p, startup_p = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+            out, inputs = build()
+            g = layers.data("g", list(out.shape), append_batch_size=False, stop_gradient=True)
+            fetch = [out] + fluid.gradients([out], inputs, target_gradients=[g])
+        return main_p, startup_p, fetch
+
+    def data(name, shape):
+        return layers.data(name, shape, append_batch_size=False, stop_gradient=False)
+
+    def conv_t_op(groups, pads, out_shape):
+        x, w = data("x", [2, 4, 5, 5]), data("w", [4, 6 // groups, 3, 3])
+        out = fluid.default_main_program().global_block().create_var(
+            name="conv_t_out", shape=out_shape, dtype="float32")
+        fluid.default_main_program().global_block().append_op(
+            "conv2d_transpose", {"Input": [x], "Filter": [w]}, {"Output": [out]},
+            {"strides": [2, 2], "paddings": pads, "dilations": [1, 1], "groups": groups})
+        return out, [x, w]
+
+    rs_op = np.random.RandomState(args.seed + 6)
+    op_cases = {
+        "sigmoid": lambda: (lambda x: (layers.sigmoid(x), [x]))(data("x", [3, 7])),
+        "adaptive_pool2d avg 4x3 of 9x7": lambda: (lambda x: (layers.adaptive_pool2d(
+            x, [4, 3], pool_type="avg"), [x]))(data("x", [2, 3, 9, 7])),
+        "adaptive_pool2d max 3x1 of 9x7": lambda: (lambda x: (layers.adaptive_pool2d(
+            x, [3, 1], pool_type="max"), [x]))(data("x", [2, 3, 9, 7])),
+        "conv2d_transpose s2 groups 2": lambda: conv_t_op(2, [1, 1], [2, 6, 9, 9]),
+        "conv2d_transpose s2 pads 0,1,1,0": lambda: conv_t_op(1, [0, 1, 1, 0],
+                                                              [2, 6, 10, 10]),
+        "conv3d s[1,2,1] p1 groups 2": lambda: (lambda x: (layers.conv3d(
+            x, 6, 3, stride=[1, 2, 1], padding=1, groups=2), [x]))(data("x", [2, 4, 5, 6, 7])),
+    }
+    for name, build in op_cases.items():
+        main_p, startup_p, fetch = op_case(build)
+        block = main_p.global_block()
+        feed_o = {}
+        for v in block.vars.values():
+            if v.is_data:
+                shape = [d if d > 0 else 1 for d in v.shape]
+                feed_o[v.name] = rs_op.randn(*shape).astype("float32")
+        outs = []
+        for place in (cv_place, fluid.CPUPlace()):
+            scope_o = fluid.Scope()
+            exe_o = fluid.Executor(place)
+            exe_o.run(startup_p, scope=scope_o)
+            if outs:  # the CPU takes the card's parameters
+                fluid.io.set_persistables_from_numpy(scope_o, outs[0][1], "cpu")
+            params = {v.name: to_numpy(scope_o.get(v.name)) for v in main_p.list_vars()
+                      if v.persistable and scope_o.has(v.name)}
+            outs.append((exe_o.run(main_p, feed=dict(feed_o), fetch_list=fetch, scope=scope_o),
+                         params))
+        worst = max(float(np.abs(a - c).max() / max(1.0, float(np.abs(c).max())))
+                    for a, c in zip(outs[0][0], outs[1][0]))
+        print(f"[conv] {name}: op and grads card vs CPU max|diff| / max(1, max|value|) "
+              f"{worst:.3e} (tol 1e-4); shapes {[tuple(o.shape) for o in outs[0][0]]}")
+        require(worst <= 1e-4 and all(np.isfinite(o).all() for o in outs[0][0]),
+                f"[conv] {name}: card vs CPU {worst}")
+
+    elapsed("phase 14")
+    # ---- 14. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -2043,8 +2412,9 @@ def main():
         print(f"[result] launches on the {path} path's run: {counts}")
     for path, counts in causal_launches.items():
         print(f"[result] causal attention launches on the {path} path's run: {counts}")
-    print("[result] passes off / on (ms; MiB): " + json.dumps(
-        {path: {mode: {k: round(v / 2**20 if k == "peak" else v, 2) for k, v in arm.items()}
+    print("[result] passes off / on, and on / scan (ms; MiB): " + json.dumps(
+        {path: {mode: {k: round(v / 2**20 if k == "peak" else v, 2) for k, v in arm.items()
+                       if isinstance(v, (int, float))}
                 for mode, arm in arms.items()} for path, arms in pass_ab.items()}))
     line = []
     for name, rows in results.items():

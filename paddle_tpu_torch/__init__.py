@@ -18,17 +18,20 @@ pretraining (the masked-LM and next-sentence heads, every attention
 path of `BertConfig`) with SGD, Momentum, Adam, AdamW or Lamb, weight
 decay (`regularizer`) and gradient clipping (`clip`), in fp32 or under
 AMP with static or dynamic loss scaling (`contrib.mixed_precision.
-decorate`, bf16 or fp16); ResNet training and serving; and the
-Transformer (`models.transformer`: training, and incremental decode
-through an encode and a decode-step program, with beam search in
-`decoding`). The Executor runs the JAX package's default Program passes
-(`passes/`: const_fold, copy_prop, dce, fuse_conv_bn, layout_opt,
-fuse_optimizer) over a cached clone of each Program before it walks it;
-PADDLE_TPU_PASSES=none turns them off.
+decorate`, bf16 or fp16), also with activation recomputation
+(`recompute_scope`, `optimizer.RecomputeOptimizer`); ResNet, VGG,
+SE-ResNeXt and LeNet-5 training, and ResNet serving; and the Transformer
+(`models.transformer`: training, and incremental decode through an
+encode and a decode-step program, with beam search in `decoding`). The
+Executor runs the JAX package's default Program passes (`passes/`:
+const_fold, copy_prop, dce, fuse_conv_bn, layout_opt, fuse_optimizer)
+over a cached clone of each Program before it walks it;
+PADDLE_TPU_PASSES=none turns them off, and PADDLE_TPU_FUSE_LAYER_SCAN=1
+adds fuse_layer_scan.
 """
 
 from . import (clip, contrib, decoding, inference, initializer, io, layers, models,
-               optimizer, param_attr, passes, profiler, regularizer)
+               nets, optimizer, param_attr, passes, profiler, regularizer)
 from .backward import append_backward, calc_gradient, gradients
 from .compiler import BuildStrategy
 from .executor import Executor
@@ -38,6 +41,7 @@ from .framework import (
     default_main_program,
     default_startup_program,
     program_guard,
+    recompute_scope,
     unique_name,
 )
 from .param_attr import ParamAttr

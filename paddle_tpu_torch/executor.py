@@ -39,6 +39,17 @@ the next run of the eval clone folds again. A second run of the same
 Program runs no pass. `last_pass_stats` holds the stats of the passes a
 run ran (None when it found them cached), with their wall time.
 
+A Program that `optimizer.RecomputeOptimizer` minimized (it names
+`_recompute_loss`) trains as the JAX executor's recompute step does
+(`_make_recompute_step`, executor.py:411-590 there): its explicit
+backward ops are skipped; the forward ops run as one graph from the
+trainable parameters to the loss, each run of consecutive ops with one
+`recompute_segment` tag inside torch.utils.checkpoint, which returns the
+names read after the segment and recomputes the other activations in the
+backward instead of holding them; `torch.autograd.grad`
+gives the `<param>@GRAD` each optimizer op reads, and the optimizer and
+learning-rate ops run after it under no_grad (`_run_recompute`).
+
 Every run draws its randomness from the threefry key
 `fold_in(key(program.random_seed or 42), runs so far + 1)`, the key the
 JAX executor threads into the same run (executor.py:889-891 there), so
@@ -53,9 +64,18 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from . import ops  # noqa: F401  (registers the lowerings)
-from .framework import Parameter, Program, Variable, core_op_role, default_main_program
+from .framework import (
+    GRAD_SUFFIX,
+    Parameter,
+    Program,
+    Variable,
+    core_op_role,
+    default_main_program,
+    op_reads,
+)
 from .ops import prng
 from .ops.registry import (
     TORCH_DTYPE,
@@ -112,6 +132,131 @@ def _run_training(ctx, block):
                 lower_op(ctx, op)
         else:
             lower_forward_op(ctx, op, users)
+
+
+def _segment_fn(ctx, ops, reads, out_names, counter):
+    """The function torch.utils.checkpoint runs for one recompute segment:
+    the segment's ops lowered in a child context that holds only the
+    names it reads, returning the names it defines that are read after
+    it. `counter` is the parent's rng counter when the segment first ran,
+    so the recomputation draws what the first run drew."""
+
+    def fn(*vals):
+        sub = ctx.child()
+        sub._rng_counter = counter + 1000
+        sub.values = dict(zip(reads, vals))
+        for op in ops:
+            lower_op(sub, op)
+        return tuple(sub.get(n) for n in out_names)
+
+    return fn
+
+
+def _run_recompute(ctx, program, block, feed_names, fetch_names):
+    """The RecomputeOptimizer step (`_make_recompute_step` in the JAX
+    executor): the forward-role ops under enable_grad from requires-grad
+    leaves of the parameters the optimizer updates, with no graph cut,
+    each segment in non-reentrant checkpoint; the grads by autograd from
+    the loss; then the Optimize / LRSched ops under no_grad in a context
+    of the state and the grads, keyed `fold_in(run key, 7)`. Leaves each
+    state name's new value in `ctx.values` and returns the fetches."""
+    post_role = core_op_role.Optimize | core_op_role.LRSched
+    roles = [op.attrs.get("op_role") or 0 for op in block.ops]
+    fwd_ops = [op for op, r in zip(block.ops, roles)
+               if not r & (post_role | core_op_role.Backward)]
+    post_ops = [op for op, r in zip(block.ops, roles) if r & post_role]
+    state_names = set()
+    for op in block.ops:
+        for n in op.input_arg_names() + op.output_arg_names():
+            v = block._find_var_recursive(n) if n else None
+            if v is not None and v.persistable:
+                state_names.add(n)
+    grad_names = sorted({n for op in post_ops for n in op.input_arg_names()
+                         if n.endswith(GRAD_SUFFIX)})
+    param_names = [n[:-len(GRAD_SUFFIX)] for n in grad_names]
+    for p in param_names:
+        if p not in state_names:
+            raise RuntimeError(f"recompute: optimizer reads {p}@GRAD but {p} is not "
+                               "persistable state")
+    groups = []  # (segment or None, [ops]), consecutive ops of one tag
+    for op in fwd_ops:
+        seg = op.attrs.get("recompute_segment")
+        if groups and groups[-1][0] == seg:
+            groups[-1][1].append(op)
+        else:
+            groups.append((seg, [op]))
+    # what each group's later ops, the fetches, the state and the loss
+    # read: a segment returns only those of its names, and its other
+    # activations die with it (the JAX step's unread checkpoint outputs
+    # are dead code to XLA)
+    read_after = []
+    acc = set(fetch_names) | state_names | {program._recompute_loss}
+    for _, ops in reversed(groups):
+        read_after.append(set(acc))
+        acc.update(n for op in ops for n in op_reads(op))
+    read_after.reverse()
+    fwd_produced = {n for op in fwd_ops for n in op.output_arg_names()} | set(feed_names)
+    fwd_fetches = [n for n in fetch_names
+                   if n in fwd_produced and not n.endswith(GRAD_SUFFIX)]
+    post_outs = {n for op in post_ops for n in op.output_arg_names()}
+    for n in fetch_names:
+        if not (n in fwd_fetches or n in grad_names or n in state_names
+                or n in post_outs):
+            raise RuntimeError(
+                f"fetch {n!r} is not available under RecomputeOptimizer (backward "
+                "intermediates are rematerialized, not stored) — fetch it without "
+                "recompute")
+
+    params = [ctx.values[p].detach().requires_grad_(True) for p in param_names]
+    ctx.values.update(zip(param_names, params))
+    with torch.enable_grad():
+        for gi, (seg, ops) in enumerate(groups):
+            if seg is None:
+                for op in ops:
+                    lower_op(ctx, op)
+                continue
+            # each segment its own stream of counter draws, as in the JAX step
+            ctx._rng_counter += 1000 * (gi + 1)
+            reads, defined = [], set()
+            for op in ops:
+                for n in op.input_arg_names():
+                    if n and n not in defined and ctx.has(n) and n not in reads:
+                        reads.append(n)
+                defined.update(n for n in op.output_arg_names() if n)
+            out_names = sorted(defined & read_after[gi])
+            outs = torch.utils.checkpoint.checkpoint(
+                _segment_fn(ctx, ops, reads, out_names, ctx._rng_counter),
+                *[ctx.get(n) for n in reads], use_reentrant=False)
+            ctx.values.update(zip(out_names, outs))
+        loss = ctx.get(program._recompute_loss).reshape(())
+    fwd_vals = {n: ctx.get(n) for n in fwd_fetches}
+    mid_state = {n: ctx.values.get(n) for n in state_names}
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = {g: torch.zeros_like(p) if d is None else d
+             for g, p, d in zip(grad_names, params, grads)}
+
+    post = LoweringContext(program, device=ctx.device, generator=ctx.generator,
+                           rng_key=prng.fold_in(ctx.rng_key, 7))
+    post.values.update({n: v.detach() for n, v in mid_state.items() if v is not None})
+    post.values.update(grads)
+    with torch.no_grad():
+        for op in post_ops:
+            lower_op(post, op)
+    new_state = {n: post.values[n] if n in post.values else mid_state[n]
+                 for n in state_names
+                 if n in post.values or mid_state[n] is not None}
+    ctx.values.update(new_state)
+    fetches = []
+    for n in fetch_names:
+        if n in fwd_vals:
+            fetches.append(fwd_vals[n])
+        elif n in grads:
+            fetches.append(grads[n])
+        elif n in new_state:
+            fetches.append(new_state[n])  # the value after the update
+        else:
+            fetches.append(post.get(n))
+    return [f.detach() for f in fetches]
 
 
 class Executor:
@@ -233,7 +378,10 @@ class Executor:
             ctx.values[name] = as_tensor(value, v.dtype if v is not None else None,
                                          self.device)
 
-        if training:
+        fetches = None
+        if training and getattr(program, "_recompute_loss", None):
+            fetches = _run_recompute(ctx, program, block, list(feed), fetch_names)
+        elif training:
             _run_training(ctx, block)
         else:
             with torch.inference_mode():
@@ -248,7 +396,8 @@ class Executor:
                 v = block._find_var_recursive(n) if n else None
                 if v is not None and v.persistable:
                     scope.set(n, ctx.values[n].detach())
-        fetches = [ctx.get(n).detach() for n in fetch_names]
+        if fetches is None:
+            fetches = [ctx.get(n).detach() for n in fetch_names]
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches

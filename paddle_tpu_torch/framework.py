@@ -26,6 +26,7 @@ __all__ = [
     "default_main_program",
     "default_startup_program",
     "program_guard",
+    "recompute_scope",
     "unique_name",
     "convert_dtype",
     "is_float_dtype",
@@ -260,6 +261,10 @@ class Operator:
             self.outputs[slot] = [_var_name(v) for v in _as_list(vars_)]
         if "op_role" not in self.attrs:
             self.attrs["op_role"] = core_op_role.Forward
+        # the segment of an enclosing recompute_scope
+        seg = getattr(getattr(block, "program", None), "_current_recompute_segment", None)
+        if seg is not None and "recompute_segment" not in self.attrs:
+            self.attrs["recompute_segment"] = seg
         self.callsite = _caller_outside_framework()
 
     def input(self, slot):
@@ -612,6 +617,21 @@ def program_guard(main_program: Program, startup_program: Program = None):
         switch_main_program(old_main)
         if old_startup is not None:
             switch_startup_program(old_startup)
+
+
+@contextlib.contextmanager
+def recompute_scope(segment):
+    """Tag the ops created in this scope as one recomputation segment
+    (`attrs["recompute_segment"]`). Under optimizer.RecomputeOptimizer the
+    Executor runs each segment in torch.utils.checkpoint: its activations
+    are recomputed in the backward instead of held across the step."""
+    prog = default_main_program()
+    old = getattr(prog, "_current_recompute_segment", None)
+    prog._current_recompute_segment = segment
+    try:
+        yield
+    finally:
+        prog._current_recompute_segment = old
 
 
 def cuda_places(device_ids=None):

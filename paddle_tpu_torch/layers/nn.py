@@ -35,7 +35,10 @@ __all__ = [
     "clip_by_norm",
     "square_error_cost",
     "conv2d",
+    "conv2d_transpose",
+    "conv3d",
     "pool2d",
+    "adaptive_pool2d",
     "batch_norm",
     "softmax",
     "cross_entropy",
@@ -421,6 +424,87 @@ def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1, gro
     )
     pre_act = helper.append_bias_op(out, bias_attr, num_filters, 1)
     return helper.append_activation(pre_act)
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None, padding=0,
+                     stride=1, dilation=1, groups=1, param_attr=None, bias_attr=None,
+                     act=None, name=None):
+    """conv2d_transpose over NCHW input with a [in_c, num_filters / groups,
+    kh, kw] filter (paddle_tpu/layers/nn.py:420-471): `filter_size` is
+    required and `output_size` is taken but not read, as there."""
+    helper = LayerHelper("conv2d_transpose", name=name, act=act)
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    groups = groups or 1
+    if filter_size is None:
+        raise ValueError("filter_size required")
+    ksize = _pair(filter_size)
+    w = helper.create_parameter(param_attr, [input.shape[1], num_filters // groups] + ksize,
+                                dtype=input.dtype)
+
+    def _o(i, k, p, s, d):
+        if i in (-1, None):
+            return -1
+        return (i - 1) * s - 2 * p + d * (k - 1) + 1
+
+    out_shape = (input.shape[0], num_filters,
+                 _o(input.shape[2], ksize[0], padding[0], stride[0], dilation[0]),
+                 _o(input.shape[3], ksize[1], padding[1], stride[1], dilation[1]))
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="conv2d_transpose",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding, "dilations": dilation,
+               "groups": groups},
+    )
+    pre_act = helper.append_bias_op(out, bias_attr, num_filters, 1)
+    return helper.append_activation(pre_act)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0, dilation=1, groups=1,
+           param_attr=None, bias_attr=None, use_cudnn=True, act=None, name=None):
+    """conv3d over NCDHW input, OIDHW filter initialized Normal(0,
+    sqrt(2 / fan_in)) (paddle_tpu/layers/nn.py:2639-2673)."""
+    helper = LayerHelper("conv3d", name=name, act=act)
+
+    def _triple(v):
+        return [v] * 3 if isinstance(v, int) else list(v)
+
+    ks, st, pd, dl = (_triple(v) for v in (filter_size, stride, padding, dilation))
+    groups = groups or 1
+    c_in = input.shape[1]
+    fan_in = (c_in // groups) * ks[0] * ks[1] * ks[2]
+    w = helper.create_parameter(param_attr, [num_filters, c_in // groups] + ks,
+                                dtype=input.dtype,
+                                default_initializer=Normal(0.0, (2.0 / fan_in) ** 0.5))
+    out_shape = tuple([input.shape[0], num_filters] + [
+        _conv_out_dim(input.shape[2 + i], ks[i], pd[i], st[i], dl[i]) for i in range(3)])
+    out = helper.create_variable_for_type_inference(input.dtype, out_shape)
+    helper.append_op(
+        type="conv3d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": st, "paddings": pd, "dilations": dl, "groups": groups},
+    )
+    pre_act = helper.append_bias_op(out, bias_attr, num_filters, 1)
+    return helper.append_activation(pre_act)
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max", require_index=False, name=None):
+    """pool2d with adaptive=True: the output's H, W are `pool_size`
+    whatever the input's (paddle_tpu/layers/api_tail.py:65-87)."""
+    if require_index:
+        raise NotImplementedError("require_index=True (argmax outputs) is not supported")
+    if pool_type not in ("max", "avg"):
+        raise ValueError(f"pool_type must be 'max' or 'avg', got {pool_type}")
+    ksize = [pool_size] * 2 if isinstance(pool_size, int) else list(pool_size)
+    helper = LayerHelper("adaptive_pool2d", name=name)
+    return _single_out(helper, "pool2d", {"X": [input]},
+                       {"pooling_type": pool_type, "ksize": ksize, "adaptive": True,
+                        "global_pooling": False},
+                       shape=tuple(input.shape[:2]) + tuple(ksize))
 
 
 def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1, pool_padding=0,

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["tanh", "sqrt", "sign"]
+__all__ = ["sigmoid", "tanh", "sqrt", "sign"]
 
 
 def _make(op_type):
@@ -20,6 +20,7 @@ def _make(op_type):
     return f
 
 
+sigmoid = _make("sigmoid")
 tanh = _make("tanh")
 sqrt = _make("sqrt")
 sign = _make("sign")

@@ -1,3 +1,3 @@
 """Model zoo: the models ported so far."""
 
-from . import bert, resnet, transformer  # noqa: F401
+from . import bert, lenet, resnet, se_resnext, transformer, vgg  # noqa: F401

@@ -11,8 +11,9 @@ tied to the word embedding or a separate `mlm.out` fc
 (`max_preds`) or over every position, and, unless `mlm_only`, the
 next-sentence head on the first token. The JAX package's environment
 switches PADDLE_TPU_FUSED_QKV / PADDLE_TPU_ATTN_LAYOUT (TPU A/B knobs) are
-not read: with them unset the defaults are equal. `recompute` and
-pipeline stages raise (ROADMAP Queue 1, item 3, "recompute", and item 9).
+not read: with them unset the defaults are equal. `recompute` puts each
+encoder layer in a `recompute_scope(i)`, for optimizer.RecomputeOptimizer;
+pipeline stages raise (ROADMAP Queue 1, item 9).
 
 The tensor-parallel PartitionSpec annotations of the JAX model are
 recorded on the Program (`_sharding_specs`, as tuples of axis names) and
@@ -20,10 +21,11 @@ read by nothing yet: sharding is a later slice."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 from .. import layers
-from ..framework import default_main_program
+from ..framework import default_main_program, recompute_scope
 from ..initializer import Constant, TruncatedNormal
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
@@ -180,12 +182,9 @@ def _encoder_layer(x, attn_bias, cfg, name, is_test):
 def bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
                  is_test=False, pp_stages=1):
     """Final hidden states [b, s, h]; with is_test=False, hidden and
-    attention dropout as the config sets them. Recomputation and pipeline
-    stages are not ported and raise."""
-    if cfg.recompute:
-        raise NotImplementedError(
-            "BertConfig.recompute needs RecomputeOptimizer and recompute_scope, which "
-            "are not ported yet (ROADMAP Queue 1, item 3, 'recompute')")
+    attention dropout as the config sets them; with cfg.recompute each
+    layer one recompute segment. Pipeline stages are not ported and
+    raise."""
     if pp_stages > 1:
         raise NotImplementedError(
             "pp_stages > 1 needs the pipeline executor, which is not ported yet "
@@ -194,7 +193,9 @@ def bert_encoder(input_ids, segment_ids, position_ids, input_mask, cfg,
     x, attn_bias = _bert_embedding(
         input_ids, segment_ids, position_ids, input_mask, cfg, is_test, init)
     for i in range(cfg.num_layers):
-        x = _encoder_layer(x, attn_bias, cfg, f"bert.layer{i}", is_test)
+        # one recompute segment a layer under RecomputeOptimizer
+        with recompute_scope(i) if cfg.recompute else contextlib.nullcontext():
+            x = _encoder_layer(x, attn_bias, cfg, f"bert.layer{i}", is_test)
     return x
 
 

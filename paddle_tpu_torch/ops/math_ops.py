@@ -181,6 +181,7 @@ def _unary(name, fn, **reg_kwargs):
 
 
 _unary("relu", torch.relu)
+_unary("sigmoid", torch.sigmoid)
 _unary("tanh", torch.tanh)
 _unary("sqrt", torch.sqrt)
 _unary("sign", torch.sign, differentiable=False)

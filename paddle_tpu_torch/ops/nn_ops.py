@@ -1,10 +1,11 @@
-"""conv2d, pool2d, batch_norm (forward and grad), layer_norm (forward and
-grad), dropout (forward and grad), softmax (forward and grad),
-softmax_with_cross_entropy (forward and grad), cross_entropy,
-square_error_cost and lookup_table lowerings.
+"""conv2d, conv2d_transpose, conv3d, pool2d, batch_norm (forward and
+grad), layer_norm (forward and grad), dropout (forward and grad), softmax
+(forward and grad), softmax_with_cross_entropy (forward and grad),
+cross_entropy, square_error_cost and lookup_table lowerings.
 
-Convolutions go to `F.conv2d` (cuDNN on the card), as the JAX package
-leaves them to `lax.conv_general_dilated` outside any Pallas kernel. The
+Convolutions go to `F.conv2d`, `F.conv_transpose2d` and `F.conv3d`
+(cuDNN on the card), as the JAX package leaves them to
+`lax.conv_general_dilated` outside any Pallas kernel. The
 batch-norm forward and grad are the JAX package's own formulas, not
 `F.batch_norm`: shifted one-pass statistics, the biased batch variance in
 the running variance, and 1/sqrt(var + eps) in SavedVariance.
@@ -107,6 +108,50 @@ def _depthwise_conv2d(ctx, op):
     _conv2d(ctx, op)
 
 
+@register_op("conv2d_transpose")
+def _conv2d_transpose(ctx, op):
+    """NCHW input, fluid filter [in_c, out_c / groups, kh, kw] (torch's
+    conv_transpose2d layout); out = (i - 1) * stride - pad_lo - pad_hi +
+    (k - 1) * dilation + 1 per dim, any groups (nn_ops.py:130-200 there).
+    Unequal pads crop the unpadded output. String paddings raise: the
+    layers never emit them."""
+    x = ctx.in_(op, "Input")
+    w = ctx.in_(op, "Filter")
+    strides = list(op.attr("strides", [1, 1]))
+    dilations = list(op.attr("dilations", [1, 1]))
+    groups = op.attr("groups", 1) or 1
+    pads = _conv_padding(op.attr("paddings", [0, 0]), 2)
+    if isinstance(pads, str):
+        raise NotImplementedError(
+            "conv2d_transpose with SAME / VALID string paddings — pass explicit pads")
+    if all(lo == hi for lo, hi in pads):
+        out = F.conv_transpose2d(x, w, None, strides, [lo for lo, _ in pads], 0,
+                                 groups, dilations)
+    else:
+        out = F.conv_transpose2d(x, w, None, strides, 0, 0, groups, dilations)
+        out = out[:, :, pads[0][0]:out.shape[2] - pads[0][1],
+                  pads[1][0]:out.shape[3] - pads[1][1]]
+    ctx.out(op, "Output", out)
+
+
+@register_op("conv3d")
+def _conv3d(ctx, op):
+    """NCDHW input, OIDHW filter (nn_ops.py:203-215 there)."""
+    x = ctx.in_(op, "Input")
+    w = ctx.in_(op, "Filter")
+    strides = list(op.attr("strides", [1, 1, 1]))
+    dilations = list(op.attr("dilations", [1, 1, 1]))
+    pads = _explicit_pads(_conv_padding(op.attr("paddings", [0, 0, 0]), 3),
+                          x.shape[2:], w.shape[2:], strides, dilations)
+    if all(lo == hi for lo, hi in pads):
+        padding = [lo for lo, _ in pads]
+    else:
+        x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
+        padding = [0, 0, 0]
+    ctx.out(op, "Output", F.conv3d(x, w, None, strides, padding, dilations,
+                                   op.attr("groups", 1) or 1))
+
+
 # ---------------------------------------------------------------------------
 # pooling
 # ---------------------------------------------------------------------------
@@ -118,15 +163,19 @@ def _pool2d(ctx, op):
     pooling, explicit or SAME / VALID paddings, `exclusive` avg (divide by
     the window's in-bounds count wherever there is padding) and
     `ceil_mode`, which pads the end of each dim by stride - 1 as the JAX
-    lowering does. Adaptive pooling is not ported yet."""
+    lowering does; and adaptive pooling to an output of `ksize`
+    (`_adaptive_pool`)."""
     x = ctx.in_(op, "X")
     ptype = op.attr("pooling_type", "max")
     ksize = list(op.attr("ksize", [2, 2]))
     strides = list(op.attr("strides", ksize))
     nhwc = op.attr("data_format", "NCHW") == "NHWC"
-    if op.attr("adaptive", False):
-        raise NotImplementedError("pool2d: adaptive pooling is not ported yet")
-    if op.attr("global_pooling", False):
+    global_pool = op.attr("global_pooling", False)
+    adaptive = op.attr("adaptive", False)
+    if adaptive and not global_pool and ksize != [1, 1]:
+        ctx.out(op, "Out", _adaptive_pool(x, ptype, ksize, nhwc))
+        return
+    if global_pool or adaptive:
         dims = (1, 2) if nhwc else (2, 3)
         out = (x.amax(dim=dims, keepdim=True) if ptype == "max"
                else x.mean(dim=dims, keepdim=True))
@@ -152,6 +201,41 @@ def _pool2d(ctx, op):
         else:
             out = summed / float(np.prod(ksize))
     ctx.out(op, "Out", out.permute(0, 2, 3, 1) if nhwc else out)
+
+
+def _adaptive_mask(size, out_size, device):
+    """[out_size, size] float32 bin membership: bin i covers
+    [floor(i * size / out), ceil((i + 1) * size / out)), the reference's
+    adaptive windows (nn_ops.py:224-235 there)."""
+    idx = np.arange(size)
+    starts = np.floor(np.arange(out_size) * size / out_size)
+    ends = np.ceil((np.arange(out_size) + 1) * size / out_size)
+    m = (idx[None, :] >= starts[:, None]) & (idx[None, :] < ends[:, None])
+    return torch.from_numpy(m.astype(np.float32)).to(device)
+
+
+def _adaptive_pool(x, ptype, ksize, nhwc):
+    """NCHW adaptive pooling to [oh, ow] = ksize, as the JAX lowering does
+    it (nn_ops.py:275-301 there): an even split reshapes and reduces; an
+    uneven avg sums each bin through the membership masks in float32 and
+    divides by the bin's count; an uneven max raises, as there."""
+    if nhwc:
+        # layout_opt converts no adaptive pool but the [1, 1] one
+        raise ValueError("pool2d: adaptive pooling has no NHWC lowering — layout_opt "
+                         "should not have converted this op")
+    n, c, h, w = x.shape
+    oh, ow = ksize
+    if h % oh == 0 and w % ow == 0:
+        xr = x.reshape(n, c, oh, h // oh, ow, w // ow)
+        return xr.amax(dim=(3, 5)) if ptype == "max" else xr.mean(dim=(3, 5))
+    if ptype == "max":
+        raise ValueError(f"adaptive max pool needs output sizes dividing the input "
+                         f"({oh}x{ow} vs {h}x{w}); use avg, or an even split")
+    row_m = _adaptive_mask(h, oh, x.device)
+    col_m = _adaptive_mask(w, ow, x.device)
+    sums = torch.einsum("ih,jw,nchw->ncij", row_m, col_m, x.float())
+    cnt = torch.einsum("ih,jw->ij", row_m, col_m)
+    return (sums / cnt).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@
 Each registered op provides a lowering: a function that reads torch
 tensors from the LoweringContext and writes its outputs back. The
 executor runs a Block by lowering its ops one after another, eagerly —
-where the JAX package traces the same walk into one XLA computation.
+where the JAX package traces the same walk into one XLA computation. A
+`layer_scan` op (ops/scan_ops.py) lowers its template ops once per layer
+in a body context, whose `var_id` / `rng_for` see each template name as
+that layer's own variable.
 
 Backward ops come from `backward.append_backward`: custom grad ops where
 the forward op's OpDef names a grad maker, and otherwise the generic
@@ -11,10 +14,16 @@ the forward op's OpDef names a grad maker, and otherwise the generic
 forward inside `jax.vjp` and XLA CSE merges the two copies
 (paddle_tpu/ops/registry.py:341-465). Eager torch has no CSE, so here it
 pulls the cotangents through the autograd graph that the forward op
-itself recorded (`lower_forward_op`, `_auto_grad_lower`).
+itself recorded (`lower_forward_op`, `_auto_grad_lower`). The graphs
+are keyed by the crc32 of the forward's output names (`var_id`), which a
+`layer_scan` body knows for each layer from its crc table: so a fused
+backward layer finds the graph its forward recorded, fused or not.
 """
 
 from __future__ import annotations
+
+import functools
+import zlib
 
 import torch
 
@@ -30,6 +39,7 @@ __all__ = [
     "lower_op",
     "lower_forward_op",
     "graph_users",
+    "scan_crc_maps",
 ]
 
 # int64 stays int64 (embedding lookups want long ids); float64 runs as
@@ -98,11 +108,16 @@ class LoweringContext:
     `generator` is the torch.Generator the startup program's initializers
     draw from. `rng_key` is the run's threefry key (ops/prng.py), from
     which dropout derives its masks exactly as the JAX package does.
-    `tape` maps each forward op that recorded a graph (by its outputs) to
-    the leaves its graph starts from; `recomputed` collects the op types
-    whose `__auto_grad__` had to re-run the forward because it had none,
-    and `deferred` those whose forward op the dead-op pass removed, so
-    that it runs once, in its `__auto_grad__`."""
+    `tape` maps each forward op that recorded a graph (`_tape_key`: its
+    type and the ids of its outputs) to the leaves its graph starts from
+    and the outputs it ends in, both by id; `recomputed` collects the op
+    types whose `__auto_grad__` had to re-run the forward because it had
+    none, and `deferred` those whose forward op the dead-op pass removed,
+    so that it runs once, in its `__auto_grad__`. `crcs` is None but in a
+    `layer_scan` body, where it maps each template name to the crc32 of
+    this layer's name for it. `graph_users` holds the tape keys a
+    training step's `__auto_grad__` ops read while a forward `layer_scan`
+    lowers (lower_forward_op), else None."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -113,9 +128,11 @@ class LoweringContext:
         self.rng_key = rng_key
         self._rng_counter = 0
         self.is_test = is_test
-        self.tape: dict[tuple, dict[str, torch.Tensor]] = {}
+        self.tape: dict[tuple, tuple[dict, dict]] = {}
         self.recomputed: set[str] = set()
         self.deferred: set[str] = set()
+        self.crcs = None
+        self.graph_users = None
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -161,11 +178,18 @@ class LoweringContext:
         self._rng_counter += 1
         return prng.fold_in(self._key(), self._rng_counter)
 
+    def var_id(self, name):
+        """The crc32 of the variable `name` stands for, 31 bits: the name's
+        own, or in a `layer_scan` body the current layer's name's."""
+        return _var_id(self.crcs, name)
+
     def rng_for(self, name):
         """Key derived from a variable name, not the lowering order: a
         forward op and its grad op see the identical key
-        (paddle_tpu/ops/registry.py:240-252)."""
-        return prng.name_key(self._key(), name)
+        (paddle_tpu/ops/registry.py:240-252; prng.name_key); in a
+        `layer_scan` body, the key of the current layer's name
+        (scan_ops.py:45-85 there)."""
+        return prng.fold_in(self._key(), self.var_id(name))
 
     def amp_dtype_for(self, op):
         """The AMP compute dtype of this op, or None (fp32)."""
@@ -183,11 +207,23 @@ class LoweringContext:
                 else v for v in vals]
 
     def child(self):
+        """A context for re-running ops inside this one: the same key and
+        name ids, counter draws 1000 further on."""
         sub = LoweringContext(self.program, self.device, self.generator,
                               self.rng_key, self.is_test)
         sub._rng_counter = self._rng_counter + 1000
         sub.recomputed = self.recomputed
         sub.deferred = self.deferred
+        sub.crcs = self.crcs
+        return sub
+
+    def scan_body(self, crcs):
+        """The context of one `layer_scan` iteration: `crcs` maps template
+        names to this layer's crcs; the tape is this context's, so a
+        layer's forward records where its backward looks."""
+        sub = self.child()
+        sub.crcs = crcs
+        sub.tape = self.tape
         return sub
 
 
@@ -269,15 +305,42 @@ def _is_float(v):
     return isinstance(v, torch.Tensor) and v.is_floating_point()
 
 
-def _tape_key(outputs):
-    return tuple((slot, tuple(names)) for slot, names in outputs.items())
+def _var_id(crcs, name):
+    """`name`'s crc from a layer's crc map, else the crc32 of the name
+    itself, 31 bits (what `rng_for` folds into the run key)."""
+    if crcs is not None and name in crcs:
+        return crcs[name]
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
+
+
+def _tape_key(var_id, fwd_type, outputs):
+    """A forward op's graph's key: its type and the ids of its outputs."""
+    return (fwd_type, tuple((slot, tuple(var_id(n) if n else "" for n in names))
+                            for slot, names in sorted(outputs.items())))
+
+
+def scan_crc_maps(op):
+    """A `layer_scan` op's template name -> crc maps, one per layer."""
+    names, rows = op.attr("crc_names") or [], op.attr("crc_rows") or []
+    return [{nm: row[k] for nm, row in zip(names, rows)}
+            for k in range(int(op.attr("num_iters")))]
 
 
 def graph_users(block):
     """Tape keys of the forward ops whose grads an `__auto_grad__` op of
-    `block` pulls through the forward's graph."""
-    return {_tape_key(op.attr("fwd_outputs")) for op in block.ops
-            if op.type == "__auto_grad__"}
+    `block` pulls through the forward's graph, those inside a
+    `layer_scan`'s template ops too, once per layer."""
+    users = set()
+    for op in block.ops:
+        if op.type == "__auto_grad__":
+            users.add(_tape_key(functools.partial(_var_id, None), op.attr("fwd_type"),
+                                op.attr("fwd_outputs")))
+        elif op.type == "layer_scan":
+            grads = [t for t in op.attr("template_ops") if t.type == "__auto_grad__"]
+            for crcs in scan_crc_maps(op) if grads else ():
+                users.update(_tape_key(functools.partial(_var_id, crcs), t.attr("fwd_type"),
+                                       t.attr("fwd_outputs")) for t in grads)
+    return users
 
 
 def lower_forward_op(ctx: LoweringContext, op, users):
@@ -293,8 +356,17 @@ def lower_forward_op(ctx: LoweringContext, op, users):
     layer_norm, dropout, softmax, ...) records no graph, whose saved
     tensors would live until the end of the step: it runs under no_grad,
     and its float outputs become fresh requires-grad leaves when an input
-    required grad, so the ops after it still record theirs."""
-    if _tape_key(op.outputs) not in users:
+    required grad, so the ops after it still record theirs. A `layer_scan`
+    lowers each template op of each layer through this function."""
+    if op.type == "layer_scan":
+        ctx.graph_users = users
+        try:
+            lower_op(ctx, op)
+        finally:
+            ctx.graph_users = None
+        return
+    key = _tape_key(ctx.var_id, op.type, op.outputs)
+    if key not in users:
         tracked = any(isinstance(t, torch.Tensor) and t.requires_grad
                       for t in (ctx.values.get(n) for n in op.input_arg_names() if n))
         with torch.no_grad():
@@ -323,7 +395,8 @@ def lower_forward_op(ctx: LoweringContext, op, users):
             if n not in produced:
                 ctx.values[n] = t
     if leaves:
-        ctx.tape[_tape_key(op.outputs)] = leaves
+        outs = {ctx.var_id(n): ctx.values[n] for n in produced if n and n in ctx.values}
+        ctx.tape[key] = ({ctx.var_id(n): t for n, t in leaves.items()}, outs)
 
 
 @register_op("__auto_grad__", differentiable=False)
@@ -355,11 +428,16 @@ def _auto_grad_lower(ctx, op):
                  if slot not in opdef.stateful_outputs
                  for i, n in enumerate(names) if n]
 
-    leaves = ctx.tape.get(_tape_key(fwd_outputs), {})
-    ins = [leaves.get(n) for _, _, n in diff_in]
-    # an output is unbound where the dead-op pass dropped the forward op
-    # (passes/dce.py: an unfetched loss reaches no other op)
-    outs = [ctx.values.get(n) for _, _, n in out_order]
+    entry = ctx.tape.get(_tape_key(ctx.var_id, fwd_type, fwd_outputs))
+    if entry is not None:
+        leaves, recorded = entry
+        ins = [leaves.get(ctx.var_id(n)) for _, _, n in diff_in]
+        outs = [recorded.get(ctx.var_id(n)) for _, _, n in out_order]
+    else:
+        # an output is unbound where the dead-op pass dropped the forward
+        # op (passes/dce.py: an unfetched loss reaches no other op)
+        ins = [None] * len(diff_in)
+        outs = [ctx.values.get(n) for _, _, n in out_order]
     unbound = any(t is None for t in outs)
     if unbound or any(t is None for t in ins) or not any(
             _is_float(t) and t.requires_grad for t in outs):

@@ -6,7 +6,7 @@ both packages hold the same persistables under the same names.
 Ported so far, in static-graph mode: SGD, Momentum, Adam, AdamW and Lamb,
 with weight decay (`regularization=`, or a ParamAttr's `regularizer`,
 regularizer.py) and gradient clipping (`grad_clip=`, or the program-wide
-`clip.set_gradient_clip`)."""
+`clip.set_gradient_clip`); and RecomputeOptimizer around any of them."""
 
 from __future__ import annotations
 
@@ -23,7 +23,8 @@ from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
 __all__ = ["Optimizer", "SGD", "SGDOptimizer", "Momentum", "MomentumOptimizer",
-           "Adam", "AdamOptimizer", "AdamW", "Lamb", "LambOptimizer"]
+           "Adam", "AdamOptimizer", "AdamW", "Lamb", "LambOptimizer",
+           "RecomputeOptimizer"]
 
 
 class Optimizer:
@@ -211,6 +212,31 @@ class LambOptimizer(AdamOptimizer):
 
     def _adam_attrs(self):
         return {**super()._adam_attrs(), "weight_decay": self._weight_decay}
+
+
+class RecomputeOptimizer:
+    """Activation recomputation (`paddle_tpu/optimizer.py:935-958`).
+    Segments are declared when the model is built, with
+    `recompute_scope(i)`; `minimize` delegates to the inner optimizer and
+    names the loss on the program, and the Executor then takes the grads
+    by autograd over the forward ops alone, each segment in
+    torch.utils.checkpoint (executor.py `_run_recompute`)."""
+
+    def __init__(self, inner_optimizer):
+        self.inner_optimizer = inner_optimizer
+
+    def _set_checkpoints(self, checkpoints):
+        # the reference API's cut points by variable name; the segments
+        # here come from recompute_scope's tags
+        self._checkpoints = checkpoints
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self.inner_optimizer.minimize(
+            loss, startup_program=startup_program,
+            parameter_list=parameter_list, no_grad_set=no_grad_set)
+        loss.block.program._recompute_loss = loss.name
+        return result
 
 
 SGD = SGDOptimizer

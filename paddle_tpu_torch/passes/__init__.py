@@ -21,6 +21,11 @@ order:
                    transposes only at the regions' edges; on the card the
                    NHWC tensors are channels_last memory for cuDNN
                    (passes/layout_opt.py)
+  * fuse_layer_scan  OPT-IN (PADDLE_TPU_FUSE_LAYER_SCAN=1 or
+                   BuildStrategy.fuse_layer_scan): one `layer_scan` op per
+                   run of structurally identical layer blocks, forward
+                   and backward (passes/fuse_layer_scan.py, lowered by
+                   ops/scan_ops.py)
   * fuse_optimizer one fused_<type> op per group of per-parameter
                    sgd / momentum / adam / adamw / lamb ops, lowered
                    multi-tensor on torch._foreach_* (passes/fuse_optimizer.py,
@@ -39,10 +44,9 @@ pass_<name>_ops_removed, pass_manager_us, program_ops_before / _after).
 
 Not ported with this module: the IR verifier hook (PADDLE_TPU_VERIFY in
 the JAX package), which needs `analysis/verifier.py` and the static shape
-functions of `ops/shape_fns.py` (ROADMAP Queue 1, item 11); the opt-in
-`fuse_layer_scan` pass, which needs the `layer_scan` lowering (Queue 1,
-item 3, with `recompute`); and `shard_propagation`, which needs the
-autoshard planner and a mesh (Queue 1, item 9).
+functions of `ops/shape_fns.py` (ROADMAP Queue 1, item 11); and
+`shard_propagation`, which needs the autoshard planner and a mesh (Queue
+1, item 9).
 """
 
 from __future__ import annotations
@@ -134,9 +138,10 @@ def register_pass(name: str, strategy_knob: str = None, version: int = 1):
 def _opt_in_gates():
     """name -> enabled(build_strategy) for the default-off passes, looked
     up lazily: the gate modules import this package."""
+    from .fuse_layer_scan import enabled as _scan_on
     from .optimizer_overlap import enabled as _overlap_on
 
-    return {"optimizer_overlap": _overlap_on}
+    return {"fuse_layer_scan": _scan_on, "optimizer_overlap": _overlap_on}
 
 
 def resolve_pass_names(build_strategy=None) -> tuple:
@@ -248,13 +253,15 @@ def apply_program_passes(
 # constants first (exposes dead feeder chains), then copy propagation
 # (drops backward's grad-accumulation assigns), then DCE, then the
 # inference conv+BN fold (removes BN ops before layout assignment sees
-# them), then NHWC layout propagation (on the cleaned graph), then
-# optimizer fusion (on the final op list), then the opt-in overlap split
-# of the fused waves
+# them), then NHWC layout propagation (on the cleaned graph), then the
+# opt-in layer scan (the backward run must see the raw per-parameter grad
+# producers), then optimizer fusion (on the final op list), then the
+# opt-in overlap split of the fused waves
 from . import const_fold as _const_fold  # noqa: E402,F401
 from . import copy_prop as _copy_prop  # noqa: E402,F401
 from . import dce as _dce  # noqa: E402,F401
 from . import fuse_conv_bn as _fuse_conv_bn  # noqa: E402,F401
 from . import layout_opt as _layout_opt  # noqa: E402,F401
+from . import fuse_layer_scan as _fuse_layer_scan  # noqa: E402,F401
 from . import fuse_optimizer as _fuse_optimizer  # noqa: E402,F401
 from . import optimizer_overlap as _optimizer_overlap  # noqa: E402,F401

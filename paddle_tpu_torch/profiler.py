@@ -6,7 +6,10 @@ threads bump concurrently). The Transformer's incremental decode bumps
 arrive as feeds. The pass manager (passes/) bumps `pass_<name>_us`,
 `pass_<name>_ops_removed`, `pass_manager_us`, `program_ops_before` /
 `_after`, and layout_opt sets `transpose_ops_before` / `_after` and bumps
-`pass_layout_opt_transposes_removed`. The spans, tables and `CounterSet`
+`pass_layout_opt_transposes_removed`; fuse_layer_scan bumps
+`scan_fused_runs` (runs collapsed into one `layer_scan` op),
+`scan_fused_layers` (segments absorbed by those runs) and
+`scan_fused_ops_removed` (net ops removed). The spans, tables and `CounterSet`
 come with the server slice (ROADMAP Queue 1, item 5)."""
 
 from __future__ import annotations

@@ -99,7 +99,7 @@ def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
         f"paddle_tpu_torch.passes.{p.stem}"
         for p in sorted((ROOT / "paddle_tpu_torch" / "passes").glob("*.py"))
         if p.stem != "__init__"]
-    assert len(mods) == 9
+    assert len(mods) == 10
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -228,7 +228,8 @@ def test_resnet50_eval_clone_folds_like_jax():
 
 
 def test_registry_has_the_passes():
-    assert set(PASS_REGISTRY) == set(DEFAULT_PASSES) | {"optimizer_overlap"}
+    assert set(PASS_REGISTRY) == set(DEFAULT_PASSES) | {"optimizer_overlap",
+                                                        "fuse_layer_scan"}
     assert resolve_pass_names() == DEFAULT_PASSES
 
 

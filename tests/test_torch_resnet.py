@@ -674,13 +674,16 @@ def test_fp16_and_loss_scaling_raise(kwargs):
 
 
 def test_adaptive_pool_raises():
+    """Adaptive pooling is ported (tests/test_torch_conv_models.py holds it
+    against the JAX lowering); an adaptive max pool over bins that do not
+    divide the input still raises, as the JAX lowering does."""
     main, startup = tfluid.Program(), tfluid.Program()
     with tfluid.program_guard(main, startup), tfluid.unique_name.guard():
         x = _data(tfluid, "x", [2, 4, 9, 9])
-        out = _raw_op(tfluid, "pool2d", {"X": [x]}, {"pooling_type": "avg", "ksize": [3, 3],
+        out = _raw_op(tfluid, "pool2d", {"X": [x]}, {"pooling_type": "max", "ksize": [4, 4],
                                                       "adaptive": True}, "Out", None)
     exe = tfluid.Executor(tfluid.CPUPlace())
-    with pytest.raises(NotImplementedError, match="adaptive"):
+    with pytest.raises(ValueError, match="adaptive"):
         exe.run(main, feed={"x": X_NCHW}, fetch_list=[out], scope=tfluid.Scope())
 
 
