@@ -515,7 +515,8 @@ def main():
         gates (the AMP loss within one bf16 ulp). Each step of each arm runs
         on the card and launches `want`, the main path's launches a step.
         Then one profiled step and one host breakdown a arm -> {arm:
-        summary}. `modes` names the two arms, passes_env's modes: the
+        summary}; the test arm's summary holds `launches`, its timed
+        steps' launches summed. `modes` names the two arms, passes_env's modes: the
         layer-scan A/B runs ("on", "scan"), where `exact` asks the arms to
         be bit-equal."""
         elapsed(f"[passes] {tag}: A/B")
@@ -540,7 +541,8 @@ def main():
             for n, t in state0.items():
                 scope.set(n, t.clone())
             arms[mode] = dict(scope=scope, exe=fluid.Executor(ab_place), ms=[], losses=[],
-                              stats=[], peak=0, counters={})
+                              stats=[], peak=0, counters={},
+                              launches=dict.fromkeys(kernels.launch_counts(), 0))
         worst_loss, worst_state, worst_stat, worst_norm = 0.0, (0.0, ""), (0.0, ""), (0.0, "")
         bit_equal = True
         failed = []  # gates missed, raised after the A/B's lines are printed
@@ -583,6 +585,8 @@ def main():
                     if not rehearsal:
                         a["peak"] = max(a["peak"], torch.cuda.max_memory_allocated())
                     got = {n: c - before[n] for n, c in kernels.launch_counts().items()}
+                    for n, c in got.items():
+                        a["launches"][n] += c
                 if i == 0:  # the counters the passes bumped at the first run
                     a["counters"] = {k: v - counters0.get(k, 0) for k, v in
                                      fluid.profiler.counters().items()
@@ -698,7 +702,8 @@ def main():
         return {m: dict(p50=arms[m]["p50"], busy=arms[m]["busy"], idle=arms[m]["idle"],
                         host=arms[m]["host"][1], peak=arms[m]["peak"],
                         ops=(arms[m]["stats"][0] or {}).get("ops_after"),
-                        counters=arms[m]["counters"]) for m in arms}
+                        counters=arms[m]["counters"], launches=arms[m]["launches"])
+                for m in arms}
 
     elapsed("phase 2")
     # ---- 2. build -------------------------------------------------------
@@ -2176,7 +2181,9 @@ def main():
         (f"scan transformer b {tf_b}", main_s3, startup_s3, feed_9, [h_s3["loss"]],
          "bfloat16", 100),
     ]
-    kernels.reset_launch_counts()
+    # the scan path's launches: the fused arm's timed steps only, as
+    # run_steps counts the other paths'
+    path_launches["scan"] = dict(zero_launches)
     for tag, main_p, startup_p, feed_p, fetch_p, amp_dtype, ops_want in scan_cases:
         want_p = tf_want if "transformer" in tag else scan_want
         scope_p = fluid.Scope()
@@ -2187,6 +2194,8 @@ def main():
                         amp_dtype=amp_dtype, modes=("on", "scan"), exact=True)
         pass_ab[tag] = res
         on, sc = res["on"], res["scan"]
+        for n, c in sc["launches"].items():
+            path_launches["scan"][n] += c
         print(f"[scan] {tag}: ops after the passes {on['ops']} (default) -> {sc['ops']} "
               f"(with fuse_layer_scan), counters {sc['counters']}; step p50 "
               f"{on['p50']:.2f} -> {sc['p50']:.2f} ms; host issue {on['host']:.2f} -> "
@@ -2198,9 +2207,8 @@ def main():
             require(sc["ops"] == ops_want, f"[{tag}] {sc['ops']} ops after the passes with "
                     f"fuse_layer_scan, the JAX package gives {ops_want}")
         del state_p
-    path_launches["scan"] = kernels.launch_counts()
-    print(f"[scan] launches over the scan path (both arms, {TRAIN_STEPS} steps and a profiled "
-          f"and a timed step each): {path_launches['scan']}")
+    print(f"[scan] launches over the scan path (the fused arm's {TRAIN_STEPS} timed steps "
+          f"of each case): {path_launches['scan']}")
 
     elapsed("phase 13")
     # ---- 13. conv: VGG-16, SE-ResNeXt-50 and LeNet-5 training ---------------

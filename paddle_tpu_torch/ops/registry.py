@@ -115,9 +115,7 @@ class LoweringContext:
     none, and `deferred` those whose forward op the dead-op pass removed,
     so that it runs once, in its `__auto_grad__`. `crcs` is None but in a
     `layer_scan` body, where it maps each template name to the crc32 of
-    this layer's name for it. `graph_users` holds the tape keys a
-    training step's `__auto_grad__` ops read while a forward `layer_scan`
-    lowers (lower_forward_op), else None."""
+    this layer's name for it."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -132,7 +130,6 @@ class LoweringContext:
         self.recomputed: set[str] = set()
         self.deferred: set[str] = set()
         self.crcs = None
-        self.graph_users = None
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -357,13 +354,16 @@ def lower_forward_op(ctx: LoweringContext, op, users):
     tensors would live until the end of the step: it runs under no_grad,
     and its float outputs become fresh requires-grad leaves when an input
     required grad, so the ops after it still record theirs. A `layer_scan`
-    lowers each template op of each layer through this function."""
+    lowers each template op of each layer through this function.
+
+    Within one step every forward op, and every layer of a scan body,
+    records once, so a tape key that is already there can only be two
+    ops whose output ids collide: that raises rather than let one
+    `__auto_grad__` pull its grads through the other's graph."""
     if op.type == "layer_scan":
-        ctx.graph_users = users
-        try:
-            lower_op(ctx, op)
-        finally:
-            ctx.graph_users = None
+        from .scan_ops import lower_layer_scan  # scan_ops imports this module
+
+        lower_layer_scan(ctx, op, users)
         return
     key = _tape_key(ctx.var_id, op.type, op.outputs)
     if key not in users:
@@ -395,6 +395,9 @@ def lower_forward_op(ctx: LoweringContext, op, users):
             if n not in produced:
                 ctx.values[n] = t
     if leaves:
+        if key in ctx.tape:
+            raise RuntimeError(f"two {op.type!r} ops share the tape key {key}: their "
+                               f"output ids collide ({sorted(produced)})")
         outs = {ctx.var_id(n): ctx.values[n] for n in produced if n and n in ctx.values}
         ctx.tape[key] = ({ctx.var_id(n): t for n, t in leaves.items()}, outs)
 

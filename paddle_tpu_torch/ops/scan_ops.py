@@ -42,6 +42,13 @@ from .registry import lower_forward_op, lower_op, register_op, scan_crc_maps
 @register_op("layer_scan", differentiable=False)
 def _layer_scan(ctx, op):
     """One fused run; see passes/fuse_layer_scan.py for its attrs."""
+    lower_layer_scan(ctx, op)
+
+
+def lower_layer_scan(ctx, op, users=None):
+    """One fused run. With `users`, a training step's tape keys
+    (graph_users), each template op lowers through `lower_forward_op`
+    and records its graph; without, through `lower_op`."""
     tops = op.attr("template_ops")
     n = int(op.attr("num_iters"))
     carry_ins = op.input("Carry")
@@ -49,7 +56,6 @@ def _layer_scan(ctx, op):
     stacked_tpls = op.attr("stacked_templates") or []
     stacked_names = op.input("Stacked")
     ys = list(zip(op.attr("ys_templates") or [], op.attr("ys_names") or []))
-    users = ctx.graph_users
     inv = {nm: ctx.get(nm) for nm in op.input("Inv")}
     carry = [ctx.get(nm) for nm in carry_ins]
     for k, crcs in enumerate(scan_crc_maps(op)):

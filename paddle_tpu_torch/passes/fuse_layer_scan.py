@@ -9,10 +9,12 @@ per-layer grad closures that backward.py emits are themselves repeated
 segments (one a layer, in reverse layer order, chained through the
 output-grad partials), so the same detector fuses the backward region in
 a second run; the forward run re-exposes, under their own names, the
-per-layer activations the backward reads (`StackedOut`). On the card
-each fused op is one op the Executor issues from Python instead of
-hundreds: it saves host issue time, where the JAX package saves trace
-and compile time.
+per-layer activations the backward reads (`StackedOut`). The JAX package
+saves trace and compile time so. Here the body still issues every
+template op from Python, so the fusion saves no host issue time
+(chip_smoke.py's scan phase measures it no lower, PERF.md); what falls
+is peak memory, because each layer's intermediate bindings die with its
+iteration.
 
 Segment equivalence is proven, not pattern-matched:
   * a per-op structural signature (type, role, slot arity and declared

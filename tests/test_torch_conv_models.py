@@ -26,13 +26,19 @@ Tolerances, each with its reason:
   from the JAX state: at b 4 and 32x32 the last blocks' batch norms
   normalise 4 values a channel and amplify a summation-order difference
   about a hundredfold a step, so free-running steps part after the
-  second. SE-ResNeXt-26's first-step grads are worse conditioned still:
-  the port's own step, with its input moved by one float32 ulp, moves
-  the velocities by up to 17% of their largest element (1.8% of their
-  norm; sx3a_a.w_0), and the port and the JAX package differ by as much.
-  So there the parameters and velocities are held within 5e-2 of their
-  norm (measured: 2.5e-2), the losses and batch-norm statistics at the
-  gates above.
+  second. SE-ResNeXt-26's grads are discontinuous at every size tried:
+  a relu input within rounding of zero flips, and the grad of every
+  tensor upstream of it jumps. The port's own step, with its input
+  moved by one float32 ulp, moves the velocities by up to 17% of their
+  largest element (sx3a_a.w_0), and the JAX package's own step so moved
+  differs from it unmoved as the port does (b 16 at 64x64: 7.87e-2 of
+  sx5a_c.w_0's velocity, one output channel, either way). A larger size
+  does not remove it: the worst elementwise gap over three steps was
+  1.5e-1 at b 8 on 64x64, 7.9e-2 at b 16 on 64x64, 1.2e-1 at b 32 on
+  32x32 and 1.5e-1 at b 8 on 128x128. So there the velocities and each
+  parameter's change in the step (param - param before it) are held
+  within 5e-2 of their norm (measured: 2.5e-2, sx3a_a_bn.w_1's change),
+  the losses and batch-norm statistics at the gates above.
 
 The `gpu` test (`python -m pytest -m gpu --noconftest
 tests/test_torch_conv_models.py` on the card) runs the new ops and their
@@ -124,7 +130,8 @@ STEP_CASES = {
 
 
 def _ill_conditioned(model, name):
-    """SE-ResNeXt's parameters and velocities (see the docstring)."""
+    """SE-ResNeXt's parameters and velocities, held by their changes'
+    norms (see the docstring)."""
     return model == "se_resnext26" and not name.endswith((".mean", ".var"))
 
 
@@ -149,7 +156,8 @@ def test_model_steps_match_jax(name):
     launches = dict(LAUNCHES)
     losses = []
     for step in range(3):
-        tfluid.io.set_persistables_from_numpy(tscope, _numpy_state(jscope, names), "cpu")
+        before = _numpy_state(jscope, names)
+        tfluid.io.set_persistables_from_numpy(tscope, before, "cpu")
         jl = float(np.asarray(jexe.run(jmain, feed=dict(feed), fetch_list=[jh[1]],
                                        scope=jscope)[0]).reshape(-1)[0])
         tl = float(np.asarray(texe.run(tmain, feed=dict(feed), fetch_list=[th[1]],
@@ -160,7 +168,8 @@ def test_model_steps_match_jax(name):
         for n in names:
             t = to_numpy(tscope.get(n))
             if _ill_conditioned(name, n):
-                norm = max(float(np.linalg.norm(js[n])), 1e-6)
+                base = 0 if "_velocity_" in n else before[n]
+                norm = max(float(np.linalg.norm(js[n] - base)), 1e-6)
                 assert np.linalg.norm(t - js[n]) <= 5e-2 * norm, (step, n)
                 continue
             scale = max(float(np.abs(js[n]).max()), 1e-6)
