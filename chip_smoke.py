@@ -114,13 +114,40 @@
             from one state card vs CPU at phase 8's gates; sigmoid,
             adaptive pool2d, conv2d_transpose and conv3d, op and grads,
             card vs CPU within 1e-4
-14. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+14. serving at scale  14a: BERT-base (fp32, s 128) exported with a batch
+            placeholder and served in-process by a batch-of-1 server
+            (max_queue 16) and a coalescing one (10 ms window, buckets 1..64,
+            max_queue 256, every bucket prewarmed); 64 client threads in a
+            closed loop, 512 one-row requests of seeded lengths a server
+            (a shed request sent again after its Retry-After):
+            requests/s, p50, p99, serve_batch_size_p50 (> 1 or the run
+            fails), dispatches, padded rows, 12 short forward launches a
+            dispatch; every coalesced reply an intact row of its merged
+            dispatch, a second dispatch of each merged batch bit-equal to
+            the first, every reply within 1e-4 of its batch-of-1 dispatch
+            (bit-equality counted); each bucket dispatched twice (bit-equal)
+            and its rows against batch-of-1; card vs CPU within 1e-3; one
+            profiled bucket-64 dispatch. 14b: the server as a subprocess on
+            the card with a ready-file: a PADDLE_TPU_FAULTS plan fails 3
+            requests, /healthz answers 503 breaker_open, the probe recovers
+            it; then 16 requests parked by a hold rule, SIGTERM, /healthz 503
+            draining, a new request 503, all 16 replies 200 and whole, exit 0
+            within --drain-timeout. 14c: prefill-role, decode-role and
+            unified servers over the paged KV cache (default profile), 64
+            concurrent /generate requests (prompts of 8-40 tokens, max_new
+            16), then the same split through /prefill and /decode: every
+            split reply bit-equal to the unified one; tokens/s, p50, p99,
+            decode-step ms (wall over kv_decode_steps), peak kv_pages_in_use,
+            one profiled decode step; at the JAX package's toy width (card
+            vs CPU: the same tokens, logits within rtol 1e-5) and at
+            BERT-base's attention width (12 heads of 64, vocab 30522)
+15. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
-transformer, decode, recompute, scan, conv) runs with every launch
-count set to 0 just before it and read just after; a kernel of the path
-that was not launched fails the run.
+transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced)
+runs with every launch count set to 0 just before it and read just
+after; a kernel of the path that was not launched fails the run.
 
 Every phase runs the Program after the Executor's default passes
 (paddle_tpu_torch/passes/); each training and serving phase prints its
@@ -160,11 +187,13 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -795,7 +824,8 @@ def main():
         checks = [("mha_short_fwd", (2, 4, 32, 32, 16), "bshd", True, False, False),
                   ("mha_short_fwd", (1, 2, 20, 13, 16), "bshd", False, True, False),
                   ("flash_fwd", (1, 2, 600, 600, 16), "bhsd", True, True, True),
-                  ("mha_short_fwd", (2, 4, 16, 16, 16), "bshd", True, True, False)]
+                  ("mha_short_fwd", (2, 4, 16, 16, 16), "bshd", True, True, False),
+                  ("mha_short_fwd", (8, 4, 32, 32, 16), "bshd", True, False, False)]
     else:
         checks = [("mha_short_fwd", (8, 12, 128, 128, 64), "bshd", True, False, False),
                   ("mha_short_fwd", (8, 12, 128, 128, 64), "bhsd", True, False, False),
@@ -808,7 +838,10 @@ def main():
                   # each with its [b, s] key bias from the padding masks
                   ("mha_short_fwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, True, False),
                   ("mha_short_fwd", (TF_BATCH, 8, TF_SEQ, TF_SEQ, 64), "bshd", True, False,
-                   False)]
+                   False),
+                  # the coalesced /predict path's (phase 14): buckets 1 and 64
+                  ("mha_short_fwd", (1, 12, 128, 128, 64), "bshd", True, False, False),
+                  ("mha_short_fwd", (64, 12, 128, 128, 64), "bshd", True, False, False)]
     kernel_fns = {"mha_short_fwd": (short_attention, short_attention_plain),
                   "flash_fwd": (flash_attention, flash_attention_plain)}
     results = {}
@@ -2397,7 +2430,486 @@ def main():
                 f"[conv] {name}: card vs CPU {worst}")
 
     elapsed("phase 14")
-    # ---- 14. result ------------------------------------------------------
+    # ---- 14. serving at scale ---------------------------------------------------
+    # 14a: BERT-base exported with a batch placeholder, served in-process by
+    # a batch-of-1 server (max_queue 16) and a coalescing one (10 ms window,
+    # buckets 1..64, max_queue 256, every bucket prewarmed); 64 client
+    # threads in a closed loop send 1-row requests of seeded lengths, a 503
+    # sent again after its Retry-After (a 10 ms retry storm of 48 shed
+    # clients starved the batch-of-1 server's dispatches of the GIL). Each coalesced reply: a row of its merged
+    # dispatch, intact; a second dispatch of that merged batch gives the
+    # same bits; within 1e-4 of its batch-of-1 dispatch (bit-equality to
+    # it counted, and probed bucket by bucket)
+    import hashlib
+
+    from paddle_tpu_torch.inference.decode_model import (
+        DecodeService, ToyDecodeModel, make_toy_decode_weights, save_decode_weights)
+    from paddle_tpu_torch.inference.kv_cache import PagedDecodeStepBatcher, PagedKVCache
+
+    sv_cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    sv_s = 32 if rehearsal else 128
+    sv_clients, sv_total = (24, 64) if rehearsal else (64, 512)
+    buckets = [1, 2, 4, 8, 16, 32, 64]
+    sv_main, sv_startup = fluid.Program(), fluid.Program()
+    sv_main.random_seed = sv_startup.random_seed = args.seed + 14
+    with fluid.program_guard(sv_main, sv_startup), fluid.unique_name.guard():
+        sv_ids = [layers.data(n, [sv_s], dtype="int64") for n in ("src_ids", "sent_ids", "pos_ids")]
+        sv_hidden = bert_encoder(*sv_ids, layers.data("input_mask", [sv_s]), sv_cfg, is_test=True)
+    sv_dir = ROOT / "build" / "chip_smoke" / "bert_batch"
+    shutil.rmtree(sv_dir, ignore_errors=True)
+    sv_scope, sv_exe = fluid.Scope(), fluid.Executor(ab_place)
+    sv_exe.run(sv_startup, scope=sv_scope)
+    with fluid.scope_guard(sv_scope):
+        fluid.io.save_inference_model(str(sv_dir), feed_names, [sv_hidden], sv_exe,
+                                      main_program=sv_main)
+    del sv_scope
+    sv_name, sv_width = sv_hidden.name, sv_cfg.hidden_size
+    rs14 = np.random.RandomState(args.seed + 14)
+    sv_feeds, sv_bodies = [], []
+    for _ in range(16 if rehearsal else 64):  # distinct request bodies
+        length = rs14.randint(sv_s // 8, sv_s + 1)
+        feed = {"src_ids": rs14.randint(0, sv_cfg.vocab_size, (1, sv_s)).astype(np.int64),
+                "sent_ids": (np.arange(sv_s)[None, :] >= length // 2).astype(np.int64),
+                "pos_ids": np.arange(sv_s, dtype=np.int64)[None, :],
+                "input_mask": (np.arange(sv_s)[None, :] < length).astype(np.float32)}
+        buf = io.BytesIO()
+        np.savez(buf, **feed)
+        sv_feeds.append(feed)
+        sv_bodies.append(buf.getvalue())
+
+    def http(port, path, body, timeout=300, headers=None):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                     method="POST" if body is not None else "GET",
+                                     headers=dict(headers or {}))
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, dict(r.headers), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), e.read()
+
+    def closed_loop(n_clients, total, send):
+        """`n_clients` threads send requests 0..total-1 between them, each
+        sent again after its Retry-After while it is shed (503) -> (wall
+        s, ms a request from its first send, {request: reply}, sheds)."""
+        lock, nxt, lats, replies, sheds = threading.Lock(), [0], [], {}, [0]
+
+        def client():
+            while True:
+                with lock:
+                    i = nxt[0]
+                    nxt[0] += 1
+                if i >= total:
+                    return
+                t0 = time.perf_counter()
+                while True:
+                    try:
+                        code, headers, body = send(i)
+                    except OSError as e:  # a reset connection fails the run below
+                        code, headers, body = f"{type(e).__name__}: {e}", {}, b""
+                    if code != 503:
+                        break
+                    with lock:
+                        sheds[0] += 1
+                    time.sleep(float(headers.get("Retry-After", 1)))
+                with lock:
+                    lats.append((time.perf_counter() - t0) * 1e3)
+                    replies[i] = (code, headers, body)
+
+        threads = [threading.Thread(target=client, daemon=True) for _ in range(n_clients)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        require(not any(t.is_alive() for t in threads), "a client thread hung")
+        return time.perf_counter() - t0, lats, replies, sheds[0]
+
+    def pctl(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    t0 = time.perf_counter()
+    srv_b1 = InferenceServer(str(sv_dir), device=dev.type, max_queue=16)
+    srv_co = InferenceServer(str(sv_dir), device=dev.type, max_queue=256, batch_window_ms=10,
+                             bucket_table={"default": buckets, "per_feed": {}})
+    require(srv_co._batchable, "the batch-placeholder export is not batchable")
+    for rows in buckets:  # one dispatch a bucket before any request
+        srv_co.predict({k: np.repeat(v, rows, axis=0) for k, v in sv_feeds[0].items()})
+    print(f"[serve14] two servers up, every bucket prewarmed, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    b1_refs = [srv_b1.predict(f)[sv_name] for f in sv_feeds]
+    co_predict = srv_co.predict
+    dispatches = []  # (merged feeds, outputs) of every coalesced dispatch
+
+    def spy(feeds, _deadline=None):
+        outs = co_predict(feeds, _deadline)
+        dispatches.append((feeds, outs[sv_name]))
+        return outs
+
+    srv_co.predict = spy
+    sv_threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in (srv_b1, srv_co)]
+    for t in sv_threads:
+        t.start()
+    serve_runs = {}
+    for tag, srv in (("b1", srv_b1), ("coalesced", srv_co)):
+        c0 = srv.counters()
+        kernels.reset_launch_counts()
+        wall, lats, replies, sheds = closed_loop(
+            sv_clients, sv_total,
+            lambda i, port=srv.port: http(port, "/predict", sv_bodies[i % len(sv_bodies)]))
+        if not rehearsal:
+            torch.cuda.synchronize()
+        path_launches[f"serve_{tag}"] = launches = kernels.launch_counts()
+        c1 = srv.counters()
+        delta = {k: c1.get(k, 0) - c0.get(k, 0) for k in
+                 ("serve_batches", "serve_batch_members", "serve_batch_padded_rows",
+                  "serve_coalesce_wait_ms", "serve_requests")}
+        n_disp = delta["serve_batches"] if tag == "coalesced" else sv_total
+        require(all(r[0] == 200 for r in replies.values()) and len(replies) == sv_total,
+                f"[serve14] {tag}: non-200 replies "
+                f"{sorted({r[0] for r in replies.values()})}")
+        if not rehearsal:
+            require(launches["mha_short_fwd"] == sv_cfg.num_layers * n_disp,
+                    f"[serve14] {tag}: the short kernel launched {launches['mha_short_fwd']} "
+                    f"times over {n_disp} dispatches, want {sv_cfg.num_layers} a dispatch")
+        serve_runs[tag] = dict(
+            requests_per_s=sv_total / wall, p50_ms=pctl(lats, 0.5), p99_ms=pctl(lats, 0.99),
+            sheds=sheds, dispatches=n_disp, batch_size_p50=c1.get("serve_batch_size_p50"),
+            padded_rows=delta["serve_batch_padded_rows"],
+            coalesce_wait_ms=delta["serve_coalesce_wait_ms"],
+            short_fwd_launches=launches["mha_short_fwd"])
+        print(f"[serve14] {tag}: {sv_total} requests from {sv_clients} clients in {wall:.2f} s: "
+              f"{sv_total / wall:.1f} requests/s, p50 {pctl(lats, 0.5):.2f} ms, p99 "
+              f"{pctl(lats, 0.99):.2f} ms, {sheds} sheds retried, {n_disp} dispatches, "
+              f"serve_batch_size_p50 {c1.get('serve_batch_size_p50')}, padded rows "
+              f"{delta['serve_batch_padded_rows']}, launches {launches}; card {smi}")
+        if tag == "coalesced":
+            co_replies = replies
+    srv_co.predict = co_predict
+    require((serve_runs["coalesced"]["batch_size_p50"] or 0) > 1,
+            f"[serve14] no coalescing: serve_batch_size_p50 "
+            f"{serve_runs['coalesced']['batch_size_p50']}")
+    # every reply an intact row of its dispatch; a second dispatch of each
+    # merged batch bit-equal to the first; within 1e-4 of batch-of-1
+    rows_of = {}
+    for d, (feeds, out) in enumerate(dispatches):
+        for j in range(len(out)):
+            rows_of.setdefault(hashlib.blake2b(out[j].tobytes()).digest(), (d, j))
+    redispatch_equal = all(np.array_equal(co_predict(feeds)[sv_name], out)
+                           for feeds, out in dispatches)
+    require(redispatch_equal, "[serve14] a second dispatch of a merged batch differs")
+    co_worst, co_bitwise = 0.0, 0
+    for i, (_, _, body) in co_replies.items():
+        out = np.load(io.BytesIO(body))[sv_name]
+        require(out.shape == (1, sv_s, sv_width) and bool(np.isfinite(out).all()),
+                f"[serve14] reply {i}: shape {out.shape} or non-finite")
+        require(hashlib.blake2b(out[0].tobytes()).digest() in rows_of,
+                f"[serve14] reply {i} is no row of its merged dispatch")
+        ref = b1_refs[i % len(sv_bodies)]
+        co_worst = max(co_worst, float(np.abs(out - ref).max()))
+        co_bitwise += bool(np.array_equal(out, ref))
+    require(co_worst <= 1e-4, f"[serve14] coalesced vs batch-of-1 max abs diff {co_worst}")
+    print(f"[serve14] {sv_total} coalesced replies: each a row of its dispatch, "
+          f"{len(dispatches)} merged dispatches re-run bit-equal; vs batch-of-1 max abs diff "
+          f"{co_worst:.3e} (gate 1e-4), bit-equal {co_bitwise} of {sv_total}")
+    # bucket by bucket: a merged batch of distinct requests, twice
+    bucket_rows = {}
+    for rows in buckets:
+        group = [sv_feeds[j % len(sv_feeds)] for j in range(rows)]
+        merged = {k: np.concatenate([f[k] for f in group]) for k in group[0]}
+        first = co_predict(merged)[sv_name]
+        t0 = time.perf_counter()
+        second = co_predict(merged)[sv_name]
+        ms = (time.perf_counter() - t0) * 1e3
+        diffs = [float(np.abs(first[j] - b1_refs[j % len(sv_feeds)][0]).max())
+                 for j in range(rows)]
+        bucket_rows[rows] = dict(
+            deterministic=bool(np.array_equal(first, second)), dispatch_ms=ms,
+            rows_bitwise_to_b1=sum(d == 0.0 for d in diffs), max_abs_diff=max(diffs))
+        require(bucket_rows[rows]["deterministic"] and max(diffs) <= 1e-4,
+                f"[serve14] bucket {rows}: {bucket_rows[rows]}")
+        print(f"[serve14] bucket {rows:2d}: two dispatches bit-equal; rows bit-equal to "
+              f"batch-of-1 {bucket_rows[rows]['rows_bitwise_to_b1']} of {rows}, max abs diff "
+              f"{max(diffs):.3e}; dispatch {ms:.2f} ms (host wall, synchronised)")
+    cpu_pred = create_paddle_predictor(_cpu_config(AnalysisConfig, sv_dir))
+    sv_cpu = max(float(np.abs(cpu_pred.run(dict(f))[0] - b1_refs[j]).max())
+                 for j, f in enumerate(sv_feeds[:2]))
+    require(sv_cpu <= 1e-3, f"[serve14] card vs CPU max abs diff {sv_cpu} > 1e-3")
+    print(f"[serve14] card vs CPU (2 requests): max abs diff {sv_cpu:.3e} (tol 1e-3)")
+    del cpu_pred
+    sv_idle = None
+    if not rehearsal:
+        merged64 = {k: np.concatenate([sv_feeds[j % len(sv_feeds)][k] for j in range(64)])
+                    for k in sv_feeds[0]}
+        wall_ms, busy_ms, _ = profile_step(torch, lambda: co_predict(merged64),
+                                           "one bucket-64 dispatch")
+        sv_idle = max(0.0, 1 - busy_ms / wall_ms) if busy_ms else None
+    for srv, t in zip((srv_b1, srv_co), sv_threads):
+        srv.shutdown()
+        srv.close()
+        t.join(30)
+    del dispatches, co_replies
+
+    # 14b: the breaker and the drain through a subprocess server on the card
+    def subprocess_server(tag, plan, extra=()):
+        ready = ROOT / "build" / "chip_smoke" / f"ready_{tag}.json"
+        ready.unlink(missing_ok=True)
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PADDLE_TPU_FAULTS=plan)
+        log = open(ROOT / "build" / "chip_smoke" / f"server_{tag}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.inference.server", "--model-dir",
+             str(sv_dir), "--device", dev.type, "--ready-file", str(ready),
+             "--batch-window-ms", "10", *extra],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        deadline = time.monotonic() + 300
+        while not ready.exists():
+            require(proc.poll() is None and time.monotonic() < deadline,
+                    f"[serve14] {tag}: the server exited or never wrote its ready-file "
+                    f"(see {log.name})")
+            time.sleep(0.05)
+        info = json.loads(ready.read_text())
+        require(info["pid"] == proc.pid, f"[serve14] ready-file pid {info}")
+        return proc, info["port"], log
+
+    def healthz(port):
+        code, _, body = http(port, "/healthz", None, timeout=60)
+        return code, json.loads(body)
+
+    def wait_for(cond, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            require(time.monotonic() < deadline, f"[serve14] timed out waiting for {what}")
+            time.sleep(0.02)
+
+    t0 = time.perf_counter()
+    proc, port, log = subprocess_server(
+        "breaker", "server.predict:raises=RuntimeError:times=3",
+        ("--breaker-threshold", "3", "--probe-interval", "0.2"))
+    try:
+        codes = [http(port, "/predict", sv_bodies[0])[0] for _ in range(3)]
+        require(codes == [500, 500, 500], f"[serve14] breaker: codes {codes}")
+        code, health = healthz(port)
+        require(code == 503 and health["status"] == "breaker_open", f"breaker: {code} {health}")
+        wait_for(lambda: healthz(port)[0] == 200, "the probe to close the breaker")
+        code, _, body = http(port, "/predict", sv_bodies[1])
+        out = np.load(io.BytesIO(body))[sv_name] if code == 200 else None
+        require(out is not None and float(np.abs(out - b1_refs[1]).max()) <= 1e-4,
+                f"[serve14] breaker: the request after recovery answered {code}")
+        bc = healthz(port)[1]["counters"]
+        require(bc["serve_breaker_trips"] == 1 and bc["serve_breaker_recovered"] == 1,
+                f"[serve14] breaker counters {bc}")
+        proc.send_signal(signal.SIGTERM)
+        require(proc.wait(timeout=120) == 0, "[serve14] breaker server: exit code")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    breaker_s = time.perf_counter() - t0
+    print(f"[serve14] breaker: 3 failures -> /healthz 503 breaker_open -> the probe "
+          f"recovered it -> 200; trips 1, recovered 1; SIGTERM exit 0 ({breaker_s:.1f} s)")
+
+    t0 = time.perf_counter()
+    gate = ROOT / "build" / "chip_smoke" / "drain_gate"
+    gate.unlink(missing_ok=True)
+    drain_timeout, n_parked = 120, 16
+    proc, port, log = subprocess_server("drain", f"server.predict:hold={gate}",
+                                        ("--max-queue", "32", "--drain-timeout",
+                                         str(drain_timeout)))
+    try:
+        parked = [None] * n_parked
+
+        def parked_call(i):
+            parked[i] = http(port, "/predict", sv_bodies[i])
+
+        ts = [threading.Thread(target=parked_call, args=(i,), daemon=True)
+              for i in range(n_parked)]
+        for t in ts:
+            t.start()
+        wait_for(lambda: healthz(port)[1]["queue_depth"] == n_parked, "16 parked requests")
+        t_term = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        wait_for(lambda: healthz(port)[0] == 503, "/healthz 503 during the drain")
+        require(healthz(port)[1]["status"] == "draining", "[serve14] drain: status")
+        code, _, body = http(port, "/predict", sv_bodies[0])
+        require(code == 503 and json.loads(body)["error"] == "ServerDraining",
+                f"[serve14] drain: a new request answered {code}")
+        gate.touch()
+        for t in ts:
+            t.join(timeout=drain_timeout)
+        rc = proc.wait(timeout=drain_timeout)
+        drain_s = time.monotonic() - t_term
+        require(rc == 0 and drain_s <= drain_timeout, f"[serve14] drain: exit {rc} after "
+                f"{drain_s:.1f} s")
+        drain_worst = 0.0
+        for i, r in enumerate(parked):
+            require(r is not None and r[0] == 200, f"[serve14] drain: parked {i} -> {r and r[0]}")
+            out = np.load(io.BytesIO(r[2]))[sv_name]
+            require(out.shape == (1, sv_s, sv_width) and bool(np.isfinite(out).all()),
+                    f"[serve14] drain: reply {i} torn")
+            drain_worst = max(drain_worst, float(np.abs(out - b1_refs[i]).max()))
+        require(drain_worst <= 1e-4, f"[serve14] drain: replies vs batch-of-1 {drain_worst}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    print(f"[serve14] drain: {n_parked} parked requests, SIGTERM -> /healthz 503 draining, a "
+          f"new request 503 ServerDraining, all {n_parked} replies 200 and whole (vs "
+          f"batch-of-1 {drain_worst:.3e}), exit 0 {drain_s:.1f} s after SIGTERM "
+          f"({time.perf_counter() - t0:.1f} s with start-up)")
+
+    # 14c: the generative roles. A prefill-role, a decode-role and a unified
+    # server, the default KV profile's pool; 64 concurrent /generate requests
+    # (prompts of 8-40 seeded tokens, max_new 16), then the same prompts
+    # split: /prefill, the blob forwarded by this client to /decode. Every
+    # split reply equals the unified reply bit for bit
+    def generative(tag, weights, n_prompts=64, max_new=16):
+        wpath = ROOT / "build" / "chip_smoke" / f"decode_{tag}.npz"
+        save_decode_weights(str(wpath), weights)
+        vocab = int(weights["E"].shape[0])
+        rs_g = np.random.RandomState(args.seed + 140)
+        prompts = [rs_g.randint(0, vocab, rs_g.randint(8, 41)).astype(np.int32)
+                   for _ in range(n_prompts)]
+        bodies = []
+        for p in prompts:
+            buf = io.BytesIO()
+            np.savez(buf, tokens=p, max_new=np.int32(max_new))
+            bodies.append(buf.getvalue())
+        # the default profile's geometry; its admission window raised from
+        # 0 to 30 s, so a stream the pool cannot hold yet waits on the
+        # cache's condition for pages instead of a 503 the client re-sends
+        srvs = {role: InferenceServer(str(sv_dir), device=dev.type, decode_weights=str(wpath),
+                                      role=role, max_queue=256, warmup=False,
+                                      kv_config={"admission_window_ms": 30_000})
+                for role in ("prefill", "decode", "unified")}
+        ths = [threading.Thread(target=s.serve_forever, daemon=True) for s in srvs.values()]
+        for t in ths:
+            t.start()
+        try:
+            uni = srvs["unified"]
+            peak = [0]
+            sampling = threading.Event()
+
+            def sample():
+                while not sampling.is_set():
+                    peak[0] = max(peak[0], uni._decode.cache.counters.snapshot().get(
+                        "kv_pages_in_use", 0))
+                    time.sleep(0.0005)
+
+            steps0 = uni.counters().get("kv_decode_steps", 0)
+            sampler = threading.Thread(target=sample, daemon=True)
+            sampler.start()
+            u_wall, u_lats, u_rep, u_sheds = closed_loop(
+                n_prompts, n_prompts, lambda i: http(uni.port, "/generate", bodies[i]))
+            sampling.set()
+            sampler.join(10)
+            u_steps = uni.counters().get("kv_decode_steps", 0) - steps0
+            dec = srvs["decode"]
+
+            def split(i):
+                code, headers, blob = http(srvs["prefill"].port, "/prefill", bodies[i])
+                if code != 200:
+                    return code, headers, blob
+                return http(dec.port, "/decode", blob)
+
+            d_steps0 = dec.counters().get("kv_decode_steps", 0)
+            s_wall, s_lats, s_rep, s_sheds = closed_loop(n_prompts, n_prompts, split)
+            s_steps = dec.counters().get("kv_decode_steps", 0) - d_steps0
+            replies = {}
+            require(len(u_rep) == len(s_rep) == n_prompts, f"[gen14] {tag}: replies lost")
+            for i in range(n_prompts):
+                (uc, _, ub), (sc, _, sb) = u_rep[i], s_rep[i]
+                require(uc == 200 and sc == 200, f"[gen14] {tag} prompt {i}: {uc} / {sc}")
+                u, s_ = np.load(io.BytesIO(ub)), np.load(io.BytesIO(sb))
+                require(u["tokens"].shape == (max_new,) and u["logits"].shape == (max_new, vocab)
+                        and bool(np.isfinite(u["logits"]).all()), f"[gen14] {tag} reply {i}")
+                require(np.array_equal(u["tokens"], s_["tokens"])
+                        and u["logits"].tobytes() == s_["logits"].tobytes(),
+                        f"[gen14] {tag} prompt {i}: the split reply differs from the unified")
+                replies[i] = (u["tokens"], u["logits"])
+            pages_left = uni._decode.cache.free_pages(), dec._decode.cache.free_pages()
+            require(pages_left == (uni._decode.cache.num_pages,) * 2,
+                    f"[gen14] {tag}: pages not reclaimed {pages_left}")
+            idle = None
+            if not rehearsal:
+                model = uni._decode_model
+                c = uni._decode.cache
+                pcache = PagedKVCache(c.num_pages, c.page_len, c.pages_per_seq,
+                                      model.num_heads, model.head_dim,
+                                      max_streams=c.max_streams, device=dev)
+                for j in range(c.max_streams):
+                    pcache.acquire(j, total_len=c.page_len)
+                pb = PagedDecodeStepBatcher(pcache, model.decode_step)
+                toks = np.arange(c.max_streams, dtype=np.int32) % vocab
+                # device time from sessions that CUPTI did not empty; the
+                # host wall of the same steps (each ends in its copy to
+                # the host)
+                with torch.no_grad():
+                    per_call, _ = kernels.device_kernel_ms(lambda: pb.step(toks), calls=10)
+                    t0 = time.perf_counter()
+                    for _ in range(10):
+                        pb.step(toks)
+                    wall_ms = (time.perf_counter() - t0) * 1e2
+                busy_ms = sum(per_call.values())
+                idle = max(0.0, 1 - busy_ms / wall_ms)
+                print(f"[profile] one decode step ({tag} toy, {c.max_streams} streams): wall "
+                      f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share {idle:.2f}")
+                for name, ms in sorted(per_call.items(), key=lambda kv: -kv[1])[:6]:
+                    print(f"[profile]   {ms:8.4f} ms  {name[:90]}")
+                del pcache, pb
+            stats = dict(
+                unified_tokens_per_s=n_prompts * max_new / u_wall,
+                split_tokens_per_s=n_prompts * max_new / s_wall,
+                unified_p50_ms=pctl(u_lats, 0.5), unified_p99_ms=pctl(u_lats, 0.99),
+                split_p50_ms=pctl(s_lats, 0.5), split_p99_ms=pctl(s_lats, 0.99),
+                decode_step_ms=u_wall * 1e3 / max(u_steps, 1), decode_steps=u_steps,
+                split_decode_step_ms=s_wall * 1e3 / max(s_steps, 1),
+                peak_pages_in_use=peak[0], sheds_retried=(u_sheds, s_sheds),
+                step_idle_share=idle)
+            print(f"[gen14] {tag}: {n_prompts} prompts x {max_new} new tokens, split replies "
+                  f"bit-equal to unified; unified {stats['unified_tokens_per_s']:.1f} tokens/s, "
+                  f"p50 {stats['unified_p50_ms']:.2f} ms, p99 {stats['unified_p99_ms']:.2f} ms, "
+                  f"{u_steps} decode steps, {stats['decode_step_ms']:.3f} ms a step (wall over "
+                  f"kv_decode_steps), peak kv_pages_in_use {peak[0]}, sheds retried "
+                  f"{u_sheds}; split {stats['split_tokens_per_s']:.1f} tokens/s, p50 "
+                  f"{stats['split_p50_ms']:.2f} ms, p99 {stats['split_p99_ms']:.2f} ms, sheds "
+                  f"retried {s_sheds}; card {smi}")
+            return stats, prompts, replies
+        finally:
+            for s, t in zip(srvs.values(), ths):
+                s.shutdown()
+                s.close()
+                t.join(30)
+
+    toy = make_toy_decode_weights(seed=7)
+    gen_stats = {}
+    gen_stats["jax_width"], toy_prompts, toy_replies = generative("jax_width", toy)
+    cpu_svc = DecodeService(ToyDecodeModel(toy, device="cpu"))
+    try:
+        toy_worst = 0.0
+        for i, p in enumerate(toy_prompts):
+            toks, logits = cpu_svc.generate(p, 16)
+            require(np.array_equal(toks, toy_replies[i][0]),
+                    f"[gen14] JAX-width toy: card and CPU tokens differ on prompt {i}")
+            np.testing.assert_allclose(toy_replies[i][1], logits, rtol=DECODE_RTOL,
+                                       atol=DECODE_ATOL)
+            toy_worst = max(toy_worst, float(np.abs(toy_replies[i][1] - logits).max()))
+    finally:
+        cpu_svc.close()
+    print(f"[gen14] JAX-width toy: card vs CPU the same tokens, logits within rtol "
+          f"{DECODE_RTOL} / atol {DECODE_ATOL} (max abs diff {toy_worst:.3e})")
+    if not rehearsal:
+        gen_stats["bert_width"], _, _ = generative(
+            "bert_width", make_toy_decode_weights(seed=7, vocab=30522, num_heads=12,
+                                                  head_dim=64))
+    print("[result] serving at scale: " + json.dumps(
+        {"serve": serve_runs, "buckets": bucket_rows, "bucket64_idle_share": sv_idle,
+         "coalesced_bitwise_to_b1": co_bitwise, "coalesced_max_abs_diff": co_worst,
+         "generative": gen_stats}, default=str))
+
+    elapsed("phase 15")
+    # ---- 15. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),

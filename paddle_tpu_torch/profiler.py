@@ -9,8 +9,10 @@ arrive as feeds. The pass manager (passes/) bumps `pass_<name>_us`,
 `pass_layout_opt_transposes_removed`; fuse_layer_scan bumps
 `scan_fused_runs` (runs collapsed into one `layer_scan` op),
 `scan_fused_layers` (segments absorbed by those runs) and
-`scan_fused_ops_removed` (net ops removed). The spans, tables and `CounterSet`
-come with the server slice (ROADMAP Queue 1, item 5)."""
+`scan_fused_ops_removed` (net ops removed). `CounterSet` (:201-233 there)
+keeps an instance's counters (the inference server's `serve_*`, a KV
+cache's `kv_*`) and rolls each bump up into the global names. The spans
+and tables (`RecordEvent`, `start_profiler`) are not ported."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import threading
 import time
 from collections import defaultdict
 
-__all__ = ["bump_counter", "set_counter", "counters", "time_counter"]
+__all__ = ["CounterSet", "bump_counter", "set_counter", "counters", "time_counter"]
 
 _counters: dict[str, int] = defaultdict(int)  # monotonic named counts
 # the read-modify-write below is not atomic under the GIL
@@ -44,6 +46,33 @@ def counters() -> dict:
     """A copy of every counter."""
     with _counters_lock:
         return dict(_counters)
+
+
+class CounterSet:
+    """Instance-scoped counters that also roll up into the process-global
+    table above: two servers in one process keep separable accounting on
+    their own /healthz while global observers see both."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._data: dict[str, int] = {}
+
+    def bump(self, name: str, amount: int = 1) -> int:
+        with self._lock:
+            self._data[name] = self._data.get(name, 0) + amount
+            out = self._data[name]
+        bump_counter(name, amount)
+        return out
+
+    def gauge(self, name: str, value: int) -> int:
+        with self._lock:
+            self._data[name] = int(value)
+        set_counter(name, value)
+        return int(value)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return dict(self._data)
 
 
 @contextlib.contextmanager

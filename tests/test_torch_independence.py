@@ -43,6 +43,10 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.clip, paddle_tpu_torch.regularizer, paddle_tpu_torch.layers.ops\n"
         "import paddle_tpu_torch.decoding, paddle_tpu_torch.profiler\n"
         "import paddle_tpu_torch.models.transformer\n"
+        "import paddle_tpu_torch.resilience, paddle_tpu_torch.resilience.faults\n"
+        "import paddle_tpu_torch.resilience.preempt, paddle_tpu_torch.resilience.snapshot\n"
+        "import paddle_tpu_torch.inference.kv_cache, paddle_tpu_torch.inference.decode_model\n"
+        "import paddle_tpu_torch.inference.handoff\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
@@ -89,6 +93,13 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
         create_paddle_predictor(AnalysisConfig(str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--model-dir", str(tmp_path)])
+    from paddle_tpu_torch.inference.decode_model import ToyDecodeModel, make_toy_decode_weights
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ToyDecodeModel(make_toy_decode_weights())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(4, 4, 1, 1, 4)
     assert fluid.Executor(fluid.CPUPlace()).device == torch.device("cpu")
 
 
