@@ -141,12 +141,40 @@
             one profiled decode step; at the JAX package's toy width (card
             vs CPU: the same tokens, logits within rtol 1e-5) and at
             BERT-base's attention width (12 heads of 64, vocab 30522)
-15. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+16. registry  two BERT-base bundles (fp32, s 128) from two seeds behind one
+            server on the card, through a model_registry.json: main, the
+            built-in default, and alt@v1, each coalescing at a 10 ms window,
+            QoS classes gold (weight 8, deadline_ms 500) and bulk (weight 1)
+            on one DRR gate. (a) without X-Model a reply is bit-equal to a
+            registry-less server's, with X-Model alt to alt's predictor.run
+            and within 1e-3 of alt on the CPU; an unknown X-Model 404
+            NoSuchModel. (b) 32 bulk clients on alt and 8 gold on main in two
+            processes, closed loops of 256 requests a class (a shed sent
+            again after its Retry-After); a first round with all 40 clients
+            connecting at once, reported (replies by code, p50, slowest);
+            then each class's clients started over 1 s: every reply 200,
+            gold's p50 below bulk's; requests/s, p50, p99, slowest and gate
+            grants a class. (c) 16 clients on alt while
+            /admin/deploy swaps in alt@v2 (v1's weights exported again): every
+            reply 200 and a row of a v1 or v2 dispatch (after the flip of a
+            v2 one), v1's merged batches bit-equal through v2, serve_deploys
+            and serve_deploy_unloads 1, memory_allocated after the unload
+            within 5% of before; the deploy's wall ms and peak. Then a drifted
+            alt@v3 (another seed) 409 ExportToleranceError and a
+            registry.cutover fault plan's abort (500): v2 keeps serving, its
+            bits, and the refused candidates' memory is back. (d) two toy
+            decoders at BERT's attention width (two seeds) on the server's one
+            paged pool, 32 concurrent /generate split across X-Model (prompts
+            of 8-40 tokens, max_new 16): each stream bit-equal to its model on
+            a server that holds only it; tokens/s, p50, p99, peak
+            kv_pages_in_use, kv_decode_steps. 12 short forward launches a BERT
+            dispatch on the card, every dispatch of the phase counted
+17. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
-transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced)
-runs with every launch count set to 0 just before it and read just
+transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
+serve_registry) runs with every launch count set to 0 just before it and read just
 after; a kernel of the path that was not launched fails the run.
 
 Every phase runs the Program after the Executor's default passes
@@ -185,6 +213,7 @@ import gc
 import io
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import signal
@@ -2450,20 +2479,9 @@ def main():
     sv_s = 32 if rehearsal else 128
     sv_clients, sv_total = (24, 64) if rehearsal else (64, 512)
     buckets = [1, 2, 4, 8, 16, 32, 64]
-    sv_main, sv_startup = fluid.Program(), fluid.Program()
-    sv_main.random_seed = sv_startup.random_seed = args.seed + 14
-    with fluid.program_guard(sv_main, sv_startup), fluid.unique_name.guard():
-        sv_ids = [layers.data(n, [sv_s], dtype="int64") for n in ("src_ids", "sent_ids", "pos_ids")]
-        sv_hidden = bert_encoder(*sv_ids, layers.data("input_mask", [sv_s]), sv_cfg, is_test=True)
     sv_dir = ROOT / "build" / "chip_smoke" / "bert_batch"
-    shutil.rmtree(sv_dir, ignore_errors=True)
-    sv_scope, sv_exe = fluid.Scope(), fluid.Executor(ab_place)
-    sv_exe.run(sv_startup, scope=sv_scope)
-    with fluid.scope_guard(sv_scope):
-        fluid.io.save_inference_model(str(sv_dir), feed_names, [sv_hidden], sv_exe,
-                                      main_program=sv_main)
-    del sv_scope
-    sv_name, sv_width = sv_hidden.name, sv_cfg.hidden_size
+    sv_name = export_bert_encoder(sv_cfg, sv_s, args.seed + 14, ab_place, [sv_dir])
+    sv_width = sv_cfg.hidden_size
     rs14 = np.random.RandomState(args.seed + 14)
     sv_feeds, sv_bodies = [], []
     for _ in range(16 if rehearsal else 64):  # distinct request bodies
@@ -2476,57 +2494,6 @@ def main():
         np.savez(buf, **feed)
         sv_feeds.append(feed)
         sv_bodies.append(buf.getvalue())
-
-    def http(port, path, body, timeout=300, headers=None):
-        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
-                                     method="POST" if body is not None else "GET",
-                                     headers=dict(headers or {}))
-        try:
-            with urllib.request.urlopen(req, timeout=timeout) as r:
-                return r.status, dict(r.headers), r.read()
-        except urllib.error.HTTPError as e:
-            return e.code, dict(e.headers), e.read()
-
-    def closed_loop(n_clients, total, send):
-        """`n_clients` threads send requests 0..total-1 between them, each
-        sent again after its Retry-After while it is shed (503) -> (wall
-        s, ms a request from its first send, {request: reply}, sheds)."""
-        lock, nxt, lats, replies, sheds = threading.Lock(), [0], [], {}, [0]
-
-        def client():
-            while True:
-                with lock:
-                    i = nxt[0]
-                    nxt[0] += 1
-                if i >= total:
-                    return
-                t0 = time.perf_counter()
-                while True:
-                    try:
-                        code, headers, body = send(i)
-                    except OSError as e:  # a reset connection fails the run below
-                        code, headers, body = f"{type(e).__name__}: {e}", {}, b""
-                    if code != 503:
-                        break
-                    with lock:
-                        sheds[0] += 1
-                    time.sleep(float(headers.get("Retry-After", 1)))
-                with lock:
-                    lats.append((time.perf_counter() - t0) * 1e3)
-                    replies[i] = (code, headers, body)
-
-        threads = [threading.Thread(target=client, daemon=True) for _ in range(n_clients)]
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        require(not any(t.is_alive() for t in threads), "a client thread hung")
-        return time.perf_counter() - t0, lats, replies, sheds[0]
-
-    def pctl(xs, q):
-        xs = sorted(xs)
-        return xs[min(len(xs) - 1, int(q * len(xs)))]
 
     t0 = time.perf_counter()
     srv_b1 = InferenceServer(str(sv_dir), device=dev.type, max_queue=16)
@@ -2908,8 +2875,13 @@ def main():
          "coalesced_bitwise_to_b1": co_bitwise, "coalesced_max_abs_diff": co_worst,
          "generative": gen_stats}, default=str))
 
-    elapsed("phase 15")
-    # ---- 15. result ------------------------------------------------------
+    elapsed("phase 16")
+    # ---- 16. registry: N models behind one server ---------------------------
+    path_launches["serve_registry"], registry_stats = registry_phase(args.seed, rehearsal, smi)
+    print("[result] registry: " + json.dumps(registry_stats, default=str))
+
+    elapsed("phase 17")
+    # ---- 17. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -2971,6 +2943,510 @@ def main():
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def http(port, path, body, timeout=300, headers=None):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="POST" if body is not None else "GET",
+                                 headers=dict(headers or {}))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+def closed_loop(n_clients, total, send, ramp_s=0.0):
+    """`n_clients` threads send requests 0..total-1 between them, each
+    sent again after its Retry-After while it is shed (503), client k
+    starting k * ramp_s / n_clients after the first -> (wall s, ms a
+    request from its first send, {request: reply}, sheds)."""
+    lock, nxt, lats, replies, sheds = threading.Lock(), [0], [], {}, [0]
+
+    def client(k):
+        time.sleep(k * ramp_s / n_clients)
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= total:
+                return
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    code, headers, body = send(i)
+                except OSError as e:  # a reset connection fails the run below
+                    code, headers, body = f"{type(e).__name__}: {e}", {}, b""
+                if code != 503:
+                    break
+                with lock:
+                    sheds[0] += 1
+                time.sleep(float(headers.get("Retry-After", 1)))
+            with lock:
+                lats.append((time.perf_counter() - t0) * 1e3)
+                replies[i] = (code, headers, body)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    require(not any(t.is_alive() for t in threads), "a client thread hung")
+    return time.perf_counter() - t0, lats, replies, sheds[0]
+
+def class_loop(port, n_clients, total, bodies, headers, fetch, shape, go, ramp_s):
+    """One QoS class's closed loop of `total` /predict requests from
+    `n_clients` threads, started at wall time `go` over `ramp_s`; run in a
+    process of its own -> (wall s, ms a request from its first send,
+    {final code: count}, sheds retried, replies of `shape` with finite
+    values)."""
+    import numpy as np
+
+    time.sleep(max(0.0, go - time.time()))
+    wall, lats, replies, sheds = closed_loop(
+        n_clients, total,
+        lambda i: http(port, "/predict", bodies[i % len(bodies)], headers=headers), ramp_s)
+    codes, whole = {}, 0
+    for code, _, body in replies.values():
+        codes[code] = codes.get(code, 0) + 1
+        if code == 200:
+            out = np.load(io.BytesIO(body))[fetch]
+            whole += out.shape == tuple(shape) and bool(np.isfinite(out).all())
+    return wall, lats, codes, sheds, whole
+
+
+def pctl(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+BERT_FEEDS = ("src_ids", "sent_ids", "pos_ids", "input_mask")
+
+
+def export_bert_encoder(cfg, s, seed, place, dirs):
+    """A BERT encoder (is_test, phases 14 and 16) with a batch placeholder on every feed,
+    random weights from `seed`, exported by save_inference_model into each
+    of `dirs` (the same weights in each) -> the fetch name."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.models.bert import bert_encoder
+
+    main_p, startup_p = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup_p.random_seed = seed
+    with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+        ids = [layers.data(n, [s], dtype="int64") for n in BERT_FEEDS[:3]]
+        hidden = bert_encoder(*ids, layers.data("input_mask", [s]), cfg, is_test=True)
+    scope, exe = fluid.Scope(), fluid.Executor(place)
+    exe.run(startup_p, scope=scope)
+    with fluid.scope_guard(scope):
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+            fluid.io.save_inference_model(str(d), list(BERT_FEEDS), [hidden], exe,
+                                          main_program=main_p)
+    return hidden.name
+
+
+def registry_phase(seed, rehearsal, smi):
+    """Phase 16: the model registry at full width -> (launch counts of the
+    phase's run, its result dict). Two BERT-base bundles from two seeds
+    behind one server: the built-in default (main) and alt@v1 (a 10 ms
+    coalescing window), QoS classes gold (weight 8, deadline_ms 500) and
+    bulk (weight 1). (a) routing, (b) the classes under contention, (c) a
+    hot-swap under load, a drifted deploy and a chaos abort, (d) two
+    decode models on one paged KV pool."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor, create_paddle_predictor
+    from paddle_tpu_torch.inference.decode_model import (
+        make_toy_decode_weights, save_decode_weights)
+    from paddle_tpu_torch.inference.registry import ModelRuntime
+    from paddle_tpu_torch.inference.server import InferenceServer
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.resilience import faults
+
+    dev = "cpu" if rehearsal else "cuda"
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    s = 32 if rehearsal else 128
+    root = ROOT / "build" / "chip_smoke" / "registry"
+    root.mkdir(parents=True, exist_ok=True)
+    dirs = {k: root / k for k in ("main", "alt_v1", "alt_v2", "alt_v3")}
+    t0 = time.perf_counter()
+    fetch = export_bert_encoder(cfg, s, seed + 16, place, [dirs["main"]])
+    # v2: v1's weights exported again; v3: another seed (the drift gate's case)
+    export_bert_encoder(cfg, s, seed + 17, place, [dirs["alt_v1"], dirs["alt_v2"]])
+    export_bert_encoder(cfg, s, seed + 18, place, [dirs["alt_v3"]])
+    # gold's deadline: 500 ms. At 250 ms, on an H100 whose host took 30.47 ms
+    # for phase 14's bucket-1 dispatch (17.09 ms on another), 97 of 256 gold
+    # requests missed it (504) under the bulk flood: the host's op walk
+    # bounds every dispatch, so the deadline a replica can keep depends on it
+    manifest = root / "model_registry.json"
+    manifest.write_text(json.dumps({
+        "default": "main", "default_version": "v1",
+        "models": [{"name": "alt", "version": "v1", "bundle_dir": "alt_v1",
+                    "batch_window_ms": 10, "max_queue": 64}],
+        "qos": {"classes": {"gold": {"weight": 8, "deadline_ms": 500},
+                            "bulk": {"weight": 1}},
+                "tenants": {"tenant-gold": "gold", "tenant-bulk": "bulk"},
+                "default_class": "bulk"}}))
+    rs = np.random.RandomState(seed + 16)
+    feeds, bodies = [], []
+    for _ in range(16):  # distinct one-row requests of seeded lengths
+        length = rs.randint(s // 8, s + 1)
+        feed = {"src_ids": rs.randint(0, cfg.vocab_size, (1, s)).astype(np.int64),
+                "sent_ids": (np.arange(s)[None, :] >= length // 2).astype(np.int64),
+                "pos_ids": np.arange(s, dtype=np.int64)[None, :],
+                "input_mask": (np.arange(s)[None, :] < length).astype(np.float32)}
+        buf = io.BytesIO()
+        np.savez(buf, **feed)
+        feeds.append(feed)
+        bodies.append(buf.getvalue())
+    print(f"[registry] 4 BERT exports (hidden {cfg.hidden_size}, {cfg.num_layers} layers, s {s}, "
+          f"seeds {seed + 16} / {seed + 17} twice / {seed + 18}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # every BERT dispatch on the card in this phase, counted where it runs
+    runs, runs_lock, orig_run = [0], threading.Lock(), AnalysisPredictor.run
+
+    def counted_run(self, inputs=None):
+        if self._exe.device.type == "cuda":
+            with runs_lock:
+                runs[0] += 1
+        return orig_run(self, inputs)
+
+    servers = []
+
+    def serve(model_dir, **kw):
+        srv = InferenceServer(str(model_dir), device=dev, **kw)
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        servers.append((srv, t))
+        return srv
+
+    def stop(srv):
+        for i, (x, t) in enumerate(servers):
+            if x is srv:
+                srv.shutdown()
+                srv.close()
+                t.join(30)
+                del servers[i]
+                return
+
+    def out_of(body):
+        return np.load(io.BytesIO(body))[fetch]
+
+    stats = {}
+    AnalysisPredictor.run = counted_run
+    kernels.reset_launch_counts()
+    try:
+        # (a) routing: no header is the registry-less server's bits; X-Model
+        # alt is alt's own predictor.run's bits, and within 1e-3 of the CPU
+        t0 = time.perf_counter()
+        reg = serve(dirs["main"], max_queue=16, batch_window_ms=10, registry=str(manifest))
+        plain = serve(dirs["main"], max_queue=16, batch_window_ms=10)
+        registry = reg._registry
+        alt = registry.get("alt")
+        require(alt._batchable and reg._batchable and alt._lock is reg._lock is registry.gate,
+                "[registry] alt and main coalesce, under the one QoS gate")
+        up_s = time.perf_counter() - t0
+        alt_refs = {}
+        for i in range(4):
+            c1, _, b1 = http(reg.port, "/predict", bodies[i])
+            c0, _, b0 = http(plain.port, "/predict", bodies[i])
+            require(c1 == c0 == 200 and b1 == b0,
+                    f"[registry] request {i} without X-Model: {c1} / {c0}, bytes equal {b1 == b0}")
+            ca, _, ba = http(reg.port, "/predict", bodies[i], headers={"X-Model": "alt"})
+            alt_refs[i] = alt.predict(feeds[i])[fetch]
+            require(ca == 200 and np.array_equal(out_of(ba), alt_refs[i]),
+                    f"[registry] request {i} with X-Model alt: {ca}, not alt's predictor.run")
+            require(not np.array_equal(out_of(ba), out_of(b1)), "[registry] alt answers as main")
+        cpu = create_paddle_predictor(_cpu_config(AnalysisConfig, dirs["alt_v1"]))
+        alt_cpu = max(float(np.abs(cpu.run(dict(feeds[i]))[0] - alt_refs[i]).max())
+                      for i in range(2))
+        del cpu
+        require(alt_cpu <= 1e-3, f"[registry] alt card vs CPU max abs diff {alt_cpu}")
+        cg, _, bg = http(reg.port, "/predict", bodies[0], headers={"X-Model": "ghost"})
+        require(cg == 404 and json.loads(bg)["error"] == "NoSuchModel", f"[registry] ghost: {cg}")
+        stop(plain)
+        print(f"[registry] (a) servers up in {up_s:.1f} s; 4 requests without X-Model bit-equal to "
+              f"a registry-less server's, with X-Model alt bit-equal to alt's predictor.run; alt "
+              f"card vs CPU max abs diff {alt_cpu:.3e} (tol 1e-3); X-Model ghost 404 NoSuchModel")
+
+        # (b) the classes under contention: 32 bulk clients on alt, 8 gold on
+        # main, closed loops of 256 requests a class, run together, every
+        # bucket they can fill dispatched once before (a first dispatch at a
+        # new row count held the first replies ~1.6 s in a CPU rehearsal)
+        for rows in (1, 2, 4, 8, 16, 32):
+            for srv in (reg, alt):
+                srv.predict({k: np.repeat(v, rows, axis=0) for k, v in feeds[0].items()})
+        # the clients run in two processes of their own, as real clients do
+        # (in this one their 40 threads would share the server's GIL). A
+        # first round starts all 40 at once and is reported, not gated: such
+        # a connect storm held back the first dispatch and sent the first
+        # gold requests past a 250 ms deadline (504) on the card. The gated
+        # round starts each class's clients over 1 s
+        classes = {"bulk": (32, {"X-Tenant": "tenant-bulk", "X-Model": "alt"}),
+                   "gold": (8, {"X-Tenant": "tenant-gold"})}
+
+        def both_classes(ramp_s):
+            go = time.time() + 10  # both loops start together, after the spawns
+            with multiprocessing.get_context("spawn").Pool(len(classes)) as pool:
+                pending = {cls: pool.apply_async(class_loop, (
+                    reg.port, n, 256, bodies, headers, fetch, (1, s, cfg.hidden_size), go,
+                    ramp_s)) for cls, (n, headers) in classes.items()}
+                return {cls: r.get(timeout=900) for cls, r in pending.items()}
+
+        burst = {}
+        for cls, (wall, lats, codes, sheds, whole) in both_classes(0.0).items():
+            require(set(codes) <= {200, 504} and whole == codes.get(200),
+                    f"[registry] (b) burst {cls}: replies {codes}, {whole} whole and finite")
+            burst[cls] = dict(codes=codes, p50_ms=pctl(lats, 0.5), max_ms=max(lats))
+        print(f"[registry] (b) all 40 clients started at once (not gated): " + "; ".join(
+            f"{cls} replies {b['codes']}, p50 {b['p50_ms']:.2f} ms, slowest {b['max_ms']:.2f} ms"
+            for cls, b in burst.items()) + f"; card {smi}")
+        stats["qos_burst"] = burst
+        grants0 = registry.gate.snapshot()
+        loops = both_classes(1.0)
+        grants1 = registry.gate.snapshot()
+        qos = {}
+        for cls, (wall, lats, codes, sheds, whole) in loops.items():
+            require(codes == {200: 256} and whole == 256,
+                    f"[registry] (b) {cls}: replies {codes}, {whole} whole and finite")
+            qos[cls] = dict(requests_per_s=256 / wall, p50_ms=pctl(lats, 0.5),
+                            p99_ms=pctl(lats, 0.99), max_ms=max(lats), sheds_retried=sheds,
+                            grants=grants1[cls] - grants0[cls])
+            print(f"[registry] (b) {cls}: 256 requests from {classes[cls][0]} clients started over "
+                  f"1 s, in {wall:.2f} s: {256 / wall:.1f} requests/s, p50 "
+                  f"{qos[cls]['p50_ms']:.2f} ms, p99 {qos[cls]['p99_ms']:.2f} ms, slowest "
+                  f"{qos[cls]['max_ms']:.2f} ms, {sheds} sheds retried, {qos[cls]['grants']} gate "
+                  f"grants; card {smi}")
+        require(qos["gold"]["p50_ms"] < qos["bulk"]["p50_ms"],
+                f"[registry] gold p50 {qos['gold']['p50_ms']} not below bulk's "
+                f"{qos['bulk']['p50_ms']}")
+        stats["qos"] = qos
+
+        # (c) hot-swap under load: 16 clients on alt while alt@v2 (v1's
+        # weights exported again) deploys; every merged dispatch recorded
+        if not rehearsal:
+            torch.cuda.synchronize()
+        gc.collect()
+        mem = lambda: torch.cuda.memory_allocated() if not rehearsal else 0  # noqa: E731
+        mem_before = mem()
+        dispatches, disp_lock, orig_predict = [], threading.Lock(), ModelRuntime.predict
+
+        def recorded(self, feeds_, _deadline=None):
+            outs = orig_predict(self, feeds_, _deadline)
+            with disp_lock:
+                dispatches.append((self.version, feeds_, outs[fetch]))
+            return outs
+
+        halt, flip, swapped = threading.Event(), [None], []
+        lock = threading.Lock()
+
+        def client(k):
+            i = k
+            while not halt.is_set():
+                t_send = time.perf_counter()
+                code, _, body = http(reg.port, "/predict", bodies[i % len(bodies)],
+                                     headers={"X-Model": "alt"})
+                with lock:
+                    swapped.append((t_send, code, body))
+                i += 16
+
+        ModelRuntime.predict = recorded
+        try:
+            clients = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(16)]
+            for t in clients:
+                t.start()
+            deadline = time.monotonic() + 120
+            while len(swapped) < 32:
+                require(time.monotonic() < deadline, "[registry] (c) no replies before the deploy")
+                time.sleep(0.01)
+            if not rehearsal:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            code, _, body = http(reg.port, "/admin/deploy", json.dumps(
+                {"name": "alt", "version": "v2", "bundle_dir": str(dirs["alt_v2"]),
+                 "tolerance": 0.01}).encode(), headers={"Content-Type": "application/json"})
+            flip[0] = time.perf_counter()
+            deploy_ms = (flip[0] - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() if not rehearsal else 0
+            require(code == 200 and json.loads(body)["status"] == "active",
+                    f"[registry] (c) deploy v2: {code} {body[:300]}")
+            n_flip = len(swapped)
+            while len(swapped) < n_flip + 64:
+                require(time.monotonic() < deadline + 300, "[registry] (c) no replies after the flip")
+                time.sleep(0.01)
+            halt.set()
+            for t in clients:
+                t.join(60)
+            require(not any(t.is_alive() for t in clients), "[registry] (c) a client hung")
+        finally:
+            ModelRuntime.predict = orig_predict
+            halt.set()
+        v2 = registry.get("alt")
+        rows = {"v1": set(), "v2": set()}
+        for version, _, out in dispatches:
+            for j in range(len(out)):
+                rows[version].add(hashlib.blake2b(out[j].tobytes()).digest())
+        after = 0
+        for t_send, code, body in swapped:
+            require(code == 200, f"[registry] (c) a reply failed during the deploy: {code}")
+            digest = hashlib.blake2b(out_of(body)[0].tobytes()).digest()
+            if t_send > flip[0]:
+                after += 1
+                require(digest in rows["v2"], "[registry] (c) a reply after the flip is no row "
+                        "of a v2 dispatch")
+            else:
+                require(digest in rows["v1"] | rows["v2"],
+                        "[registry] (c) a reply is no row of a v1 or v2 dispatch")
+        # v1's merged batches through v2: the same bits (the same weights)
+        v1_batches = [(f, o) for version, f, o in dispatches if version == "v1"][:64]
+        require(all(np.array_equal(v2.predict(f)[fetch], o) for f, o in v1_batches),
+                "[registry] (c) v2 differs from v1 on one of v1's merged batches")
+        if not rehearsal:
+            torch.cuda.synchronize()
+        mem_after = mem()
+        c = reg.counters()
+        require(c.get("serve_deploys") == 1 and c.get("serve_deploy_unloads") == 1,
+                f"[registry] (c) deploy counters {c}")
+        require(rehearsal or abs(mem_after - mem_before) <= 0.05 * mem_before,
+                f"[registry] (c) memory_allocated {mem_before} before the deploy, {mem_after} "
+                "after the unload")
+        stats["hot_swap"] = dict(
+            deploy_ms=deploy_ms, replies=len(swapped), replies_after_flip=after,
+            dispatches_v1=len(v1_batches), peak_mib=peak / 2**20,
+            allocated_before_mib=mem_before / 2**20, allocated_after_mib=mem_after / 2**20)
+        print(f"[registry] (c) deploy alt@v2 under 16 clients: {deploy_ms:.1f} ms wall, "
+              f"{len(swapped)} replies all 200 ({after} sent after the flip, each a row of a v2 "
+              f"dispatch), {len(v1_batches)} of v1's merged batches bit-equal through v2; "
+              f"memory_allocated {mem_before / 2**20:.1f} MiB before, peak "
+              f"{peak / 2**20:.1f} MiB during, {mem_after / 2**20:.1f} MiB after the unload; "
+              f"card {smi}")
+
+        # a drifted deploy (another seed) is refused, v2 keeps serving
+        deploy = lambda version, d: http(reg.port, "/admin/deploy", json.dumps(  # noqa: E731
+            {"name": "alt", "version": version, "bundle_dir": str(d),
+             "tolerance": 0.01}).encode(), headers={"Content-Type": "application/json"})
+        code, _, body = deploy("v3", dirs["alt_v3"])
+        require(code == 409 and json.loads(body)["error"] == "ExportToleranceError",
+                f"[registry] drifted v3: {code} {body[:300]}")
+        drift_msg = json.loads(body)["message"]
+        # a chaos plan aborts a deploy at the cutover, v2 keeps serving
+        faults.install(faults.FaultPlan.from_spec("registry.cutover:raises=RuntimeError:times=1"))
+        try:
+            code_f, _, body_f = deploy("v4", dirs["alt_v2"])
+        finally:
+            faults.clear()
+        require(code_f == 500 and json.loads(body_f)["error"] == "RuntimeError",
+                f"[registry] cutover abort: {code_f} {body_f[:300]}")
+        ca, _, ba = http(reg.port, "/predict", bodies[0], headers={"X-Model": "alt"})
+        require(registry.get("alt") is v2 and ca == 200
+                and np.array_equal(out_of(ba), v2.predict(feeds[0])[fetch]),
+                "[registry] alt does not answer with v2 after the refused deploys")
+        if not rehearsal:
+            torch.cuda.synchronize()
+        mem_refused = mem()
+        c = reg.counters()
+        require((c.get("serve_deploys"), c.get("serve_deploy_failures"),
+                 c.get("serve_deploy_unloads")) == (3, 2, 1), f"[registry] counters {c}")
+        require(rehearsal or abs(mem_refused - mem_before) <= 0.05 * mem_before,
+                f"[registry] the refused candidates kept memory: {mem_refused} vs {mem_before}")
+        stats["refused"] = dict(drift=drift_msg, allocated_after_mib=mem_refused / 2**20)
+        print(f"[registry] (c) alt@v3 (another seed) 409 ExportToleranceError ({drift_msg}); a "
+              f"registry.cutover fault plan aborted alt@v4 with 500; alt still v2's bits; "
+              f"serve_deploys 3, failures 2, unloads 1; memory_allocated "
+              f"{mem_refused / 2**20:.1f} MiB")
+        stop(reg)
+
+        # (d) one KV pool, two decode models at BERT's attention width
+        geom = dict(vocab=13, num_heads=4, head_dim=8) if rehearsal else dict(
+            vocab=30522, num_heads=12, head_dim=64)
+        wpaths = {}
+        for tag, wseed in (("main", seed + 16), ("alt", seed + 17)):
+            wpaths[tag] = str(save_decode_weights(
+                str(root / f"decode_{tag}.npz"), make_toy_decode_weights(seed=wseed, **geom)))
+        rs_g = np.random.RandomState(seed + 160)
+        jobs = [("main" if i % 2 == 0 else "alt",
+                 rs_g.randint(0, geom["vocab"], rs_g.randint(8, 41)).astype(np.int32))
+                for i in range(32)]
+        gen_bodies = []
+        for _, p in jobs:
+            buf = io.BytesIO()
+            np.savez(buf, tokens=p, max_new=np.int32(16))
+            gen_bodies.append(buf.getvalue())
+        kv = {"admission_window_ms": 30_000}
+        shared = serve(dirs["main"], decode_weights=wpaths["main"], max_queue=256, warmup=False,
+                       kv_config=kv, registry={
+                           "default": "main", "models": [
+                               {"name": "alt", "version": "v1", "bundle_dir": str(dirs["alt_v2"]),
+                                "decode_weights": wpaths["alt"], "max_queue": 256}]})
+        pool = shared._decode.cache
+        require(shared._registry.get("alt").decode.cache is pool,
+                "[registry] (d) the alt decode model is not on the server's pool")
+        peak_pages, sampling = [0], threading.Event()
+
+        def sample():
+            while not sampling.is_set():
+                peak_pages[0] = max(peak_pages[0], pool.counters.snapshot().get(
+                    "kv_pages_in_use", 0))
+                time.sleep(0.0005)
+
+        steps0 = pool.counters.snapshot().get("kv_decode_steps", 0)
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        wall, lats, replies, sheds = closed_loop(32, 32, lambda i: http(
+            shared.port, "/generate", gen_bodies[i],
+            headers={"X-Model": "alt"} if jobs[i][0] == "alt" else None))
+        sampling.set()
+        sampler.join(10)
+        steps = pool.counters.snapshot().get("kv_decode_steps", 0) - steps0
+        require(pool.free_pages() == pool.num_pages, "[registry] (d) pages not reclaimed")
+        stop(shared)
+        for tag in ("main", "alt"):
+            solo = serve(dirs["main"], decode_weights=wpaths[tag], max_queue=256, warmup=False,
+                         kv_config=kv)
+            mine = [i for i, (t, _) in enumerate(jobs) if t == tag]
+            _, _, alone, _ = closed_loop(len(mine), len(mine),
+                                         lambda k: http(solo.port, "/generate", gen_bodies[mine[k]]))
+            stop(solo)
+            for k, i in enumerate(mine):
+                (cs, _, bs), (ca_, _, ba_) = replies[i], alone[k]
+                require(cs == ca_ == 200, f"[registry] (d) {tag} prompt {i}: {cs} / {ca_}")
+                a, b = np.load(io.BytesIO(bs)), np.load(io.BytesIO(ba_))
+                require(a["tokens"].shape == (16,) and np.array_equal(a["tokens"], b["tokens"])
+                        and a["logits"].tobytes() == b["logits"].tobytes(),
+                        f"[registry] (d) {tag} prompt {i}: the shared pool's stream differs from "
+                        "the model alone")
+        stats["shared_pool"] = dict(
+            tokens_per_s=32 * 16 / wall, p50_ms=pctl(lats, 0.5), p99_ms=pctl(lats, 0.99),
+            peak_pages_in_use=peak_pages[0], pages=pool.num_pages, kv_decode_steps=steps,
+            sheds_retried=sheds)
+        print(f"[registry] (d) 32 /generate (16 a model, prompts of 8-40 tokens, max_new 16) on "
+              f"one pool of {pool.num_pages} pages, vocab {geom['vocab']}, {geom['num_heads']} "
+              f"heads of {geom['head_dim']}: each stream bit-equal to its model alone; "
+              f"{32 * 16 / wall:.1f} tokens/s, p50 {pctl(lats, 0.5):.2f} ms, p99 "
+              f"{pctl(lats, 0.99):.2f} ms, peak kv_pages_in_use {peak_pages[0]}, kv_decode_steps "
+              f"{steps}; card {smi}")
+    finally:
+        AnalysisPredictor.run = orig_run
+        for srv, t in list(servers):
+            stop(srv)
+    if not rehearsal:
+        torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    require(rehearsal or launches["mha_short_fwd"] == cfg.num_layers * runs[0] > 0,
+            f"[registry] the short kernel launched {launches['mha_short_fwd']} times over "
+            f"{runs[0]} BERT dispatches on the card, want {cfg.num_layers} a dispatch")
+    stats["bert_dispatches"] = runs[0]
+    print(f"[registry] {runs[0]} BERT dispatches on the card in the phase, launches {launches}")
+    return launches, stats
 
 
 def bert_pretrain_feed(np, rs, cfg, b, s, max_preds):

@@ -15,9 +15,10 @@ before the backward, one `check_finite_and_unscale` op divides every grad
 by it (zeros on an overflow step, so the update is a no-op), and under
 dynamic scaling an `update_loss_scaling` op grows or shrinks the scale
 over windows of good and bad steps. The scale and FoundInfinite stay on
-the device. On the card the hand-written kernels take float32 and bf16
-only: an fp16 input to one raises TypeError (ROADMAP Queue 1, "fp16
-versions of kernels #1-#8"), so fp16 AMP runs on the CPU so far."""
+the device. bf16 and fp16 AMP both run on the card: the attention and
+LayerNorm-backward kernels (#1-#8) take float32, bf16 and fp16. Only the
+fused-block kernels (#9-#10), which no AMP path calls, take no fp16 and
+raise TypeError for it."""
 
 from __future__ import annotations
 

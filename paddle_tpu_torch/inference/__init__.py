@@ -167,6 +167,17 @@ class AnalysisPredictor:
     def zero_copy_run(self):
         return self.run(None)
 
+    def close(self):
+        """Drop every tensor this predictor holds (its scope's weights, the
+        last outputs, the zero-copy inputs, the executor's rewritten
+        Programs), so that their device memory is free at once rather than
+        whenever the garbage collector finds the predictor. It runs no more
+        after this."""
+        self._scope = Scope()
+        self._outputs = {}
+        self._input_handles = {}
+        self._exe._pass_cache.clear()
+
     def program(self):
         return self._program
 

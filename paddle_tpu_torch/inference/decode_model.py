@@ -181,7 +181,8 @@ class _DecodeJob:
 
 class DecodeService:
     """Continuous-batching greedy decode over a PagedKVCache on the
-    model's device.
+    model's device: its own, or with `cache=` one it shares with other
+    models' services (`owns_cache` False).
 
     One daemon driver thread advances EVERY registered stream per
     dispatch through the paged step; requests block on their job's
@@ -192,14 +193,31 @@ class DecodeService:
 
     def __init__(self, model: ToyDecodeModel, *, num_pages=64,
                  page_len=16, pages_per_seq=4, max_streams=None,
-                 admission_window_s=0.0, idle_sleep_s=0.002):
+                 admission_window_s=0.0, idle_sleep_s=0.002, cache=None):
         self.model = model
-        self.cache = PagedKVCache(
-            num_pages, page_len, pages_per_seq,
-            model.num_heads, model.head_dim,
-            max_streams=max_streams,
-            admission_window_s=admission_window_s,
-            device=model.device)
+        if cache is not None:
+            # N services (one a model) admit into ONE PagedKVCache. Safe
+            # because the batcher's step holds cache._array_lock for its
+            # whole gather -> step -> write-back cycle, each driver masks
+            # only its own streams, and an unmasked row writes only the
+            # scratch page (the value already there), never another
+            # model's pages
+            geometry = (int(cache.shape[2]), int(cache.shape[3]), cache.device)
+            if geometry != (model.num_heads, model.head_dim, model.device):
+                raise ValueError(
+                    "shared KV cache geometry mismatch: cache is [H={}, D={}] "
+                    "on {}, model needs [H={}, D={}] on {}".format(
+                        *geometry, model.num_heads, model.head_dim, model.device))
+            self.cache = cache
+            self.owns_cache = False
+        else:
+            self.cache = PagedKVCache(
+                num_pages, page_len, pages_per_seq,
+                model.num_heads, model.head_dim,
+                max_streams=max_streams,
+                admission_window_s=admission_window_s,
+                device=model.device)
+            self.owns_cache = True
         self.batcher = PagedDecodeStepBatcher(self.cache, model.decode_step)
         self._jobs = {}  # slot -> _DecodeJob
         self._cv = threading.Condition()

@@ -1,5 +1,5 @@
 """Out-of-process inference serving over HTTP: the port of
-`paddle_tpu/inference/server.py`, without the model registry.
+`paddle_tpu/inference/server.py`.
 
 `python -m paddle_tpu_torch.inference.server --model-dir D` loads a
 `save_inference_model` export (either package's) into an
@@ -18,9 +18,12 @@ AnalysisPredictor, on the card unless `--device cpu`, and serves:
                     max_queue and a `counters` block (this instance's
                     serve_* and kv_* counters, uptime_s, inflight).
     POST /prefill, /decode, /generate   the generative roles (below)
-    POST /admin/deploy   404 NoRegistry: the port has no model registry
-                    yet (ROADMAP Queue 1 item 5, second half); X-Model is
-                    ignored, as the JAX server ignores it without one.
+    POST /admin/deploy   body JSON {name, version, bundle_dir?, tolerance?}:
+                    hot-swaps one registry model (below). 200 {status:
+                    "active"}; 404 NoRegistry (a closing reply) without a
+                    registry, 404 NoSuchModel, 400 (bad body), 413, 409
+                    ExportToleranceError (drift gate), 500 (load / verify /
+                    chaos abort: the old version stays)
 
 Handshake: `--ready-file PATH` writes {"port", "pid", "warmup_ms"} by
 temp file + os.replace once the listener is bound and warmup has run.
@@ -84,6 +87,20 @@ serve_prefill_queued_tokens (gauge), serve_prefill_ms_ewma /
 serve_decode_ms_ewma (gauges), serve_decode_requests,
 serve_generate_requests; the paged cache's kv_* family is merged into
 the /healthz counters block.
+
+Multi-model serving: `--registry model_registry.json` (registry.py) loads
+N extra named, versioned bundles on the server's device. `/predict` and
+`/generate` take an `X-Model` header (absent or naming the manifest's
+default: the byte-identical built-in path; unknown: 404 NoSuchModel), and
+`X-Tenant` maps to a QoS class (one deficit-round-robin predictor gate for
+every model, and the class's default deadline). Each model has its own
+admission queue, circuit breaker, dispatch EWMA (so its own Retry-After),
+counters and optional coalescer; decode models share the server's paged KV
+pool. `POST /admin/deploy` hot-swaps one model's version, /healthz gains a
+`models` block, and the chaos sites `registry.load` / `registry.cutover`
+abort deploys. Deploy counters: serve_deploys, serve_deploy_failures,
+serve_deploy_unloads. Without a registry X-Model and X-Tenant are ignored
+and every reply is what a server without the feature gives.
 """
 
 from __future__ import annotations
@@ -194,22 +211,23 @@ class JsonHandlerMixin:
 
 
 def _load_json_table(path):
-    """The table's JSON, read directly. The JAX loaders read it through
-    `analysis/artifacts.load_artifact`, which also records the (backend,
-    signature) provenance of the lookup; the port has no analysis package
-    yet (ROADMAP Queue 1 item 11), so it records none."""
+    """A table's (or a registry manifest's) JSON, read directly. The JAX
+    loaders read it through `analysis/artifacts.load_artifact`, which also
+    records the (backend, signature) provenance of the lookup; the port has
+    no analysis package yet (ROADMAP Queue 1 item 11), so it records none."""
     with open(path) as f:
         return json.load(f)
 
 
-def load_bucket_table(path=None, backend_class=None):
+def load_bucket_table(path=None, signature=None, backend_class=None):
     """Load and validate the shape-bucket table: {"default": [sizes...],
     "per_feed": {feed_name: [sizes...]}}. Sizes must be positive
     ascending ints; keys starting with "_" (comments) are ignored.
     `path=None` loads the table next to this module. Errors propagate:
-    serving refuses to start on a missing or corrupt table. (The JAX
-    loader's `signature`, a provenance key, has no use here: see
-    `_load_json_table`.)
+    serving refuses to start on a missing or corrupt table. `signature` is
+    the JAX loader's provenance key (the registry passes
+    `name@version:<basename>`); with no provenance record to write it to
+    (see `_load_json_table`) it is reported on the table as "signature".
 
     `backend_class` selects an overlay: when the table carries a
     `per_class` entry for the class, its default/per_feed replace the
@@ -234,6 +252,8 @@ def load_bucket_table(path=None, backend_class=None):
     for name, val in (raw.get("per_feed") or {}).items():
         if not str(name).startswith("_"):
             table["per_feed"][str(name)] = _sizes(val, f"per_feed[{name}]")
+    if signature is not None:
+        table["signature"] = str(signature)
     return table
 
 
@@ -529,10 +549,6 @@ class InferenceServer:
                  role="unified", decode_weights=None, kv_profile="default",
                  kv_table=None, kv_config=None, registry=None,
                  backend_class=None):
-        if registry is not None:
-            raise NotImplementedError(
-                "the port has no model registry yet (ROADMAP Queue 1 item "
-                "5, second half: registry.py then fleet.py)")
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
         self.device = device
@@ -627,6 +643,16 @@ class InferenceServer:
                 f"--role {self.role} requires --decode-weights (the "
                 "generative model the role split serves)")
 
+        # the model registry (registry.py): extra named, versioned bundles
+        # behind X-Model, hot-swap deploys, per-tenant QoS. None keeps every
+        # path above byte-identical: the registry only adds behaviour
+        self._registry = None
+        if registry is not None:
+            from .registry import ModelRegistry
+
+            self._registry = (registry if isinstance(registry, ModelRegistry)
+                              else ModelRegistry(self, registry, warmup=warmup))
+
         self._httpd = _Listener(("127.0.0.1", port), self._make_handler())
         self.port = self._httpd.server_address[1]
         if warmup:
@@ -691,13 +717,18 @@ class InferenceServer:
             self._dispatch_ms_ewma = ms if prev is None else 0.7 * prev + 0.3 * ms
         self._gauge("serve_dispatch_ms_ewma", int(self._dispatch_ms_ewma))
 
-    def _retry_after(self):
+    def _retry_after(self, rt=None):
         """Retry-After of a 503 shed: queue depth x the dispatch EWMA,
-        clamped to [1, 30] s; 1 s before the first dispatch."""
+        clamped to [1, 30] s; 1 s before the first dispatch. Per model: a
+        registry runtime `rt` answers from its own queue and EWMA, and with
+        a registry the default model's depth leaves its neighbours out."""
+        if rt is not None:
+            return rt.retry_after()
         with self._ewma_lock:
             ewma = self._dispatch_ms_ewma
         with self._gate:
-            depth = self._inflight
+            depth = (self._registry.default_inflight
+                     if self._registry is not None else self._inflight)
         if not ewma or depth <= 0:
             return 1
         return max(1, min(30, int(math.ceil(depth * ewma / 1000.0))))
@@ -898,20 +929,92 @@ class InferenceServer:
             }
         if self._decode_model is not None and self.role in ("prefill", "unified"):
             payload["prefill"] = {"queued_tokens": self._prefill_queued_tokens}
+        if self._registry is not None:
+            payload["models"] = self._registry.models_block()
         h._json(code, payload)
 
     def _handle_deploy(self, h):
-        """Hot-swap deploys need the model registry, which the port has
-        not yet: 404 NoRegistry, as the JAX server without one answers
-        (the body is left unread, so the connection closes)."""
-        h._json(404, {"error": "NoRegistry",
-                      "message": "this replica has no model registry"}, close=True)
+        """POST /admin/deploy {name, version, bundle_dir?, tolerance?}:
+        hot-swap one registry model on this replica. tolerance null skips
+        the drift bound; any failure leaves the old version authoritative.
+        Without a registry: 404 NoRegistry, with the body left unread, so
+        the connection closes."""
+        if self._registry is None:
+            h._json(404, {"error": "NoRegistry",
+                          "message": "this replica has no model registry "
+                                     "(start with --registry)"}, close=True)
+            return
+        n = h._content_length()
+        if n is None:
+            return
+        if n > self.max_body_bytes:
+            h._json(413, {"error": "PayloadTooLarge",
+                          "message": f"body is {n} bytes, cap is "
+                                     f"{self.max_body_bytes}"}, close=True)
+            return
+        body = h._read_body(n)
+        if body is None:
+            return
+        try:
+            req = json.loads(body.decode("utf-8") or "{}")
+            name = str(req["name"])
+            version = str(req["version"])
+        except Exception as e:  # noqa: BLE001 — a malformed body is a 400
+            h._json(400, {"error": type(e).__name__,
+                          "message": f"deploy body must be JSON with name and "
+                                     f"version: {e}"}, close=True)
+            return
+        from ..streaming.export_int8 import ExportToleranceError
+
+        try:
+            info = self._registry.deploy(name, version, req.get("bundle_dir"),
+                                         tolerance=req.get("tolerance", 0.01))
+        except KeyError as e:
+            h._json(404, {"error": "NoSuchModel", "message": str(e).strip("'\"")})
+            return
+        except ExportToleranceError as e:
+            h._json(409, {"error": "ExportToleranceError", "message": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — a failed deploy keeps the old version
+            h._json(500, {"error": type(e).__name__, "message": str(e)})
+            return
+        h._json(200, dict(info, status="active"))
+
+    def _resolve_model(self, h):
+        """(runtime | None, qos_class | None) for one request, or None after
+        writing the 404 for an unknown X-Model. Without a registry the
+        headers are ignored: a single-model replica's replies stay as they
+        were."""
+        if self._registry is None:
+            return None, None
+        try:
+            return self._registry.resolve_request(h.headers)
+        except KeyError as e:
+            h._json(404, {"error": "NoSuchModel", "message": str(e).strip("'\"")},
+                    close=True)
+            return None
+
+    def _default_deadline_ms(self, qos_cls):
+        """The deadline of a request without X-Deadline-Ms: its QoS class's
+        default where one is set, else the server's."""
+        if qos_cls is not None and self._registry is not None:
+            cls_ms = self._registry.qos.deadline_ms(qos_cls)
+            if cls_ms > 0:
+                return cls_ms
+        return self.default_deadline_ms
 
     def _handle_predict(self, h):
         self._bump("serve_requests")
         t0 = time.monotonic()
+        resolved = self._resolve_model(h)
+        if resolved is None:
+            return
+        rt, qos_cls = resolved
+        if rt is not None:
+            rt._bump("serve_requests")
         try:
-            dl_ms = float(h.headers.get("X-Deadline-Ms", self.default_deadline_ms) or 0)
+            dl_ms = float(h.headers.get("X-Deadline-Ms",
+                                        self._default_deadline_ms(qos_cls)) or 0)
         except (TypeError, ValueError):
             h._json(400, {"error": "ValueError",
                           "message": "X-Deadline-Ms must be a number"}, close=True)
@@ -930,21 +1033,31 @@ class InferenceServer:
             return
         # breaker open and synthetic probing viable: shed fast, recovery
         # is the probe loop's (the live-trial slot, when probing is not
-        # viable, is claimed after the body validates)
-        if self._breaker.open and self._synthetic_ok:
+        # viable, is claimed after the body validates). The breaker is per
+        # model: a wedged model sheds its own traffic only
+        target = rt if rt is not None else self
+        if target._breaker.open and target._synthetic_ok:
             self._bump("serve_breaker_open")
+            if rt is not None:
+                rt._bump("serve_breaker_open")
             h._json(503, {"error": "BreakerOpen",
                           "message": "predictor circuit breaker is open"},
                     retry_after=1, close=True)
             return
-        if not self._admit(h):
+        target = self._admit(h, rt)
+        if target is None:
             return
+        rt = None if target is self else target
         try:
-            self._admitted_predict(h, n, deadline, dl_ms)
+            self._admitted_predict(h, n, deadline, dl_ms, rt=rt, qos_cls=qos_cls)
         finally:
-            self._exit_gate()
+            self._exit_gate(rt)
 
-    def _admitted_predict(self, h, n, deadline, dl_ms):
+    def _admitted_predict(self, h, n, deadline, dl_ms, rt=None, qos_cls=None):
+        # `target` is the model the request dispatches into: the server
+        # itself (the default path) or a registry ModelRuntime with its own
+        # predictor, coalescer, breaker and EWMA (registry.py)
+        target = rt if rt is not None else self
         # client errors (truncated body, bad archive, wrong feed names)
         # are 400s; a short read closes the connection
         body = h._read_body(n)
@@ -956,19 +1069,21 @@ class InferenceServer:
         except Exception as e:  # noqa: BLE001 — a malformed body is a 400
             h._json(400, {"error": type(e).__name__, "message": str(e)}, close=True)
             return
-        unknown = sorted(set(feeds) - set(self._feed_names))
-        missing = sorted(set(self._feed_names) - set(feeds))
+        unknown = sorted(set(feeds) - set(target._feed_names))
+        missing = sorted(set(target._feed_names) - set(feeds))
         if unknown or missing:
             h._json(400, {"error": "ValueError",
                           "message": f"feed mismatch: unknown={unknown} "
-                                     f"missing={missing} (expect {self._feed_names})"})
+                                     f"missing={missing} (expect {target._feed_names})"})
             return
 
         # half-open live trial (breaker open, synthetic probing not
         # viable): claim the one-per-probe-interval slot only now that the
         # body validated
-        if self._breaker.open and not self._breaker.probe_due():
+        if target._breaker.open and not target._breaker.probe_due():
             self._bump("serve_breaker_open")
+            if rt is not None:
+                rt._bump("serve_breaker_open")
             h._json(503, {"error": "BreakerOpen",
                           "message": "predictor circuit breaker is open"},
                     retry_after=1, close=True)
@@ -976,71 +1091,115 @@ class InferenceServer:
 
         # deadline checks bracket the dispatch; a predictor raise is a 500
         # and feeds the breaker. Batchable feeds ride the coalescer (one
-        # breaker / EWMA sample per merged dispatch, taken inside it).
+        # breaker / EWMA sample per merged dispatch, taken inside it). A
+        # QoS class rides a request-scoped thread local into the gate.
         solo = True
+        if qos_cls is not None:
+            from .registry import set_request_class
+
+            set_request_class(qos_cls)
         try:
             fault_point("server.predict")
             if deadline is not None and time.monotonic() > deadline:
                 raise _DeadlineExceeded("deadline expired before dispatch")
-            batch_key = (self._batch_key(feeds)
-                         if self._coalescer is not None and self._batchable else None)
+            batch_key = (target._batch_key(feeds)
+                         if target._coalescer is not None and target._batchable else None)
             if batch_key is not None:
                 solo = False
-                outs = self._coalescer.submit(batch_key[0], feeds, batch_key[1], deadline)
+                outs = target._coalescer.submit(batch_key[0], feeds, batch_key[1], deadline)
             else:
-                outs = self.predict(feeds, _deadline=deadline)
+                outs = target.predict(feeds, _deadline=deadline)
             fault_point("server.reply")
             if deadline is not None and time.monotonic() > deadline:
                 raise _DeadlineExceeded("deadline expired after predict")
         except _DeadlineExceeded as e:
             self._bump("serve_deadline_exceeded")
+            if rt is not None:
+                rt._bump("serve_deadline_exceeded")
             h._json(504, {"error": "DeadlineExceeded", "message": str(e),
                           "deadline_ms": dl_ms})
             return
         except Exception as e:  # noqa: BLE001 — a predictor failure is a 500
             if solo:
-                self._note_predict_failure()
+                target._note_predict_failure()
             h._json(500, {"error": type(e).__name__, "message": str(e)})
             return
+        finally:
+            if qos_cls is not None:
+                from .registry import clear_request_class
+
+                clear_request_class()
         if solo:
-            self._note_predict_success()
+            target._note_predict_success()
         self._npz_reply(h, outs)
 
     # -- admission (shared by /predict and the generative endpoints) ------
-    def _admit(self, h):
+    def _admit(self, h, rt=None):
         """The admission gate: draining or max_queue shed with the derived
-        Retry-After. True = admitted; the caller pairs it with _exit_gate()
-        in a finally. The shed reply is written after the gate releases,
-        so a client slow to read its 503 stalls no one."""
+        Retry-After. -> None after the shed reply, else the model admitted
+        into: `self` for the built-in one, or a registry runtime, which is
+        the live version of `rt` when a deploy retired `rt` after the
+        request resolved it (a retired version's predictor is unloaded).
+        The caller pairs it with _exit_gate(that runtime) in a finally. The
+        shed reply is written after the gate releases, so a client slow to
+        read its 503 stalls no one.
+
+        Admission queues are per model: a registry runtime checks its own
+        depth against its own cap, and with a registry the default model's
+        depth leaves its neighbours out, so one flooded model cannot take
+        another's queue. Without a registry the depth and the message are
+        the process-wide ones."""
         shed = None
         with self._gate:
+            if rt is not None and rt.retired:
+                rt = self._registry.get(rt.name) or rt
+            if rt is not None:
+                depth, cap = rt.inflight, rt.max_queue
+            elif self._registry is not None:
+                depth, cap = self._registry.default_inflight, self.max_queue
+            else:
+                depth, cap = self._inflight, self.max_queue
             if self._draining:
                 shed = "ServerDraining", "server is draining for shutdown"
-            elif self._inflight >= self.max_queue:
-                shed = ("QueueFull", f"{self._inflight} requests in flight "
-                                     f"(max_queue={self.max_queue})")
+            elif depth >= cap:
+                shed = ("QueueFull", f"{depth} requests in flight "
+                                     f"(max_queue={cap})")
             else:
                 self._inflight += 1
+                if rt is not None:
+                    rt.inflight += 1
+                elif self._registry is not None:
+                    self._registry.default_inflight += 1
                 self._gauge("serve_queue_depth", self._inflight)
         if shed is not None:
             self._bump("serve_shed")
+            if rt is not None:
+                rt._bump("serve_shed")
             h._json(503, {"error": shed[0], "message": shed[1]},
-                    retry_after=self._retry_after(), close=True)
-            return False
-        return True
+                    retry_after=self._retry_after(rt), close=True)
+            return None
+        return self if rt is None else rt
 
-    def _exit_gate(self):
+    def _exit_gate(self, rt=None):
         with self._gate:
             self._inflight -= 1
+            if rt is not None:
+                rt.inflight -= 1
+            elif self._registry is not None:
+                self._registry.default_inflight -= 1
             self._gauge("serve_queue_depth", self._inflight)
             self._gate.notify_all()
 
-    def _generative_body(self, h, endpoint, roles):
+    def _generative_body(self, h, endpoint, roles, rt=None, have=None):
         """The front half of /prefill /decode /generate: role gate,
-        Content-Length checks, admission, body read -> the body bytes
-        (admitted: the caller owns _exit_gate()) or None (the reply is
-        written; the gate was left or never entered)."""
-        have = self._decode_model is not None
+        Content-Length checks, admission, body read -> (body bytes, the
+        runtime admitted into: None for the built-in model) when admitted
+        (the caller owns _exit_gate(runtime)), or None (the reply is
+        written; the gate was left or never entered). `have` replaces the
+        built-in decode model's presence check when the generative weights
+        live on a registry runtime."""
+        if have is None:
+            have = self._decode_model is not None
         if not have or self.role not in roles:
             h._json(404, {"error": "NoSuchEndpoint",
                           "message": f"role {self.role!r} replica serves no "
@@ -1055,17 +1214,20 @@ class InferenceServer:
                           "message": f"body is {n} bytes, cap is "
                                      f"{self.max_body_bytes}"}, close=True)
             return None
-        if not self._admit(h):
+        target = self._admit(h, rt)
+        if target is None:
             return None
+        rt = None if target is self else target
         body = h._read_body(n)
         if body is None:
-            self._exit_gate()
+            self._exit_gate(rt)
             return None
-        return body
+        return body, rt
 
-    def _deadline_of(self, h):
+    def _deadline_of(self, h, qos_cls=None):
         try:
-            dl_ms = float(h.headers.get("X-Deadline-Ms", self.default_deadline_ms) or 0)
+            dl_ms = float(h.headers.get("X-Deadline-Ms",
+                                        self._default_deadline_ms(qos_cls)) or 0)
         except (TypeError, ValueError):
             return None
         return time.monotonic() + dl_ms / 1000.0 if dl_ms > 0 else None
@@ -1104,9 +1266,10 @@ class InferenceServer:
         """npz {tokens, max_new} -> handoff blob. Stateless and pure, so a
         retry on another prefill replica gives the same bytes."""
         self._bump("serve_prefill_requests")
-        body = self._generative_body(h, "/prefill", ("prefill", "unified"))
-        if body is None:
+        admitted = self._generative_body(h, "/prefill", ("prefill", "unified"))
+        if admitted is None:
             return
+        body = admitted[0]
         try:
             prompt = self._prompt_of(h, body)
             if prompt is None:
@@ -1154,9 +1317,10 @@ class InferenceServer:
         history into pages and ride the decode driver. An admission shed
         is a 503; a corrupt blob is a 400 (the sender resends its copy)."""
         self._bump("serve_decode_requests")
-        body = self._generative_body(h, "/decode", ("decode", "unified"))
-        if body is None:
+        admitted = self._generative_body(h, "/decode", ("decode", "unified"))
+        if admitted is None:
             return
+        body = admitted[0]
         try:
             from .decode_model import DecodeAdmissionError
             from .handoff import HandoffError, unpack_handoff
@@ -1195,11 +1359,23 @@ class InferenceServer:
 
     def _handle_generate(self, h):
         """npz {tokens, max_new} -> npz {tokens, logits}: local prefill,
-        then the decode driver; the baseline a split reply equals."""
+        then the decode driver; the baseline a split reply equals. X-Model
+        selects a registry runtime's decode service (its streams ride the
+        server's pool when the geometry matches)."""
         self._bump("serve_generate_requests")
-        body = self._generative_body(h, "/generate", ("unified",))
-        if body is None:
+        resolved = self._resolve_model(h)
+        if resolved is None:
             return
+        rt, qos_cls = resolved
+        if rt is not None:
+            rt._bump("serve_generate_requests")
+        admitted = self._generative_body(
+            h, "/generate", ("unified",), rt=rt,
+            have=None if rt is None else rt.decode is not None)
+        if admitted is None:
+            return
+        body, rt = admitted
+        svc = rt.decode if rt is not None else self._decode
         try:
             from .decode_model import DecodeAdmissionError
 
@@ -1208,10 +1384,12 @@ class InferenceServer:
                 return
             tokens, max_new = prompt
             try:
-                toks, logits = self._decode.generate(tokens, max_new,
-                                                     deadline=self._deadline_of(h))
+                toks, logits = svc.generate(tokens, max_new,
+                                            deadline=self._deadline_of(h, qos_cls))
             except DecodeAdmissionError as e:
                 self._bump("serve_shed")
+                if rt is not None:
+                    rt._bump("serve_shed")
                 h._json(503, {"error": "KVAdmissionShed", "message": str(e)},
                         retry_after=1)
                 return
@@ -1219,9 +1397,9 @@ class InferenceServer:
                 h._json(500, {"error": type(e).__name__, "message": str(e)})
                 return
             self._npz_reply(h, {"tokens": toks, "logits": logits},
-                            headers={"X-KV-Free-Pages": self._decode.cache.free_pages()})
+                            headers={"X-KV-Free-Pages": svc.cache.free_pages()})
         finally:
-            self._exit_gate()
+            self._exit_gate(rt)
 
     # -- lifecycle --------------------------------------------------------
     def serve_forever(self):
@@ -1239,6 +1417,8 @@ class InferenceServer:
 
     def close(self):
         self._stopped.set()
+        if self._registry is not None:
+            self._registry.close()
         if self._decode is not None:
             self._decode.close()
         self._httpd.server_close()
@@ -1345,6 +1525,10 @@ def main(argv=None):
                     help="override: max concurrent decode streams")
     ap.add_argument("--kv-admission-window-ms", type=float, default=None,
                     help="override: page-admission wait window before a 503")
+    ap.add_argument("--registry", default=None,
+                    help="model registry manifest JSON (model_registry.json): "
+                    "extra named, versioned bundles behind X-Model, hot-swap "
+                    "deploys on /admin/deploy, per-tenant QoS")
     ap.add_argument("--backend-class", default=None,
                     help="declared substrate class of a mixed fleet: echoed "
                     "in the ready-file and on /healthz, and selects the "
@@ -1375,6 +1559,7 @@ def main(argv=None):
         kv_profile=args.kv_profile,
         kv_table=args.kv_table,
         kv_config=kv_config,
+        registry=args.registry,
         backend_class=args.backend_class,
     )
 

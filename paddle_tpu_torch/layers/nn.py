@@ -9,6 +9,7 @@ import numpy as np
 from ..framework import Variable
 from ..initializer import Constant, Normal, Xavier
 from ..layer_helper import LayerHelper
+from ..param_attr import ParamAttr
 
 __all__ = [
     "fc",
@@ -69,20 +70,34 @@ def _single_out(helper, op_type, inputs, attrs=None, dtype=None, shape=None):
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=None, name=None):
-    """mul + bias + activation over one input (the JAX layer's list of
-    inputs needs the `sum` op, not ported yet)."""
+    """mul + bias + activation; over a list of inputs, one mul per input
+    (each with its own param_attr when a list is given), summed before the
+    bias."""
     helper = LayerHelper("fc", name=name, act=act)
-    in_dim = int(np.prod(input.shape[num_flatten_dims:]))
-    w = helper.create_parameter(param_attr, [in_dim, size], dtype=input.dtype)
-    out_shape = tuple(input.shape[:num_flatten_dims]) + (size,)
-    tmp = helper.create_variable_for_type_inference(input.dtype, out_shape)
-    helper.append_op(
-        type="mul",
-        inputs={"X": [input], "Y": [w]},
-        outputs={"Out": [tmp]},
-        attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
-    )
-    pre_act = helper.append_bias_op(tmp, bias_attr, size, num_flatten_dims)
+    inputs = input if isinstance(input, (list, tuple)) else [input]
+    param_attrs = ParamAttr._to_attr(param_attr)
+    if not isinstance(param_attrs, list):
+        param_attrs = [param_attrs] * len(inputs)
+    mul_results = []
+    for x, pattr in zip(inputs, param_attrs):
+        in_dim = int(np.prod(x.shape[num_flatten_dims:]))
+        w = helper.create_parameter(pattr, [in_dim, size], dtype=x.dtype)
+        out_shape = tuple(x.shape[:num_flatten_dims]) + (size,)
+        tmp = helper.create_variable_for_type_inference(x.dtype, out_shape)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [x], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(
+            mul_results[0].dtype, mul_results[0].shape)
+        helper.append_op(type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]})
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, size, num_flatten_dims)
     return helper.append_activation(pre_act)
 
 

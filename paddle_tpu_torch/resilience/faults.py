@@ -30,6 +30,12 @@ and, when a `FaultPlan` is installed, fire deterministic faults there:
       server.decode            /decode, after the handoff blob validates,
                                before paged admission
 
+    sites (wired in the port's inference/registry.py):
+      registry.load            a deploy, before the candidate bundle loads
+      registry.cutover         a deploy, after the candidate is warmed and
+                               verified, before the pointer flips (an abort
+                               at either keeps the old version serving)
+
 Actions per rule: `raises=` an exception class (with `err=` an errno
 name/number for OSError family), `delay=` seconds, `truncate=` the
 payload of a bytes-site to N bytes, `corrupt=` XOR-flips N seeded byte

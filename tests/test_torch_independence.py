@@ -46,7 +46,8 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.resilience, paddle_tpu_torch.resilience.faults\n"
         "import paddle_tpu_torch.resilience.preempt, paddle_tpu_torch.resilience.snapshot\n"
         "import paddle_tpu_torch.inference.kv_cache, paddle_tpu_torch.inference.decode_model\n"
-        "import paddle_tpu_torch.inference.handoff\n"
+        "import paddle_tpu_torch.inference.handoff, paddle_tpu_torch.inference.registry\n"
+        "import paddle_tpu_torch.streaming.export_int8\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
@@ -100,6 +101,18 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
         ToyDecodeModel(make_toy_decode_weights())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagedKVCache(4, 4, 1, 1, 4)
+    # a registry on a card server builds its runtimes on the card: with no
+    # card the server, and a runtime built for a card server, raise
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.inference.registry import ModelRuntime
+    from paddle_tpu_torch.inference.server import InferenceServer
+
+    manifest = {"models": [{"name": "alt", "version": "v1", "bundle_dir": str(tmp_path)}]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        InferenceServer(str(tmp_path), registry=manifest)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRuntime("alt", "v1", str(tmp_path), server=SimpleNamespace(device="cuda"))
     assert fluid.Executor(fluid.CPUPlace()).device == torch.device("cpu")
 
 

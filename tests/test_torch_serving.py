@@ -350,16 +350,27 @@ def test_ready_file_written_atomically(model_dir, tmp_path):
         assert s.healthz()[1]["backend_class"] == "h100"
 
 
-def test_no_registry_yet(model_dir):
-    """registry= raises; /admin/deploy answers 404 NoRegistry and X-Model
-    is ignored, as in the JAX server without a registry."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        InferenceServer(model_dir, device="cpu", registry="model_registry.json")
+def test_no_registry_yet(model_dir, tmp_path):
+    """registry= loads a manifest (a file, relative bundle path) and serves
+    X-Model; a server without one answers /admin/deploy with a closing 404
+    NoRegistry and ignores X-Model, as the JAX server without one does."""
+    manifest = tmp_path / "model_registry.json"
+    os.symlink(model_dir, tmp_path / "alt_bundle")
+    manifest.write_text(json.dumps({"default": "main", "models": [
+        {"name": "alt", "version": "v1", "bundle_dir": "alt_bundle"}]}))
+    with _Server(model_dir, registry=str(manifest)) as s:
+        assert s.srv._registry.names() == ["alt"]
+        _, _, ref = s.predict()
+        code, _, body = s.predict(headers={"X-Model": "alt"})
+        assert code == 200 and body == ref  # the same bundle, the same bits
+        assert set(s.healthz()[1]["models"]) == {"main", "alt"}
     with _Server(model_dir) as s:
-        code, _, body = _post(s.base, "/admin/deploy", b'{"name": "m", "version": "2"}')
+        code, headers, body = _post(s.base, "/admin/deploy", b'{"name": "m", "version": "2"}')
         assert code == 404 and json.loads(body)["error"] == "NoRegistry"
+        assert headers.get("Connection") == "close"
         code, _, body = s.predict(headers={"X-Model": "other"})
         assert code == 200
+        assert "models" not in s.healthz()[1]
         assert _post(s.base, "/nowhere", b"")[0] == 404
 
 
