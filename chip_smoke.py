@@ -169,13 +169,33 @@
             a server that holds only it; tokens/s, p50, p99, peak
             kv_pages_in_use, kv_decode_steps. 12 short forward launches a BERT
             dispatch on the card, every dispatch of the phase counted
-17. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+17. fleet   the serving fleet (paddle_tpu_torch/inference/fleet.py): the
+            failover router in this process, `--device cuda` worker
+            subprocesses sharing the card, phase 16's two BERT-base bundles.
+            (a) 2 replicas, no window, alt behind X-Model: 80 replies each
+            bit-equal to predictor.run here, within 1e-3 of the CPU; (b)
+            closed loops of 32 clients (a process of their own), 512
+            requests at a 10 ms window over 1, 2 and 4 replicas: requests/s,
+            p50, p99, each replica's batch p50, each worker's memory from
+            nvidia-smi; (c) a fleet.kill_replica fault SIGKILLs the worker
+            holding a request: it fails over bit-equal, the slot respawns;
+            (d) a rolling restart under 16 clients, every reply 200 and
+            bit-equal; (e) a prefill and a decode worker, 16 /generate
+            streams of the BERT-width toy decoder bit-equal to a unified
+            server's, fleet_handoffs >= 16; (f) backend classes gpu, gpu,
+            gpu-overflow through the fleet.divert and fleet.tier_loss
+            chaos sites: degraded and back, no error but 503, every 200
+            bit-equal. Each live worker's /healthz kernel_launches: 12 short
+            forward launches a BERT dispatch it made in (a) and (b)
+18. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
-serve_registry) runs with every launch count set to 0 just before it and read just
-after; a kernel of the path that was not launched fails the run.
+serve_registry, serve_fleet) runs with every launch count set to 0 just
+before it and read just after (serve_fleet: each worker's counts read
+from its /healthz before and after, the difference taken); a kernel of
+the path that was not launched fails the run.
 
 Every phase runs the Program after the Executor's default passes
 (paddle_tpu_torch/passes/); each training and serving phase prints its
@@ -2881,7 +2901,12 @@ def main():
     print("[result] registry: " + json.dumps(registry_stats, default=str))
 
     elapsed("phase 17")
-    # ---- 17. result ------------------------------------------------------
+    # ---- 17. fleet: N worker processes behind the failover router -------------
+    path_launches["serve_fleet"], fleet_stats = fleet_phase(args.seed, rehearsal, smi)
+    print("[result] fleet: " + json.dumps(fleet_stats, default=str))
+
+    elapsed("phase 18")
+    # ---- 18. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -3447,6 +3472,434 @@ def registry_phase(seed, rehearsal, smi):
     stats["bert_dispatches"] = runs[0]
     print(f"[registry] {runs[0]} BERT dispatches on the card in the phase, launches {launches}")
     return launches, stats
+
+
+def fleet_phase(seed, rehearsal, smi):
+    """Phase 17: the serving fleet at full width -> (launch counts of the
+    serve_fleet path, the phase's result dict). The router runs in this
+    process; its workers are `paddle_tpu_torch.inference.server`
+    subprocesses on the card (`--device cuda`; the CPU in the rehearsal),
+    serving phase 16's BERT-base bundles (main, and alt@v1 behind
+    X-Model). (a) routing and bits over 2 replicas, (b) throughput at 1, 2
+    and 4 replicas, (c) failover of a SIGKILLed worker, (d) a rolling
+    restart under load, (e) a prefill / decode role split, (f) mixed
+    backend classes through the divert and tier-loss chaos sites."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.inference import AnalysisConfig, create_paddle_predictor
+    from paddle_tpu_torch.inference.decode_model import (
+        make_toy_decode_weights, save_decode_weights)
+    from paddle_tpu_torch.inference.fleet import ServingFleet
+    from paddle_tpu_torch.inference.server import InferenceServer
+    from paddle_tpu_torch.models.bert import BertConfig
+    from paddle_tpu_torch.resilience import faults
+
+    t_phase = time.perf_counter()
+    dev = "cpu" if rehearsal else "cuda"
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    s = 32 if rehearsal else 128
+    if not rehearsal:
+        torch.cuda.empty_cache()  # the workers share the card with this process
+    # phase 16's bundles where they stand (the same seeds), else exported here
+    root = ROOT / "build" / "chip_smoke" / "registry"
+    dirs = {"main": root / "main", "alt": root / "alt_v1"}
+    for (tag, d), sd in zip(dirs.items(), (seed + 16, seed + 17)):
+        if not (d / "__model__.json").exists():
+            root.mkdir(parents=True, exist_ok=True)
+            export_bert_encoder(cfg, s, sd, place, [d])
+    work = ROOT / "build" / "chip_smoke" / "fleet"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    manifest = work / "model_registry.json"
+    manifest.write_text(json.dumps({
+        "default": "main", "default_version": "v1",
+        "models": [{"name": "alt", "version": "v1", "bundle_dir": str(dirs["alt"]),
+                    "max_queue": 64}]}))
+
+    def predictor(d):
+        config = AnalysisConfig(str(d))
+        if rehearsal:
+            config.disable_gpu()
+        return create_paddle_predictor(config)
+
+    preds = {tag: predictor(d) for tag, d in dirs.items()}
+    fetch = preds["main"].get_output_names()[0]
+    rs = np.random.RandomState(seed + 170)
+    feeds, bodies = [], []
+    for _ in range(16):  # distinct one-row requests of seeded lengths
+        length = rs.randint(s // 8, s + 1)
+        feed = {"src_ids": rs.randint(0, cfg.vocab_size, (1, s)).astype(np.int64),
+                "sent_ids": (np.arange(s)[None, :] >= length // 2).astype(np.int64),
+                "pos_ids": np.arange(s, dtype=np.int64)[None, :],
+                "input_mask": (np.arange(s)[None, :] < length).astype(np.float32)}
+        buf = io.BytesIO()
+        np.savez(buf, **feed)
+        feeds.append(feed)
+        bodies.append(buf.getvalue())
+    # the bits every unwindowed reply must have: predictor.run in this process
+    refs = {tag: [np.asarray(p.run(dict(f))[0]) for f in feeds] for tag, p in preds.items()}
+    require(refs["main"][0].shape == (1, s, cfg.hidden_size),
+            f"[fleet] the bundles give {refs['main'][0].shape}, want (1, {s}, {cfg.hidden_size})")
+    cpu_worst = 0.0
+    if not rehearsal:
+        for tag, d in dirs.items():
+            cpu = create_paddle_predictor(_cpu_config(AnalysisConfig, d))
+            cpu_worst = max(cpu_worst, max(float(np.abs(cpu.run(dict(feeds[i]))[0]
+                                                        - refs[tag][i]).max()) for i in range(2)))
+            del cpu
+        require(cpu_worst <= 1e-3, f"[fleet] card vs CPU max abs diff {cpu_worst}")
+    del preds
+
+    def out_of(body):
+        return np.load(io.BytesIO(body))[fetch]
+
+    def healthz(port):
+        code, _, body = http(port, "/healthz", None, timeout=60)
+        return code, json.loads(body)
+
+    def wait_for(cond, what, timeout=120):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            require(time.monotonic() < deadline, f"[fleet] timed out waiting for {what}")
+            time.sleep(0.02)
+
+    def worker_views(fleet):
+        """{replica idx: (kernel launches, counters)} from each live worker."""
+        out = {}
+        with fleet.supervisor._lock:
+            live = [(r.idx, r.port) for r in fleet.supervisor.replicas if r.status == "live"]
+        for idx, port in live:
+            _, h = healthz(port)
+            out[idx] = (h["kernel_launches"], h["counters"])
+        return out
+
+    path = {}  # the serve_fleet path's launches: each worker's, over (a) and (b)
+
+    def launches_since(before, after, tag, coalesced):
+        """Each worker's launches over a run, held to 12 short forward
+        launches a BERT dispatch it made, and added to the path's count."""
+        for idx, (k1, c1) in after.items():
+            k0, c0 = before[idx]
+            got = {n: k1[n] - k0[n] for n in k1}
+            if coalesced:
+                disp = sum(c1.get(k, 0) - c0.get(k, 0)
+                           for k in ("serve_batches", "serve_coalesce_bypass"))
+            else:
+                disp = c1.get("serve_requests", 0) - c0.get("serve_requests", 0)
+            require(disp > 0 and (rehearsal or got["mha_short_fwd"] == cfg.num_layers * disp),
+                    f"[fleet] {tag}: replica {idx} launched the short kernel "
+                    f"{got['mha_short_fwd']} times over {disp} BERT dispatches, want "
+                    f"{cfg.num_layers} a dispatch")
+            for n, v in got.items():
+                path[n] = path.get(n, 0) + v
+            print(f"[fleet] {tag}: replica {idx}: {disp} BERT dispatches, launches {got}")
+
+    def fleet_of(n, server_args=(), **kw):
+        return ServingFleet(str(dirs["main"]), replicas=n, worker_device=dev,
+                            server_args=list(server_args), ready_timeout_s=180,
+                            min_uptime_s=1.0, drain_timeout_s=60, **kw)
+
+    def booted(fleet, tag):
+        t0 = time.perf_counter()
+        fleet.start()
+        warm = [r.warmup_ms for r in fleet.supervisor.replicas]
+        print(f"[fleet] {tag}: {fleet.supervisor.n} workers live in "
+              f"{time.perf_counter() - t0:.1f} s (each worker's warmup_ms from its ready-file: "
+              f"{warm})")
+        return fleet
+
+    def gpu_memory():
+        """nvidia-smi's compute apps (pid, used_memory) and the card's
+        memory.used. In a container every app may read pid 1 and the
+        card's total: then a worker's share is the rise per worker."""
+        if rehearsal:
+            return "cpu rehearsal", None
+        q = [subprocess.run(["nvidia-smi", arg, "--format=csv,noheader"], capture_output=True,
+                            text=True, timeout=60).stdout.strip().replace("\n", "; ")
+             for arg in ("--query-compute-apps=pid,used_memory", "--query-gpu=memory.used")]
+        return q[0], q[1]
+
+    stats = {}
+    gate = work / "predict_gate"
+    gate.touch()  # the workers' hold: open, except in (c)
+    fleets = []
+    try:
+        # (a) routing and bits: 2 unified replicas, no window, a registry
+        # (alt behind X-Model); (c) and (d) then run on the same fleet
+        fa = booted(fleet_of(2, ("--max-queue", "64", "--batch-window-ms", "0"),
+                             registry=str(manifest),
+                             extra_env={"PADDLE_TPU_FAULTS": f"server.predict:hold={gate}"}),
+                    "(a)")
+        fleets.append(fa)
+        port = fa.router.port
+        before = worker_views(fa)
+        wall, lats, main_rep, _ = closed_loop(8, 64, lambda i: http(port, "/predict",
+                                                                    bodies[i % 16]))
+        _, _, alt_rep, _ = closed_loop(4, 16, lambda i: http(port, "/predict", bodies[i],
+                                                             headers={"X-Model": "alt"}))
+        launches_since(before, worker_views(fa), "(a)", coalesced=False)
+        for tag, reps in (("main", main_rep), ("alt", alt_rep)):
+            for i, (code, _, body) in reps.items():
+                require(code == 200 and np.array_equal(out_of(body), refs[tag][i % 16]),
+                        f"[fleet] (a) {tag} request {i}: {code}, not predictor.run's bits")
+        require(not np.array_equal(refs["alt"][0], refs["main"][0]), "[fleet] alt is main")
+        code, h = healthz(port)
+        require(code == 200 and h["live"] == 2 and h["status"] == "ok", f"[fleet] (a) {h}")
+        routed = [r["routed"] for r in h["replica_status"]]
+        stats["a"] = dict(requests=80, routed=routed, card_vs_cpu=cpu_worst)
+        print(f"[fleet] (a) 64 requests to main and 16 with X-Model alt through the router "
+              f"(routed {routed}), each bit-equal to predictor.run in this process; card vs "
+              f"CPU max abs diff {cpu_worst:.3e} (tol 1e-3); /healthz ok, 2 live")
+
+        # (c) failover: the workers park a request at the closed gate, the
+        # router's seeded fleet.kill_replica rule SIGKILLs the worker it just
+        # sent to; the request fails over, the slot respawns
+        sup = fa.supervisor
+        c0 = sup.counters.snapshot()
+        gate.unlink()
+        faults.install(faults.FaultPlan(seed=seed + 17).add(
+            "fleet.kill_replica", raises=faults.FaultError, nth=1))
+        res = {}
+        t = threading.Thread(target=lambda: res.update(r=http(port, "/predict", bodies[5])),
+                             daemon=True)
+        t.start()
+        try:
+            wait_for(lambda: sup.counters.snapshot().get("fleet_chaos_kills", 0)
+                     > c0.get("fleet_chaos_kills", 0), "the chaos kill", timeout=120)
+        finally:
+            faults.clear()
+            gate.touch()
+        t.join(timeout=120)
+        require(not t.is_alive() and res["r"][0] == 200
+                and np.array_equal(out_of(res["r"][2]), refs["main"][5]),
+                f"[fleet] (c) the killed replica's request: {res.get('r', [None])[0]}")
+        t_kill = time.monotonic()
+        wait_for(lambda: any("dead" in r.history for r in sup.replicas), "the death")
+        killed = next(r for r in sup.replicas if "dead" in r.history)
+        wait_for(lambda: killed.restarts >= 1 and killed.status == "live", "the respawn",
+                 timeout=240)
+        respawn_s = time.monotonic() - t_kill
+        c1 = sup.counters.snapshot()
+        failovers = c1.get("fleet_failovers", 0) - c0.get("fleet_failovers", 0)
+        respawns = c1.get("fleet_respawns", 0) - c0.get("fleet_respawns", 0)
+        require(failovers >= 1 and respawns >= 1,
+                f"[fleet] (c) fleet_failovers {failovers}, fleet_respawns {respawns}")
+        stats["c"] = dict(respawn_s=respawn_s, failovers=failovers, respawns=respawns,
+                          history=killed.history[-4:])
+        print(f"[fleet] (c) replica {killed.idx} SIGKILLed mid-request: the request failed "
+              f"over, bit-equal; respawned live in {respawn_s:.1f} s (history "
+              f"{killed.history[-4:]}); fleet_failovers +{failovers}, fleet_respawns +{respawns}")
+
+        # (d) rolling restart under load: 16 clients, every reply 200 and the
+        # bits of predictor.run
+        halt, replies, lock = threading.Event(), [], threading.Lock()
+
+        def client(k):
+            i = k
+            while not halt.is_set():
+                code, _, body = http(port, "/predict", bodies[i % 16])
+                with lock:
+                    replies.append((i % 16, code, body))
+                i += 16
+
+        pids0 = [r.pid for r in sup.replicas]
+        ths = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(16)]
+        for th in ths:
+            th.start()
+        try:
+            wait_for(lambda: len(replies) >= 16, "the load to ramp")
+            t0 = time.perf_counter()
+            rolled = fa.rolling_restart()
+            roll_s = time.perf_counter() - t0
+        finally:
+            halt.set()
+            for th in ths:
+                th.join(timeout=120)
+        require(not any(th.is_alive() for th in ths), "[fleet] (d) a client hung")
+        bad = [(i, c) for i, c, b in replies if c != 200 or not np.array_equal(out_of(b),
+                                                                                refs["main"][i])]
+        require(rolled == [0, 1] and not bad and all(
+            a != b for a, b in zip(pids0, (r.pid for r in sup.replicas))),
+            f"[fleet] (d) rolled {rolled}, {len(bad)} replies not 200 and bit-equal: {bad[:5]}")
+        stats["d"] = dict(roll_s=roll_s, replies=len(replies))
+        print(f"[fleet] (d) rolling restart of both replicas in {roll_s:.1f} s under 16 clients: "
+              f"{len(replies)} replies, every one 200 and bit-equal; fresh pids; card {smi}")
+        fa.stop()
+        fleets.remove(fa)
+
+        # (b) throughput by replica count: closed loops of 32 clients, 512
+        # requests (after 64 to warm each bucket), a 10 ms window, the clients
+        # in a process of their own
+        tput = {}
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            for n in (1, 2, 4):
+                fb = booted(fleet_of(n, ("--max-queue", "64", "--batch-window-ms", "10")),
+                            f"(b) {n}")
+                fleets.append(fb)
+                before = worker_views(fb)
+                runs = [pool.apply_async(class_loop, (
+                    fb.router.port, 32, total, bodies, None, fetch, (1, s, cfg.hidden_size),
+                    time.time(), 0.0)).get(timeout=900) for total in (64, 512)]
+                after = worker_views(fb)
+                launches_since(before, after, f"(b) {n}", coalesced=True)
+                wall, lats, codes, sheds, whole = runs[1]
+                require(codes == {200: 512} and whole == 512,
+                        f"[fleet] (b) {n}: replies {codes}, {whole} whole and finite")
+                tput[n] = dict(requests_per_s=512 / wall, p50_ms=pctl(lats, 0.5),
+                               p99_ms=pctl(lats, 0.99), sheds_retried=sheds,
+                               batch_p50={i: c.get("serve_batch_size_p50")
+                                          for i, (_, c) in after.items()},
+                               pids=[r.pid for r in fb.supervisor.replicas])
+                tput[n]["gpu_apps"], tput[n]["memory_used"] = gpu_memory()
+                print(f"[fleet] (b) {n} replica(s): 512 requests from 32 clients in {wall:.2f} s: "
+                      f"{512 / wall:.1f} requests/s, p50 {tput[n]['p50_ms']:.2f} ms, p99 "
+                      f"{tput[n]['p99_ms']:.2f} ms, {sheds} sheds retried; each replica's "
+                      f"serve_batch_size_p50 {tput[n]['batch_p50']}; workers {tput[n]['pids']}, "
+                      f"nvidia-smi compute apps (pid, used_memory): {tput[n]['gpu_apps']}, "
+                      f"card memory.used {tput[n]['memory_used']}; card {smi}")
+                fb.stop()
+                fleets.remove(fb)
+        stats["b"] = tput
+
+        # (e) role split: one prefill and one decode worker, phase 14's toy
+        # decoder at BERT's attention width; 16 /generate streams each
+        # bit-equal to a unified server's in this process
+        geom = dict(vocab=13, num_heads=4, head_dim=8) if rehearsal else dict(
+            vocab=30522, num_heads=12, head_dim=64)
+        wpath = str(work / "decode.npz")
+        save_decode_weights(wpath, make_toy_decode_weights(seed=seed + 18, **geom))
+        rs_g = np.random.RandomState(seed + 171)
+        gen_bodies = []
+        for _ in range(16):
+            buf = io.BytesIO()
+            np.savez(buf, tokens=rs_g.randint(0, geom["vocab"], rs_g.randint(8, 41)).astype(
+                np.int32), max_new=np.int32(16))
+            gen_bodies.append(buf.getvalue())
+        uni = InferenceServer(str(dirs["main"]), device=dev, decode_weights=wpath, max_queue=64,
+                              warmup=False, kv_config={"admission_window_ms": 30_000})
+        ut = threading.Thread(target=uni.serve_forever, daemon=True)
+        ut.start()
+        try:
+            _, _, uni_rep, _ = closed_loop(16, 16, lambda i: http(uni.port, "/generate",
+                                                                  gen_bodies[i]))
+        finally:
+            uni.shutdown()
+            uni.close()
+            ut.join(30)
+        fe = booted(fleet_of(2, ("--max-queue", "64", "--decode-weights", wpath,
+                                 "--kv-admission-window-ms", "30000"),
+                             roles=["prefill", "decode"]), "(e)")
+        fleets.append(fe)
+        h0 = fe.supervisor.counters.snapshot().get("fleet_handoffs", 0)
+        wall, lats, split_rep, sheds = closed_loop(16, 16, lambda i: http(
+            fe.router.port, "/generate", gen_bodies[i]))
+        handoffs = fe.supervisor.counters.snapshot().get("fleet_handoffs", 0) - h0
+        for i in range(16):
+            (uc, _, ub), (sc, _, sb) = uni_rep[i], split_rep[i]
+            require(uc == sc == 200, f"[fleet] (e) stream {i}: {uc} / {sc}")
+            u, sp = np.load(io.BytesIO(ub)), np.load(io.BytesIO(sb))
+            require(u["tokens"].shape == (16,) and np.array_equal(u["tokens"], sp["tokens"])
+                    and u["logits"].tobytes() == sp["logits"].tobytes(),
+                    f"[fleet] (e) stream {i}: the split reply differs from the unified server's")
+        require(handoffs >= 16, f"[fleet] (e) fleet_handoffs {handoffs}")
+        stats["e"] = dict(tokens_per_s=16 * 16 / wall, p50_ms=pctl(lats, 0.5),
+                          p99_ms=pctl(lats, 0.99), handoffs=handoffs, sheds_retried=sheds)
+        print(f"[fleet] (e) prefill + decode workers: 16 /generate streams (vocab "
+              f"{geom['vocab']}, {geom['num_heads']} heads of {geom['head_dim']}, max_new 16) "
+              f"each bit-equal to a unified server's; fleet_handoffs {handoffs}; "
+              f"{16 * 16 / wall:.1f} tokens/s, p50 {pctl(lats, 0.5):.2f} ms, p99 "
+              f"{pctl(lats, 0.99):.2f} ms; card {smi}")
+        fe.stop()
+        fleets.remove(fe)
+
+        # (f) mixed classes (labels; every worker on the same device): a
+        # fleet.divert fault sends one request to the overflow class, then
+        # fleet.tier_loss SIGKILLs both primary workers under 4 clients:
+        # degraded and back, no error but a 503, every 200 bit-equal
+        ff = booted(fleet_of(3, ("--max-queue", "64", "--batch-window-ms", "0"),
+                             backend_classes=["gpu", "gpu", "gpu-overflow"]), "(f)")
+        fleets.append(ff)
+        port, sup = ff.router.port, ff.supervisor
+        for i in range(4):
+            code, _, body = http(port, "/predict", bodies[i])
+            require(code == 200 and np.array_equal(out_of(body), refs["main"][i]),
+                    f"[fleet] (f) request {i}: {code}")
+        code, h = healthz(port)
+        require(h["degraded"] is False and h["backend_classes"] == {
+            "gpu": {"replicas": 2, "live": 2}, "gpu-overflow": {"replicas": 1, "live": 1}},
+            f"[fleet] (f) {h}")
+        over = sup.replicas[2].routed
+        faults.install(faults.FaultPlan(seed=seed + 19).add(
+            "fleet.divert", raises=faults.FaultError, nth=1))
+        try:
+            code, _, body = http(port, "/predict", bodies[4])
+        finally:
+            faults.clear()
+        snap = sup.counters.snapshot()
+        require(code == 200 and np.array_equal(out_of(body), refs["main"][4])
+                and snap.get("fleet_diverts.chaos") == 1 and sup.replicas[2].routed == over + 1,
+                f"[fleet] (f) the chaos divert: {code}, {snap}")
+        halt, replies, lock = threading.Event(), [], threading.Lock()
+
+        def loader(k):
+            i = k
+            while not halt.is_set():
+                try:
+                    code, _, body = http(port, "/predict", bodies[i % 16], timeout=120)
+                except OSError as e:
+                    code, body = f"{type(e).__name__}: {e}", b""
+                with lock:
+                    replies.append((i % 16, code, body))
+                i += 4
+
+        faults.install(faults.FaultPlan(seed=seed + 20).add(
+            "fleet.tier_loss", raises=faults.FaultError, nth=1))
+        ths = [threading.Thread(target=loader, args=(k,), daemon=True) for k in range(4)]
+        for th in ths:
+            th.start()
+        try:
+            wait_for(lambda: sup.counters.snapshot().get("fleet_chaos_kills", 0) >= 2,
+                     "both primary workers SIGKILLed")
+            t_loss = time.monotonic()
+            wait_for(lambda: healthz(port)[1].get("degraded") is True, "degraded")
+            wait_for(lambda: healthz(port)[1].get("degraded") is False, "recovery", timeout=240)
+            degraded_s = time.monotonic() - t_loss
+            wait_for(lambda: healthz(port)[1]["backend_classes"]["gpu"]["live"] == 2,
+                     "both primary respawns", timeout=240)
+        finally:
+            faults.clear()
+            halt.set()
+            for th in ths:
+                th.join(timeout=120)
+        codes = {}
+        for i, code, body in replies:
+            codes[code] = codes.get(code, 0) + 1
+            require(code in (200, 503), f"[fleet] (f) a reply {code}")
+            require(code != 200 or np.array_equal(out_of(body), refs["main"][i]),
+                    f"[fleet] (f) a reply to request {i} is not predictor.run's bits")
+        snap = sup.counters.snapshot()
+        require(codes.get(200, 0) > 0 and snap.get("fleet_tier_losses", 0) >= 1
+                and snap.get("fleet_diverts.tier_loss", 0) >= 1 and snap.get("fleet_degraded") == 0,
+                f"[fleet] (f) replies {codes}, counters {snap}")
+        stats["f"] = dict(replies=codes, degraded_s=degraded_s,
+                          diverts={k: v for k, v in snap.items() if k.startswith("fleet_diverts")},
+                          tier_losses=snap.get("fleet_tier_losses"))
+        print(f"[fleet] (f) gpu, gpu, gpu-overflow: one chaos divert to the overflow class, "
+              f"bit-equal; fleet.tier_loss SIGKILLed both gpu workers under 4 clients: degraded "
+              f"true and back to false in {degraded_s:.1f} s, replies {codes} (every 200 "
+              f"bit-equal), diverts {stats['f']['diverts']}; card {smi}")
+        ff.stop()
+        fleets.remove(ff)
+    finally:
+        faults.clear()
+        for fl in fleets:
+            fl.stop()
+    stats["wall_s"] = time.perf_counter() - t_phase
+    print(f"[fleet] phase 17 in {stats['wall_s']:.1f} s; serve_fleet launches {path}")
+    return path, stats
 
 
 def bert_pretrain_feed(np, rs, cfg, b, s, max_preds):

@@ -15,8 +15,12 @@ AnalysisPredictor, on the card unless `--device cpu`, and serves:
     GET  /healthz   200 {"status": "ok", ...} serving normally; 503
                     {"status": "breaker_open" | "draining"} tells a load
                     balancer to stop routing here. Carries queue_depth /
-                    max_queue and a `counters` block (this instance's
-                    serve_* and kv_* counters, uptime_s, inflight).
+                    max_queue, a `counters` block (this instance's
+                    serve_* and kv_* counters, uptime_s, inflight) and a
+                    `kernel_launches` block: the hand-written kernels'
+                    launch counts in this process (ops/kernels LAUNCHES),
+                    which a supervisor in another process can read; the
+                    JAX server has no such block.
     POST /prefill, /decode, /generate   the generative roles (below)
     POST /admin/deploy   body JSON {name, version, bundle_dir?, tolerance?}:
                     hot-swaps one registry model (below). 200 {status:
@@ -106,6 +110,7 @@ and every reply is what a server without the feature gives.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import io as _bytesio
 import json
 import math
@@ -120,6 +125,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from .. import profiler
+from ..ops import kernels
 from ..resilience import CircuitBreaker, PreemptionHandler
 from ..resilience.faults import fault_point
 from . import AnalysisConfig, PaddleTensor, create_paddle_predictor
@@ -156,11 +162,22 @@ class JsonHandlerMixin:
     # ones for the peer's delayed ACK on a kept-alive connection
     disable_nagle_algorithm = True
 
+    # set for one request by a server that holds an admission slot for it:
+    # called once as the reply starts, so that a client holding its whole
+    # reply holds no slot
+    on_reply = None
+
     def log_message(self, *a):
         pass
 
+    def _reply_starts(self):
+        release, self.on_reply = self.on_reply, None
+        if release is not None:
+            release()
+
     def _json(self, code, obj, retry_after=None, close=False):
         body = json.dumps(obj).encode()
+        self._reply_starts()
         self.send_response(code)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(body)))
@@ -579,10 +596,13 @@ class InferenceServer:
         # then trickles (or abandons) its body frees its admission slot
         self.request_timeout_s = float(request_timeout_s)
 
-        # admission state: _gate guards _inflight and _draining; request
-        # threads notify on exit so the drain thread waits precisely
+        # admission state: _gate guards _inflight, _replying and _draining;
+        # request threads notify on exit so the drain thread waits
+        # precisely. An admitted request leaves _inflight as its reply
+        # starts and counts in _replying until the reply is written
         self._gate = threading.Condition()
         self._inflight = 0
+        self._replying = 0
         self._draining = False
         self._stopped = threading.Event()
 
@@ -855,7 +875,7 @@ class InferenceServer:
     def _drain_and_stop(self):
         deadline = time.monotonic() + self.drain_timeout_s
         with self._gate:
-            while self._inflight > 0:
+            while self._inflight > 0 or self._replying > 0:
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     break
@@ -911,6 +931,8 @@ class InferenceServer:
             "batch_window_ms": (self.batch_window_ms
                                 if self._coalescer is not None else 0),
             "counters": self.counters(),
+            # outside `counters`: a fleet's worker_counters sums those
+            "kernel_launches": kernels.launch_counts(),
         }
         if self.backend_class is not None:
             payload["backend_class"] = self.backend_class
@@ -1048,10 +1070,8 @@ class InferenceServer:
         if target is None:
             return
         rt = None if target is self else target
-        try:
+        with self._slot(h, rt):
             self._admitted_predict(h, n, deadline, dl_ms, rt=rt, qos_cls=qos_cls)
-        finally:
-            self._exit_gate(rt)
 
     def _admitted_predict(self, h, n, deadline, dl_ms, rt=None, qos_cls=None):
         # `target` is the model the request dispatches into: the server
@@ -1140,7 +1160,7 @@ class InferenceServer:
         into: `self` for the built-in one, or a registry runtime, which is
         the live version of `rt` when a deploy retired `rt` after the
         request resolved it (a retired version's predictor is unloaded).
-        The caller pairs it with _exit_gate(that runtime) in a finally. The
+        The caller holds the slot with _slot(h, that runtime). The
         shed reply is written after the gate releases, so a client slow to
         read its 503 stalls no one.
 
@@ -1180,21 +1200,47 @@ class InferenceServer:
             return None
         return self if rt is None else rt
 
-    def _exit_gate(self, rt=None):
+    def _exit_gate(self, rt=None, replying=0):
         with self._gate:
             self._inflight -= 1
             if rt is not None:
                 rt.inflight -= 1
             elif self._registry is not None:
                 self._registry.default_inflight -= 1
+            self._replying += replying
             self._gauge("serve_queue_depth", self._inflight)
             self._gate.notify_all()
+
+    @contextlib.contextmanager
+    def _slot(self, h, rt=None):
+        """Hold the admission slot that _admit gave `h`'s request until
+        its reply starts (h.on_reply): a client that has read its whole
+        reply holds no slot, so a closed loop of N clients never holds
+        more than N. The JAX server leaves its gate after the write. The
+        drain still waits for the write, through _replying."""
+        released = []
+
+        def release():
+            self._exit_gate(rt, replying=1)
+            released.append(True)
+
+        h.on_reply = release
+        try:
+            yield
+        finally:
+            h.on_reply = None
+            if not released:
+                self._exit_gate(rt)
+            else:
+                with self._gate:
+                    self._replying -= 1
+                    self._gate.notify_all()
 
     def _generative_body(self, h, endpoint, roles, rt=None, have=None):
         """The front half of /prefill /decode /generate: role gate,
         Content-Length checks, admission, body read -> (body bytes, the
         runtime admitted into: None for the built-in model) when admitted
-        (the caller owns _exit_gate(runtime)), or None (the reply is
+        (the caller holds it with _slot(h, runtime)), or None (the reply is
         written; the gate was left or never entered). `have` replaces the
         built-in decode model's presence check when the generative weights
         live on a registry runtime."""
@@ -1237,6 +1283,7 @@ class InferenceServer:
         buf = _bytesio.BytesIO()
         np.savez(buf, **arrays)
         body = buf.getvalue()
+        h._reply_starts()
         h.send_response(200)
         h.send_header("Content-Type", "application/npz")
         h.send_header("Content-Length", str(len(body)))
@@ -1270,7 +1317,7 @@ class InferenceServer:
         if admitted is None:
             return
         body = admitted[0]
-        try:
+        with self._slot(h):
             prompt = self._prompt_of(h, body)
             if prompt is None:
                 return
@@ -1300,6 +1347,7 @@ class InferenceServer:
             self._bump("serve_prefill_dispatches")
             self._bump("serve_prefill_tokens", ntok)
             self._note_role_ms("serve_prefill_ms_ewma", ms)
+            h._reply_starts()
             h.send_response(200)
             h.send_header("Content-Type", CONTENT_TYPE)
             h.send_header("Content-Length", str(len(blob)))
@@ -1309,8 +1357,6 @@ class InferenceServer:
             h.send_header("X-Handoff-Tokens", str(length + max_new))
             h.end_headers()
             h.wfile.write(blob)
-        finally:
-            self._exit_gate()
 
     def _handle_decode(self, h):
         """handoff blob -> npz {tokens, logits}: admit the prefilled
@@ -1321,7 +1367,7 @@ class InferenceServer:
         if admitted is None:
             return
         body = admitted[0]
-        try:
+        with self._slot(h):
             from .decode_model import DecodeAdmissionError
             from .handoff import HandoffError, unpack_handoff
 
@@ -1354,8 +1400,6 @@ class InferenceServer:
             self._npz_reply(h, {"tokens": toks, "logits": logits},
                             headers={"X-Decode-Ms": int(ms),
                                      "X-KV-Free-Pages": self._decode.cache.free_pages()})
-        finally:
-            self._exit_gate()
 
     def _handle_generate(self, h):
         """npz {tokens, max_new} -> npz {tokens, logits}: local prefill,
@@ -1376,7 +1420,7 @@ class InferenceServer:
             return
         body, rt = admitted
         svc = rt.decode if rt is not None else self._decode
-        try:
+        with self._slot(h, rt):
             from .decode_model import DecodeAdmissionError
 
             prompt = self._prompt_of(h, body)
@@ -1398,8 +1442,6 @@ class InferenceServer:
                 return
             self._npz_reply(h, {"tokens": toks, "logits": logits},
                             headers={"X-KV-Free-Pages": svc.cache.free_pages()})
-        finally:
-            self._exit_gate(rt)
 
     # -- lifecycle --------------------------------------------------------
     def serve_forever(self):

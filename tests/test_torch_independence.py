@@ -47,7 +47,7 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.resilience.preempt, paddle_tpu_torch.resilience.snapshot\n"
         "import paddle_tpu_torch.inference.kv_cache, paddle_tpu_torch.inference.decode_model\n"
         "import paddle_tpu_torch.inference.handoff, paddle_tpu_torch.inference.registry\n"
-        "import paddle_tpu_torch.streaming.export_int8\n"
+        "import paddle_tpu_torch.streaming.export_int8, paddle_tpu_torch.inference.fleet\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
@@ -114,6 +114,20 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ModelRuntime("alt", "v1", str(tmp_path), server=SimpleNamespace(device="cuda"))
     assert fluid.Executor(fluid.CPUPlace()).device == torch.device("cpu")
+    # a fleet's workers run on the card by default: with no card its start
+    # and its CLI raise before any worker is spawned
+    import signal
+
+    from paddle_tpu_torch.inference import fleet
+
+    spawned = []
+    monkeypatch.setattr(fleet.subprocess, "Popen", lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(signal, "signal", lambda *a: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.ServingFleet(str(tmp_path), replicas=2).start()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.main(["--model-dir", str(tmp_path), "--replicas", "2"])
+    assert spawned == []
 
 
 def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
@@ -140,3 +154,31 @@ def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
         ROOT / "paddle_tpu_torch" / "compiler.py"]
     assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
             if _forbidden(m)] == []
+
+
+def test_fleet_spawns_the_port_server_only(tmp_path, monkeypatch):
+    """The fleet's workers are `python -m paddle_tpu_torch.inference.server`:
+    no string in fleet.py names a module of the JAX package, and the
+    command handed to Popen names the port's server."""
+    from paddle_tpu_torch.inference import fleet
+
+    src = ROOT / "paddle_tpu_torch" / "inference" / "fleet.py"
+    consts = [n.value for n in ast.walk(ast.parse(src.read_text()))
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert "paddle_tpu_torch.inference.server" in consts
+    assert [c for c in consts if _forbidden(c.strip())] == []
+    seen = []
+
+    def fake_popen(cmd, **kw):
+        seen.append(list(cmd))
+        raise OSError("no spawn in this test")
+
+    monkeypatch.setattr(fleet.subprocess, "Popen", fake_popen)
+    sup = fleet.FleetSupervisor(str(tmp_path), worker_device="cpu")
+    try:
+        with pytest.raises(OSError):
+            sup._spawn(sup.replicas[0])
+    finally:
+        sup.stop()
+    module = seen[0][seen[0].index("-m") + 1]
+    assert module == "paddle_tpu_torch.inference.server" and not _forbidden(module)

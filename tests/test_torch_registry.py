@@ -140,6 +140,24 @@ class _Server:
         self._t.join(timeout=30)
 
 
+def _wait_until(cond, what, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            pytest.fail(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _settled(srv):
+    """Every in-flight count of a server of either package is back at 0.
+    The JAX server's handler writes its reply before it leaves the
+    admission gate, so a client can hold its reply while the count still
+    includes it; the port's leaves the gate as the reply starts."""
+    reg = srv._registry
+    return srv._inflight == 0 and (reg is None or (
+        reg.default_inflight == 0 and all(reg.get(n).inflight == 0 for n in reg.names())))
+
+
 def _manifest(db, qos=True):
     m = {"default": "main", "default_version": "v1",
          "models": [{"name": "alt", "version": "v1", "bundle_dir": db}]}
@@ -316,6 +334,7 @@ def test_registry_routing_healthz_and_default_byte_identity_match_jax(bundles):
             replies[tag] = [s.predict(h) for h in (
                 None, {"X-Model": "main", "X-Tenant": "t-gold"}, {"X-Model": "alt"},
                 {"X-Model": "ghost"})]
+            _wait_until(lambda: _settled(s.srv), f"the {tag} server's in-flight counts")
             health[tag] = s.healthz()
     codes = {tag: [r[0] for r in rs] for tag, rs in replies.items()}
     assert codes["port"] == codes["jax"] == [200, 200, 200, 404]
@@ -607,6 +626,7 @@ def test_deploys_under_load_lose_no_request(bundles):
         assert codes and set(codes) == {200}
         assert bodies <= {ref_b, ref_c}
         reg = s.srv._registry
+        _wait_until(lambda: _settled(s.srv), "every in-flight count to reach 0")
         assert s.srv._inflight == 0 and reg.default_inflight == 0
         assert reg.get("alt").inflight == 0 and reg.get("alt").version == "v5"
         assert s.srv.counters()["serve_deploy_unloads"] == 5
