@@ -27,11 +27,14 @@ Executor runs the JAX package's default Program passes (`passes/`:
 const_fold, copy_prop, dce, fuse_conv_bn, layout_opt, fuse_optimizer)
 over a cached clone of each Program before it walks it;
 PADDLE_TPU_PASSES=none turns them off, and PADDLE_TPU_FUSE_LAYER_SCAN=1
-adds fuse_layer_scan.
+adds fuse_layer_scan. Dygraph (`dygraph`: `with fluid.dygraph.guard():`,
+the Layer classes, `optimizer.*(parameter_list=...)`, `loss.backward()`)
+runs eagerly on torch tensors, and `dygraph.to_compiled` replays a whole
+train step as one CUDA graph.
 """
 
-from . import (clip, contrib, decoding, inference, initializer, io, layers, models,
-               nets, optimizer, param_attr, passes, profiler, regularizer)
+from . import (clip, contrib, decoding, dygraph, inference, initializer, io, layers,
+               models, nets, optimizer, param_attr, passes, profiler, regularizer)
 from .backward import append_backward, calc_gradient, gradients
 from .compiler import BuildStrategy
 from .executor import Executor
@@ -40,6 +43,7 @@ from .framework import (
     Variable,
     default_main_program,
     default_startup_program,
+    in_dygraph_mode,
     program_guard,
     recompute_scope,
     unique_name,

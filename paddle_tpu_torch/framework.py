@@ -643,3 +643,11 @@ def cuda_places(device_ids=None):
     if device_ids is None:
         device_ids = range(torch.cuda.device_count())
     return [CUDAPlace(i) for i in device_ids]
+
+
+def in_dygraph_mode():
+    """True inside fluid.dygraph.guard() (reference: framework.py
+    in_dygraph_mode)."""
+    from . import dygraph
+
+    return dygraph.enabled()

@@ -1,5 +1,5 @@
 """conv2d, conv2d_transpose, conv3d, pool2d, batch_norm (forward and
-grad), layer_norm (forward and grad), dropout (forward and grad), softmax
+grad), group_norm, layer_norm (forward and grad), dropout (forward and grad), softmax
 (forward and grad), softmax_with_cross_entropy (forward and grad),
 cross_entropy, square_error_cost and lookup_table lowerings.
 
@@ -389,6 +389,30 @@ def _layer_norm_grad_maker(op, grad_out_names, block, helpers):
             "begin_norm_axis": op.attr("begin_norm_axis", 1),
         },
     }]
+
+
+@register_op("group_norm")
+def _group_norm(ctx, op):
+    """Normalise each group of channels of an NCHW (or N C ...) input by its
+    mean and biased variance (nn_ops.py:618-638 there); Mean and Variance
+    are [N, groups]."""
+    x = ctx.in_(op, "X")
+    groups = op.attr("groups", 32)
+    eps = op.attr("epsilon", 1e-5)
+    n, c = x.shape[:2]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.ndim))
+    var, mean = torch.var_mean(xg, axes, correction=0, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    scale, bias = ctx.in_(op, "Scale"), ctx.in_(op, "Bias")
+    bshape = (1, c) + (1,) * (x.ndim - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    ctx.out(op, "Y", y)
+    ctx.out(op, "Mean", mean.reshape(n, groups))
+    ctx.out(op, "Variance", var.reshape(n, groups))
 
 
 @register_op("layer_norm", grad=_layer_norm_grad_maker)

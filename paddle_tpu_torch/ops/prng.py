@@ -11,7 +11,14 @@ default of jax 0.9): the executor's per-run key
 `randint(key, (1,), 0, 2**31 - 1, int32)` (mha_short.py:567-570,
 flash_attention.py:634-636). The port reproduces those few scalars on the
 host, so its dropout masks equal the JAX package's. A key is a tuple of
-two uint32 ints; nothing here touches a device.
+two uint32 ints.
+
+The dygraph `Dropout` (paddle_tpu/dygraph/nn.py:289-311) draws its mask
+with `jax.random.bernoulli(key, 1 - p, shape)`: `bernoulli_mask` computes
+the same bits on a device, a threefry per element in int64 arithmetic
+masked to 32 bits, from a key held as a device tensor of two words, so a
+replayed CUDA graph draws the mask of whatever key was written into that
+tensor before the replay.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import zlib
 
 __all__ = ["key", "fold_in", "split", "random_bits", "key_data", "randint",
-           "name_key"]
+           "name_key", "key_tensor", "random_bits_tensor", "bernoulli_mask"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -96,3 +103,49 @@ def name_key(run_key, name: str):
     """LoweringContext.rng_for: the run key folded with the crc32 of a
     variable name, so a forward op and its grad op draw the same bits."""
     return fold_in(run_key, zlib.crc32(name.encode()) & 0x7FFFFFFF)
+
+
+def key_tensor(k, device=None):
+    """A host key as the int64 device tensor of its two words."""
+    import torch
+
+    return torch.tensor(key_data(k), dtype=torch.int64, device=device)
+
+
+def _threefry2x32_tensor(k1, k2, x1, x2):
+    """threefry2x32 over int64 tensors of 32-bit words, elementwise."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = (((x2 << r) | (x2 >> (32 - r))) & _M32) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def random_bits_tensor(key_t, n: int):
+    """`random_bits` on the device of `key_t` (int64, two words): n words
+    as an int64 tensor, word i the xor of threefry over (0, i)."""
+    import torch
+
+    k1, k2 = key_t[0], key_t[1]
+    ctr = torch.arange(n, dtype=torch.int64, device=key_t.device)
+    a, b = _threefry2x32_tensor(k1, k2, torch.zeros_like(ctr), ctr)
+    return a ^ b
+
+
+def bernoulli_mask(key_t, p_keep: float, shape):
+    """jax.random.bernoulli(key, p_keep, shape) bit for bit: the top 23
+    bits of each word as the mantissa of a float in [1, 2), less 1, below
+    p_keep."""
+    import torch
+
+    n = 1
+    for d in shape:
+        n *= int(d)
+    bits = random_bits_tensor(key_t, n)
+    u = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0)
+    return (u < p_keep).reshape(tuple(shape))

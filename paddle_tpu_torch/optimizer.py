@@ -6,7 +6,14 @@ both packages hold the same persistables under the same names.
 Ported so far, in static-graph mode: SGD, Momentum, Adam, AdamW and Lamb,
 with weight decay (`regularization=`, or a ParamAttr's `regularizer`,
 regularizer.py) and gradient clipping (`grad_clip=`, or the program-wide
-`clip.set_gradient_clip`); and RecomputeOptimizer around any of them."""
+`clip.set_gradient_clip`); and RecomputeOptimizer around any of them.
+
+In dygraph mode (inside `dygraph.guard()`, paddle_tpu/optimizer.py:
+180-297 there) an optimizer built with `parameter_list=` updates each
+parameter that holds a grad from `.grad`, out of place on `.value`, with
+the update rules of SGD, Momentum and Adam (AdamW and Lamb inherit
+Adam's, as they do in the JAX package), so the dygraph JIT bridge can
+thread the new values and accumulators through a compiled step."""
 
 from __future__ import annotations
 
@@ -32,14 +39,16 @@ class Optimizer:
 
     def __init__(self, learning_rate, regularization=None, name=None,
                  grad_clip=None, parameter_list=None):
-        if parameter_list is not None:
-            raise NotImplementedError("dygraph optimizers are not ported yet")
         self._learning_rate = learning_rate
         self.regularization = regularization
         self._grad_clip = grad_clip
         self._name = name
         self._accumulators = {}
         self._lr_var_cache = None
+        # dygraph mode (reference: dygraph optimizers take parameter_list)
+        self._parameter_list = parameter_list
+        self._dy_state: dict = {}
+        self._dy_step = 0
 
     def _create_lr_var(self, block):
         """One [1] float32 lr var per (optimizer, program), filled by a
@@ -116,13 +125,113 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
+        from . import dygraph
+
+        if dygraph.enabled():
+            return self._minimize_dygraph(loss, parameter_list)
         params_grads = self.backward(loss, startup_program, parameter_list, no_grad_set)
         self.apply_gradients(params_grads)
         return [], params_grads
 
+    # -- dygraph (eager) path -------------------------------------------
+    def _dygraph_lr(self):
+        lr = self._learning_rate
+        return float(lr() if callable(lr) else lr)
+
+    def _minimize_dygraph(self, loss, parameter_list=None):
+        """Update each parameter that holds a grad set by loss.backward()
+        (reference: dygraph optimizer.minimize applying per-param optimizer
+        kernels)."""
+        import torch
+
+        from .dygraph.autograd import UncapturableError, in_functional_trace
+
+        if in_functional_trace() and not getattr(self, "_jit_bound", False):
+            # only the optimizer the JIT bridge bound has its step, lr and
+            # accumulators threaded through the compiled step
+            raise UncapturableError(
+                f"{type(self).__name__}.minimize() inside a traced "
+                "dygraph function, but this optimizer is not the one "
+                "bound to the compiled step — its state cannot be "
+                "captured. Pass it via to_compiled(optimizer=...) (one "
+                "optimizer per compiled step) or split the step into "
+                "one compiled function per optimizer."
+            )
+        params = parameter_list or self._parameter_list
+        if params is None:
+            raise ValueError(
+                "dygraph minimize needs parameter_list (pass it to the "
+                "optimizer constructor, reference dygraph behavior)"
+            )
+        self._dy_step += 1
+        lr = self._dygraph_lr()
+        updated = []
+        with torch.no_grad():
+            for p in params:
+                if p.grad is None or p.stop_gradient:
+                    continue
+                self._dygraph_apply(p, p.grad, lr)
+                updated.append(p)
+        return None, [(p, p.grad) for p in updated]
+
+    def _dygraph_apply(self, param, grad, lr):
+        raise NotImplementedError(f"{type(self).__name__} has no dygraph update rule yet")
+
+    def clear_gradients(self):
+        for p in self._parameter_list or []:
+            p.clear_gradient()
+
+    def state_dict(self):
+        """The dygraph state by name (the .pdopt side of a checkpoint):
+        '<param name or @p<i>>#<slot>' per accumulator, '@step' the step
+        count; keys and values as the JAX package writes them."""
+        import numpy as np
+
+        out = {"@step": np.asarray(self._dy_step, np.int64)}
+        for pi, p in enumerate(self._parameter_list or []):
+            st = self._dy_state.get(id(p))
+            if st is None:
+                continue
+            key = p.name if p.name else f"@p{pi}"
+            for i, v in enumerate(st if isinstance(st, tuple) else (st,)):
+                out[f"{key}#{i}"] = v.detach().cpu().numpy()
+        return out
+
+    def set_state_dict(self, state, parameter_list=None):
+        """Inverse of state_dict(): slots rebound to this instance's
+        parameters by name, on each parameter's device; parameters absent
+        from `state` keep fresh slots."""
+        import numpy as np
+        import torch
+
+        params = parameter_list or self._parameter_list
+        if params is None:
+            raise ValueError(
+                "set_state_dict needs parameter_list (pass it to the "
+                "optimizer constructor, reference dygraph behavior)"
+            )
+        state = dict(state)
+        step = state.pop("@step", None)
+        if step is not None:
+            self._dy_step = int(np.asarray(step).reshape(-1)[0])
+        by_param: dict = {}
+        for key, v in state.items():
+            name, _, idx = key.rpartition("#")
+            by_param.setdefault(name, {})[int(idx)] = v
+        for pi, p in enumerate(params):
+            slots = by_param.get(p.name if p.name else f"@p{pi}")
+            if slots is None:
+                continue
+            vals = tuple(torch.as_tensor(np.asarray(slots[i]), device=p.value.device)
+                         for i in sorted(slots))
+            self._dy_state[id(p)] = vals[0] if len(vals) == 1 else vals
+
 
 class SGDOptimizer(Optimizer):
     type = "sgd"
+
+    def _dygraph_apply(self, param, grad, lr):
+        param.value = param.value - lr * grad
 
     def _append_optimize_op(self, block, pg, lr):
         p, g = pg
@@ -141,6 +250,19 @@ class MomentumOptimizer(Optimizer):
     def _create_accumulators(self, block, parameters):
         for p in parameters:
             self._add_accumulator("velocity", p)
+
+    def _dygraph_apply(self, param, grad, lr):
+        import torch
+
+        v = self._dy_state.get(id(param))
+        if v is None:
+            v = torch.zeros_like(param.value)
+        v = self._momentum * v + grad
+        if self._use_nesterov:
+            param.value = param.value - (grad + self._momentum * v) * lr
+        else:
+            param.value = param.value - lr * v
+        self._dy_state[id(param)] = v
 
     def _append_optimize_op(self, block, pg, lr):
         p, g = pg
@@ -168,6 +290,21 @@ class AdamOptimizer(Optimizer):
 
     def _adam_attrs(self):
         return {"beta1": self._beta1, "beta2": self._beta2, "epsilon": self._epsilon}
+
+    def _dygraph_apply(self, param, grad, lr):
+        import torch
+
+        st = self._dy_state.get(id(param))
+        if st is None:
+            st = (torch.zeros_like(param.value), torch.zeros_like(param.value))
+        m1, m2 = st
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        m1 = b1 * m1 + (1 - b1) * grad
+        m2 = b2 * m2 + (1 - b2) * grad * grad
+        t = self._dy_step  # a device scalar inside a compiled step
+        lr_t = lr * (1 - b2**t) ** 0.5 / (1 - b1**t)
+        param.value = param.value - lr_t * m1 / (torch.sqrt(m2) + eps)
+        self._dy_state[id(param)] = (m1, m2)
 
     def _append_optimize_op(self, block, pg, lr):
         p, g = pg

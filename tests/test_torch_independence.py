@@ -48,6 +48,8 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.inference.kv_cache, paddle_tpu_torch.inference.decode_model\n"
         "import paddle_tpu_torch.inference.handoff, paddle_tpu_torch.inference.registry\n"
         "import paddle_tpu_torch.streaming.export_int8, paddle_tpu_torch.inference.fleet\n"
+        "import paddle_tpu_torch.dygraph, paddle_tpu_torch.dygraph.jit\n"
+        "import paddle_tpu_torch.ops.vision_ops, paddle_tpu_torch.ops.sequence_ops\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
@@ -128,6 +130,41 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet.main(["--model-dir", str(tmp_path), "--replicas", "2"])
     assert spawned == []
+
+
+def test_dygraph_loads_neither_jax_nor_paddle_tpu(monkeypatch):
+    """Each module of paddle_tpu_torch.dygraph, and the lowerings its
+    graph-op classes run; its guard runs on the card or raises."""
+    mods = [f"paddle_tpu_torch.dygraph.{p.stem}"
+            for p in sorted((ROOT / "paddle_tpu_torch" / "dygraph").glob("*.py"))
+            if p.stem != "__init__"] + ["paddle_tpu_torch.dygraph",
+                                        "paddle_tpu_torch.ops.vision_ops",
+                                        "paddle_tpu_torch.ops.sequence_ops",
+                                        "paddle_tpu_torch.ops.misc_ops"]
+    assert len(mods) == 11
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    files = sorted((ROOT / "paddle_tpu_torch" / "dygraph").glob("*.py"))
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
+    from paddle_tpu_torch import dygraph
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with dygraph.guard():
+            pass
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dygraph.to_variable([1.0])
 
 
 def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
