@@ -209,14 +209,51 @@
             card equal the CPU's and the host threefry's bit for bit; three
             calls of a compiled step each draw the host key of their call
             (two differ). (e) no kernel of ops/kernels launched
-19. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+19. data    the input pipeline (data_phase), under deterministic
+            algorithms. (a) BERT-base masked-LM as phase 5 trains it (fp32,
+            Adam 1e-4, dropout 0.1, b 8, s 128, max_preds 20), 12 steps an
+            arm from one state, each a fresh Executor, fed one seeded sample
+            stream through xmap_readers and buffered, shuffled by the
+            loader (shuffle_buf 64): L, DataLoader.from_generator(...,
+            use_double_buffer=True) on the default place, its batches staged
+            through pinned memory on the stager's copy stream; F, the same
+            loader yielding numpy feeds; D, train_from_dataset over an
+            InMemoryDataset of MultiSlot files MultiSlotDataGenerator wrote
+            from L's batches. Every fed batch copied back after its step
+            (D's cloned on the card after each step and copied after the
+            loop, since train_from_dataset does not wait for the card):
+            F's, L's and D's byte-equal, their losses bit-equal, D's last
+            fetch L's 12th, 12 short forward, 12 short backward and 26
+            LayerNorm backward launches a step in every arm,
+            reader_staged_batches 12 for L and D, a staged feed passed
+            through exe.run untouched; each arm's step p50, next() wait,
+            peak memory, one profiled step (busy, idle, host-to-device
+            copies). (b) ResNet-50 bf16 AMP as phase 8 trains it (b 128,
+            224x224, Momentum(0.1, 0.9)) from a reader.cache pool of 256
+            seeded images, F against L from one state, 2 warm-up and 8
+            timed steps: fed batches byte-equal, losses bit-equal (or, where
+            an op has no deterministic version, each step from one state
+            within one bf16 ulp), no kernel launched; step p50, next() wait,
+            the copy stream's host-to-device ms of a batch, peak memory, one
+            profiled step. (c) L for 5 batches, its cursor, save_persistables
+            and save_params with filename=; a fresh Executor (seed counter
+            5) and scope from load_persistables, a fresh loader at the
+            cursor: batches 6-12 and their losses bit-equal to the
+            uninterrupted run's; load_params restores every parameter bit
+            for bit; the eval clone exported with params_filename= and
+            loaded on the card fetches bit-equal to the writing scope's.
+            (d) contrib.Trainer on datasets.uci_housing (fit-a-line), 2
+            epochs on the default place, losses finite and falling; a
+            layers.py_reader shim's batch equal to (a)'s first
+20. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
-serve_registry, serve_fleet, dygraph) runs with every launch count set to
+serve_registry, serve_fleet, dygraph, data) runs with every launch count set to
 0 just before it and read just after (serve_fleet: each worker's counts
-read from its /healthz before and after, the difference taken); a kernel
+read from its /healthz before and after, the difference taken; data: each
+BERT arm's counts, summed); a kernel
 of the path that was not launched fails the run, and so does any launch
 on a path that expects none (resnet, conv, dygraph).
 
@@ -245,6 +282,8 @@ Run from the root of a checkout:
     python3 chip_smoke.py --cpu-rehearsal  # tiny sizes on the CPU, plain
                                            # versions only; never prints ok
     python3 chip_smoke.py --only dygraph   # phases 1 and 18 alone; never
+                                           # prints ok
+    python3 chip_smoke.py --only data      # phases 1 and 19 alone; never
                                            # prints ok
 
 Imports torch, numpy, the standard library and paddle_tpu_torch only.
@@ -465,9 +504,9 @@ def main():
                     help="tiny sizes on the CPU through the plain versions; "
                     "never prints the ok line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["dygraph"],
-                    help="run phase 1 and this one phase only (phase 18, the dygraph "
-                    "phase); never prints the ok line")
+    ap.add_argument("--only", choices=["dygraph", "data"],
+                    help="run phase 1 and this one phase only (phase 18, dygraph, or "
+                    "phase 19, data); never prints the ok line")
     args = ap.parse_args()
     # whole lines as they come: a run cut by its time limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
@@ -536,6 +575,12 @@ def main():
         launches, stats = dygraph_phase(args.seed, rehearsal, smi)
         print("[result] dygraph: " + json.dumps(stats, default=str))
         print(f"[result] phase 18 alone passed (no ok line); {smi}")
+        return 0
+    if args.only == "data":
+        launches, stats = data_phase(args.seed, rehearsal, smi)
+        print(f"[result] launches on the data path's run: {launches}")
+        print("[result] data: " + json.dumps(stats, default=str))
+        print(f"[result] phase 19 alone passed (no ok line); {smi}")
         return 0
 
     # ---- the passes: notes and the A/B of passes off against on ---------
@@ -2958,7 +3003,12 @@ def main():
     print("[result] dygraph: " + json.dumps(dygraph_stats, default=str))
 
     elapsed("phase 19")
-    # ---- 19. result ------------------------------------------------------
+    # ---- 19. data: DataLoader, train_from_dataset, the cursor, single-file io --
+    path_launches["data"], data_stats = data_phase(args.seed, rehearsal, smi)
+    print("[result] data: " + json.dumps(data_stats, default=str))
+
+    elapsed("phase 20")
+    # ---- 20. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -4402,6 +4452,547 @@ def _dygraph_phase(seed, rehearsal, smi):
     print(f"[dygraph] launches over the phase: {launches} (the dygraph path expects none); "
           f"phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches, stats
+
+
+# phase 19: BERT-base as phase 5 trains it (batch, seq, max_preds, steps an
+# arm), the cursor's split point, and ResNet-50 as phase 8's bf16 AMP trains
+# it (batch, sample pool, warm-up and timed steps)
+DATA_BERT = (8, 128, 20, 12)
+DATA_CUT = 5
+DATA_RN = (128, 256, 2, 8)
+
+
+def data_phase(seed, rehearsal, smi):
+    """Phase 19: the input pipeline on the card -> (launch counts of the
+    data path's BERT arms, summed, the phase's result dict). (a) BERT-base
+    masked-LM, fp32, b 8, fed three ways from one seeded, shuffled stream:
+    L, a DataLoader staging through its pinned-memory copy stream onto the
+    default place; F, the same loader yielding numpy feeds; D,
+    train_from_dataset over an InMemoryDataset of MultiSlot files that
+    MultiSlotDataGenerator wrote from L's batches. (b) ResNet-50 bf16 AMP
+    at b 128, F against L from one state. (c) the cursor resume and the
+    single-file io. (d) contrib.Trainer on uci_housing, and the py_reader
+    shim. Under deterministic algorithms (warn_only, as phases 5's A/B and
+    18 set them)."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(not rehearsal or deterministic, warn_only=True)
+    try:
+        return _data_phase(seed, rehearsal, smi)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _data_phase(seed, rehearsal, smi):
+    import warnings
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import contrib, datasets, layers
+    from paddle_tpu_torch import reader as rdr
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.executor import as_tensor
+    from paddle_tpu_torch.incubate.data_generator import MultiSlotDataGenerator
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    from paddle_tpu_torch.models.resnet import resnet
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.scope import to_numpy
+
+    t_phase = time.perf_counter()
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    # the loaders' place: the default (CUDAPlace(0)) on the card
+    places = fluid.CPUPlace() if rehearsal else None
+    work = ROOT / "build" / "chip_smoke" / "data"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    stats = {"card": smi}
+    zero = {name: 0 for name in kernels.LAUNCHES}
+    path_launches = dict(zero)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    start = [0]
+
+    def reset_peak():
+        if not rehearsal:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start[0] = torch.cuda.memory_allocated()
+
+    def peak_mib():
+        """(max_memory_allocated, and its rise above the arm's start) in MiB:
+        the earlier arms' states stay allocated during a later arm."""
+        if rehearsal:
+            return 0.0, 0.0
+        peak = torch.cuda.max_memory_allocated()
+        return round(peak / 2**20, 1), round((peak - start[0]) / 2**20, 1)
+
+    def host(feed):
+        """A fed batch copied back to the host after its step."""
+        return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+                for k, v in feed.items()}
+
+    def same_batches(a, b):
+        return len(a) == len(b) and all(
+            sorted(x) == sorted(y) and all(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                                           and np.array_equal(x[k], y[k]) for k in x)
+            for x, y in zip(a, b))
+
+    def clone_state(main_p, scope):
+        return {v.name: scope.get(v.name).detach().clone() for v in main_p.list_vars()
+                if v.persistable and scope.has(v.name)
+                and isinstance(scope.get(v.name), torch.Tensor)}
+
+    def scope_from(state):
+        scope = fluid.Scope()
+        for n, t in state.items():
+            scope.set(n, t.clone())
+        return scope
+
+    def pctls(xs):
+        return {"p50": round(statistics.median(xs), 3), "max": round(max(xs), 3)}
+
+    def htod(rows):
+        """Host-to-device copies of a profiled step: (count, device ms)."""
+        copies = [(ms, count) for ms, count, key in rows if "HtoD" in key]
+        return sum(c for _, c in copies), round(sum(ms for ms, _ in copies), 4)
+
+    # ---- (a) BERT-base, three feeds of one stream ------------------------
+    b, s, p, steps = (2, 32, 5, 12) if rehearsal else DATA_BERT
+    cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    main_p, startup_p = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup_p.random_seed = seed + 2
+    with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+        handles = build_bert_pretrain(cfg, b, s, mlm_only=True, max_preds=p)
+        fluid.optimizer.Adam(LR).minimize(handles["loss"])
+    loss_v = handles["loss"]
+    eval_p = main_p.clone(for_test=True)
+    feed_names = ["src_ids", "sent_ids", "pos_ids", "input_mask", "mask_label",
+                  "mask_weight", "mask_pos"]
+    feed_vars = [main_p.global_block().var(n) for n in feed_names]
+    scope0 = fluid.Scope()
+    fluid.Executor(place).run(startup_p, scope=scope0)
+    state0 = clone_state(main_p, scope0)
+    del scope0
+
+    def bert_row(i):
+        """Sample i of the seeded stream: one row of bert_pretrain_feed."""
+        rs = np.random.RandomState(seed * 7919 + i)
+        return (rs.randint(0, cfg.vocab_size, s).astype("int64"),
+                rs.randint(0, cfg.type_vocab_size, s).astype("int64"),
+                np.arange(s, dtype="int64"), np.ones(s, "float32"),
+                rs.randint(0, cfg.vocab_size, p).astype("int64"), np.ones(p, "float32"),
+                rs.choice(s, p, replace=False).astype("int64"))
+
+    sample_reader = rdr.buffered(
+        rdr.xmap_readers(bert_row, lambda: iter(range(steps * b)), 2, 16, order=True), 32)
+
+    def bert_loader(double_buffer):
+        loader = rdr.DataLoader.from_generator(feed_vars, use_double_buffer=double_buffer)
+        return loader.set_sample_generator(sample_reader, b, shuffle_buf=64, shuffle_seed=seed,
+                                           places=places)
+
+    want = dict(zero, mha_short_fwd=cfg.num_layers, mha_short_bwd=cfg.num_layers,
+                layer_norm_bwd=2 * cfg.num_layers + 2)
+
+    def fetch_loss(out):
+        return float(to_numpy(out[0]).reshape(-1)[0])
+
+    def loader_arm(tag, double_buffer, n, cursor=None, exe=None, scope=None):
+        """`n` steps of the loader arm from state0 (or the given executor
+        and scope) -> the arm's record."""
+        loader = bert_loader(double_buffer)
+        if cursor is not None:
+            loader.set_state_dict(cursor)
+        exe = exe or fluid.Executor(place)
+        scope = scope or scope_from(state0)
+        rec = dict(fed=[], losses=[], ms=[], wait_ms=[], per_step=[], loader=loader, exe=exe,
+                   scope=scope)
+        staged0 = fluid.profiler.counters().get("reader_staged_batches", 0)
+        kernels.reset_launch_counts()
+        reset_peak()
+        it = iter(loader)
+        for i in range(n):
+            t0 = time.perf_counter()
+            feed = next(it)
+            rec["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 0 and double_buffer:
+                rec["pass_through"] = all(
+                    as_tensor(t, main_p.global_block().var(k).dtype, exe.device) is t
+                    for k, t in feed.items())
+                rec["feed_devices"] = sorted({str(t.device) for t in feed.values()})
+            before = kernels.launch_counts()
+            t0 = time.perf_counter()
+            out = exe.run(main_p, feed=feed, fetch_list=[loss_v], scope=scope)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["per_step"].append({k: c - before[k] for k, c in kernels.launch_counts().items()})
+            rec["losses"].append(fetch_loss(out))
+            rec["fed"].append(host(feed))
+        rec["launches"] = kernels.launch_counts()
+        rec["peak"] = peak_mib()
+        rec["staged"] = fluid.profiler.counters().get("reader_staged_batches", 0) - staged0
+        rec["cursor"] = loader.state_dict()
+        it.close()
+        print(f"[data] {tag}: losses {rec['losses']}; step p50 "
+              f"{statistics.median(rec['ms']):.2f} ms, next() wait {pctls(rec['wait_ms'])} ms, "
+              f"staged {rec['staged']}, peak (and its rise in the arm) {rec['peak']} MiB; "
+              f"card {smi}")
+        return rec
+
+    elapsed_a = time.perf_counter()
+    arms = {"L": loader_arm("L (staged, default place)", True, steps),
+            "F": loader_arm("F (numpy feeds)", False, steps)}
+
+    # D: the same batches written as MultiSlot files, through
+    # train_from_dataset, which does not wait for the card between steps:
+    # each step's feed is cloned on the step's stream right after it (no
+    # host wait, so a staged block handed to a later copy too early would
+    # show in the clones) and copied to the host after the loop
+    class Rows(MultiSlotDataGenerator):
+        def generate_sample(self, line):
+            bi, ri = map(int, line.split())
+            row = [(n, arms["L"]["fed"][bi][n][ri].reshape(-1).tolist()) for n in feed_names]
+            return lambda: iter([row])
+
+    index = work / "rows.txt"
+    index.write_text("".join(f"{bi} {ri}\n" for bi in range(steps) for ri in range(b)))
+    (slot_file,) = Rows().run_from_files([str(index)], str(work / "bert_slots"))
+    dataset = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+    dataset.set_batch_size(b)
+    dataset.set_thread(1)
+    dataset.set_filelist([slot_file])
+    dataset.set_use_var(feed_vars)
+    dataset.load_into_memory()
+    exe_d, scope_d = fluid.Executor(place), scope_from(state0)
+    rec_d = dict(fed=[], losses=[], ms=[], wait_ms=[], per_step=[])
+    last_end = [None]
+    run_plain = exe_d.run
+
+    def run_recorded(program, feed=None, fetch_list=None, scope=None, return_numpy=True,
+                     build_strategy=None):
+        t0 = time.perf_counter()
+        if last_end[0] is not None:
+            rec_d["wait_ms"].append((t0 - last_end[0]) * 1e3)
+        before = kernels.launch_counts()
+        out = run_plain(program, feed=feed, fetch_list=fetch_list, scope=scope,
+                        return_numpy=return_numpy, build_strategy=build_strategy)
+        rec_d["per_step"].append({k: c - before[k] for k, c in kernels.launch_counts().items()})
+        rec_d["feed_devices"] = sorted({str(t.device) for t in feed.values()})
+        rec_d["fed"].append({k: v.clone() for k, v in feed.items()})
+        rec_d["losses"].append(out[0])
+        rec_d["ms"].append((time.perf_counter() - t0) * 1e3)
+        last_end[0] = time.perf_counter()
+        return out
+
+    staged0 = fluid.profiler.counters().get("reader_staged_batches", 0)
+    kernels.reset_launch_counts()
+    reset_peak()
+    exe_d.run = run_recorded
+    t0 = time.perf_counter()
+    last = exe_d.train_from_dataset(main_p, dataset, scope=scope_d, thread=1,
+                                    fetch_list=[loss_v])
+    d_wall = (time.perf_counter() - t0) * 1e3
+    del exe_d.run
+    rec_d["launches"] = kernels.launch_counts()
+    rec_d["peak"] = peak_mib()
+    rec_d["staged"] = fluid.profiler.counters().get("reader_staged_batches", 0) - staged0
+    rec_d["losses"] = [fetch_loss([v]) for v in rec_d["losses"]]
+    rec_d["fed"] = [host(f) for f in rec_d["fed"]]
+    rec_d["last"] = fetch_loss(last)
+    arms["D"] = rec_d
+    print(f"[data] D (train_from_dataset): losses {rec_d['losses']}; {d_wall:.1f} ms for "
+          f"{len(rec_d['ms'])} steps ({d_wall / len(rec_d['ms']):.2f} ms a step), issue "
+          f"(exe.run's return, not waiting for the card) p50 "
+          f"{statistics.median(rec_d['ms']):.2f} ms, wait between steps "
+          f"{pctls(rec_d['wait_ms'])} ms, staged {rec_d['staged']}, peak (and its rise) "
+          f"{rec_d['peak']} MiB; card {smi}")
+
+    for tag in "LFD":
+        path_launches = {k: path_launches[k] + arms[tag]["launches"][k] for k in zero}
+    L, F, D = arms["L"], arms["F"], arms["D"]
+    gates = {
+        "F and L fed batches byte-equal": same_batches(F["fed"], L["fed"]),
+        "D fed batches byte-equal to L's": same_batches(D["fed"], L["fed"]),
+        "F and L losses bit-equal": F["losses"] == L["losses"],
+        "D losses bit-equal to L's": D["losses"] == L["losses"],
+        "D's last loss is L's last": D["last"] == L["losses"][-1],
+        "staged batches counted": L["staged"] == steps and D["staged"] == steps
+        and F["staged"] == 0,
+        "L and D fed from the card": rehearsal or (
+            L["feed_devices"] == ["cuda:0"] and D["feed_devices"] == ["cuda:0"]),
+        "staged feeds pass exe.run untouched": L["pass_through"],
+        "cursor at the end of the epoch": L["cursor"] == {"epoch": 0, "batch": steps,
+                                                          "shuffle_seed": seed},
+    }
+    if not rehearsal:
+        for tag in "LFD":
+            gates[f"{tag} launches a step"] = all(c == want for c in arms[tag]["per_step"])
+    stats["bert"] = {tag: {"step_p50_ms": round(statistics.median(a["ms"]), 3),
+                           "wait_ms": pctls(a["wait_ms"]), "peak_mib": a["peak"],
+                           "staged": a["staged"], "losses": a["losses"]}
+                     for tag, a in arms.items()}
+    # D's steps are not waited for one by one: its step time is the loop's
+    # wall over its steps, and its p50 the host's issue time
+    stats["bert"]["D"].update(wall_ms=round(d_wall, 3), step_mean_ms=round(d_wall / steps, 3),
+                              issue_p50_ms=stats["bert"]["D"].pop("step_p50_ms"))
+    print(f"[data] (a) BERT hidden {cfg.hidden_size} x {cfg.num_layers}, b {b} s {s} "
+          f"max_preds {p}, {steps} steps an arm: launches a step {L['per_step'][0]} "
+          f"(want {want}); {time.perf_counter() - elapsed_a:.1f} s")
+
+    # one profiled step an arm: L and F on the last two batches of a second
+    # epoch (the stager then has nothing left to copy), D over one batch
+    if not rehearsal:
+        ds1_file = work / "bert_slots_one"
+        ds1_file.write_text("".join(open(slot_file).readlines()[:b]))
+        ds1 = fluid.DatasetFactory().create_dataset("InMemoryDataset")
+        ds1.set_batch_size(b)
+        ds1.set_filelist([str(ds1_file)])
+        ds1.set_use_var(feed_vars)
+        ds1.load_into_memory()
+        profiles = {}
+        for tag in "LF":
+            a = arms[tag]
+            a["loader"].set_state_dict({"epoch": 1, "batch": steps - 2, "shuffle_seed": seed})
+            it = iter(a["loader"])
+            prof = profile_step(torch, lambda: a["exe"].run(main_p, feed=next(it),  # noqa: B023
+                                                            fetch_list=[loss_v],
+                                                            scope=a["scope"]),
+                                f"one BERT step, arm {tag}")
+            it.close()
+            profiles[tag] = prof
+        profiles["D"] = profile_step(
+            torch, lambda: exe_d.train_from_dataset(main_p, ds1, scope=scope_d,
+                                                    fetch_list=[loss_v]),
+            "one BERT step, arm D (a one-batch train_from_dataset)")
+        for tag, (wall, busy, rows) in profiles.items():
+            stats["bert"][tag].update(profile_wall_ms=round(wall, 3), busy_ms=round(busy, 3),
+                                      idle=round(max(0.0, 1 - busy / wall), 4) if wall else None,
+                                      htod_memcpys=htod(rows))
+        print(f"[data] host-to-device copies in the profiled step (count, device ms): L "
+              f"{stats['bert']['L']['htod_memcpys']}, F {stats['bert']['F']['htod_memcpys']}, "
+              f"D {stats['bert']['D']['htod_memcpys']} ({len(feed_names)} feeds a batch)")
+
+    # ---- (c) the cursor and the single files -----------------------------
+    cut = DATA_CUT
+    first = loader_arm(f"L, first {cut} batches", True, cut)
+    cursor = first["cursor"]
+    ck = work / "ckpt"
+    with fluid.scope_guard(first["scope"]):
+        fluid.io.save_persistables(first["exe"], str(ck), main_p, filename="ckpt")
+        fluid.io.save_params(first["exe"], str(ck), main_p, filename="params")
+    params_at_save = {v.name: first["scope"].get(v.name).detach().clone()
+                      for v in main_p.list_vars() if isinstance(v, fluid.framework.Parameter)}
+    exe_r, scope_r = fluid.Executor(place), fluid.Scope()
+    with fluid.scope_guard(scope_r):
+        fluid.io.load_persistables(exe_r, str(ck), main_p, filename="ckpt")
+    exe_r._seed_counter = cut  # as the JAX CheckpointManager restores it
+    resumed = loader_arm(f"L resumed at {cursor}", True, steps - cut, cursor=cursor,
+                         exe=exe_r, scope=scope_r)
+    scope_p = fluid.Scope()
+    with fluid.scope_guard(scope_p):
+        fluid.io.load_params(fluid.Executor(place), str(ck), main_p, filename="params")
+    gates["cursor after the first batches"] = cursor == {"epoch": 0, "batch": cut,
+                                                         "shuffle_seed": seed}
+    gates["resumed batches byte-equal"] = same_batches(resumed["fed"], L["fed"][cut:])
+    gates["resumed losses bit-equal"] = (first["losses"] == L["losses"][:cut]
+                                         and resumed["losses"] == L["losses"][cut:])
+    gates["load_params bit for bit"] = sorted(params_at_save) == sorted(
+        n for n in params_at_save if scope_p.has(n)) and all(
+        torch.equal(scope_p.get(n), t) for n, t in params_at_save.items())
+    export = work / "eval_export"
+    with fluid.scope_guard(scope_r):
+        fluid.io.save_inference_model(str(export), feed_names,
+                                      [eval_p.global_block().var(loss_v.name)], exe_r,
+                                      main_program=eval_p, params_filename="params")
+    probe = dict(L["fed"][0])
+    want_eval = exe_r.run(eval_p, feed=dict(probe), fetch_list=[loss_v.name], scope=scope_r)[0]
+    exe_x, scope_x = fluid.Executor(place), fluid.Scope()
+    with fluid.scope_guard(scope_x):
+        prog_x, feeds_x, fetch_x = fluid.io.load_inference_model(str(export), exe_x,
+                                                                 params_filename="params")
+        got_eval = exe_x.run(prog_x, feed=dict(probe), fetch_list=fetch_x)[0]
+    gates["export fetch bit-equal"] = (feeds_x == feed_names
+                                       and got_eval.tobytes() == want_eval.tobytes())
+    stats["cursor"] = {"cursor": cursor, "export_loss": float(got_eval.reshape(-1)[0]),
+                       "files": sorted(os.listdir(ck)) + sorted(os.listdir(export))}
+    print(f"[data] (c) cursor {cursor}; resumed losses {resumed['losses']} vs "
+          f"{L['losses'][cut:]}; files {stats['cursor']['files']}; eval export loss "
+          f"{float(got_eval.reshape(-1)[0])!r} vs {float(want_eval.reshape(-1)[0])!r}")
+    for rec in (first, resumed):
+        path_launches = {k: path_launches[k] + rec["launches"][k] for k in zero}
+        if not rehearsal:
+            gates["cursor arms' launches a step"] = gates.get(
+                "cursor arms' launches a step", True) and all(c == want for c in rec["per_step"])
+
+    # ---- (d) the contrib Trainer and py_reader ---------------------------
+    def fit_a_line():
+        x = layers.data("x", [13], dtype="float32")
+        y = layers.data("y", [1], dtype="float32")
+        pred = layers.fc(x, 1)
+        return layers.mean(layers.square_error_cost(pred, y))
+
+    trainer = contrib.Trainer(fit_a_line, lambda: fluid.optimizer.SGD(0.01),
+                              place=fluid.CPUPlace() if rehearsal else None)
+    tr_losses = []
+
+    def on_event(event):
+        if isinstance(event, contrib.EndStepEvent):
+            tr_losses.append(float(np.asarray(event.metrics[0]).reshape(-1)[0]))
+
+    trainer.train(2, on_event, reader=rdr.batch(datasets.uci_housing.train(), 20),
+                  feed_order=["x", "y"])
+    half = len(tr_losses) // 2
+    gates["Trainer on the card"] = rehearsal or trainer.exe.device.type == "cuda"
+    gates["Trainer losses finite and falling"] = (
+        all(math.isfinite(v) for v in tr_losses)
+        and statistics.mean(tr_losses[half:]) < statistics.mean(tr_losses[:half])
+        and tr_losses[-1] < tr_losses[0])
+    stats["trainer"] = {"steps": len(tr_losses), "first": tr_losses[0], "last": tr_losses[-1],
+                        "epoch_means": [statistics.mean(tr_losses[:half]),
+                                        statistics.mean(tr_losses[half:])]}
+    shim = layers.create_py_reader_by_data(capacity=2, feed_list=feed_vars)
+    first_samples = next(iter(bert_loader(False)._epoch_batches(0)))
+    shim.decorate_sample_list_generator(lambda: iter([first_samples]), places=places)
+    shim.start()
+    shim_feed = shim.next_feed()
+    shim.reset()
+    gates["py_reader batch is L's first"] = same_batches([host(shim_feed)], L["fed"][:1]) and (
+        rehearsal or all(t.is_cuda for t in shim_feed.values()))
+    print(f"[data] (d) Trainer on {trainer.exe.device}: {len(tr_losses)} steps, losses "
+          f"{tr_losses[0]:.4f} -> {tr_losses[-1]:.4f}, epoch means "
+          f"{stats['trainer']['epoch_means']}; py_reader shim batch on "
+          f"{sorted({str(t.device) for t in shim_feed.values()})}")
+    del arms, L, F, D, first, resumed, scope_r, scope_p, scope_x, scope_d, exe_d, state0
+    del trainer, shim, shim_feed
+    gc.collect()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    # ---- (b) ResNet-50 bf16 AMP, staged against unstaged -----------------
+    rb, pool_n, warm, timed = (4, 8, 2, 8) if rehearsal else DATA_RN
+    depth, hw = (18, 32) if rehearsal else (50, 224)
+    rn_lr = 0.05 if rehearsal else RN_LR
+    main_r, startup_r = fluid.Program(), fluid.Program()
+    main_r.random_seed = startup_r.random_seed = seed + 3
+    with fluid.program_guard(main_r, startup_r), fluid.unique_name.guard():
+        img = layers.data("img", [rb, 3, hw, hw], append_batch_size=False)
+        label = layers.data("label", [rb, 1], dtype="int64", append_batch_size=False)
+        _, loss_r, _, _ = resnet(img, label, depth=depth, class_num=1000)
+        mixed_precision.decorate(fluid.optimizer.Momentum(rn_lr, RN_MOMENTUM)).minimize(loss_r)
+    scope0 = fluid.Scope()
+    fluid.Executor(place).run(startup_r, scope=scope0)
+    rstate0 = clone_state(main_r, scope0)
+    del scope0
+
+    def images():
+        rs = np.random.RandomState(seed + 19)
+        for _ in range(pool_n):
+            yield rs.rand(3, hw, hw).astype("float32"), int(rs.randint(0, 1000))
+
+    pool = rdr.cache(images)
+    n_steps = warm + timed
+    rn_samples = rdr.chain(*[pool] * (n_steps * rb // pool_n))
+    rn_arms, f_states = {}, []
+    nondeterministic = set()
+    for tag, double_buffer in (("F", False), ("L", True)):
+        loader = rdr.DataLoader.from_generator([img, label], capacity=4,
+                                               use_double_buffer=double_buffer)
+        loader.set_sample_generator(rn_samples, rb, places=places)
+        loader.time_copies = True
+        exe, scope = fluid.Executor(place), scope_from(rstate0)
+        rec = dict(fed=[], losses=[], ms=[], wait_ms=[], loader=loader, exe=exe, scope=scope)
+        kernels.reset_launch_counts()
+        reset_peak()
+        it = iter(loader)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for i in range(n_steps):
+                if tag == "F":  # on the host, out of the arm's memory
+                    f_states.append({v.name: scope.get(v.name).detach().cpu()
+                                     for v in main_r.list_vars()
+                                     if v.persistable and scope.has(v.name)})
+                t0 = time.perf_counter()
+                feed = next(it)
+                rec["wait_ms"].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                out = exe.run(main_r, feed=feed, fetch_list=[loss_r], scope=scope)
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["losses"].append(fetch_loss(out))
+                rec["fed"].append(host(feed))
+        nondeterministic |= {str(w.message).split(" does not have")[0] for w in caught
+                             if "deterministic" in str(w.message)}
+        rec["launches"] = kernels.launch_counts()
+        rec["peak"] = peak_mib()
+        rec["h2d_ms"] = loader.last_stager.copy_ms() if loader.last_stager else []
+        it.close()
+        rn_arms[tag] = rec
+        print(f"[data] ResNet-{depth} bf16 AMP b {rb}, arm {tag}: losses {rec['losses']}; step "
+              f"p50 {statistics.median(rec['ms'][warm:]):.2f} ms over {timed} timed steps "
+              f"(first {rec['ms'][0]:.2f}), next() wait {pctls(rec['wait_ms'][warm:])} ms, "
+              f"peak (and its rise in the arm) {rec['peak']} MiB; card {smi}")
+    RF, RL = rn_arms["F"], rn_arms["L"]
+    gates["ResNet fed batches byte-equal"] = same_batches(RF["fed"], RL["fed"])
+    bit_equal = RF["losses"] == RL["losses"]
+    held = "bit-equal, free-running" if bit_equal else None
+    if not bit_equal:
+        # each step from F's state before it, on L's fed batch: one bf16 ulp
+        worst = 0.0
+        for i in range(n_steps):
+            exe = fluid.Executor(place)
+            out = exe.run(main_r, feed=dict(RL["fed"][i]), fetch_list=[loss_r],
+                          scope=scope_from(f_states[i]))
+            worst = max(worst, abs(fetch_loss(out) - RF["losses"][i])
+                        / ulp(RF["losses"][i], "bfloat16"))
+        held = f"each step from one state, within {worst:.3f} bf16 ulp" if worst <= 1 else None
+        print(f"[data] ResNet F and L free-running differ ({nondeterministic or 'no warning'}); "
+              f"each step from one state: worst {worst:.3f} bf16 ulp")
+    gates["ResNet losses"] = held is not None
+    gates["ResNet arms launch no kernel"] = all(
+        c == 0 for rec in (RF, RL) for c in rec["launches"].values())
+    stats["resnet"] = {tag: {"step_p50_ms": round(statistics.median(r["ms"][warm:]), 3),
+                             "wait_ms": pctls(r["wait_ms"][warm:]),
+                             "peak_mib": r["peak"], "losses": r["losses"]}
+                       for tag, r in rn_arms.items()}
+    stats["resnet"]["losses_held"] = held
+    stats["resnet"]["nondeterministic_ops"] = sorted(nondeterministic)
+    if RL["h2d_ms"]:
+        stats["resnet"]["L"]["h2d_ms"] = {
+            "p50": round(statistics.median(RL["h2d_ms"]), 4),
+            "all": [round(x, 4) for x in RL["h2d_ms"]],
+            "batch_mib": round(RL["fed"][0]["img"].nbytes / 2**20, 2)}
+    del f_states
+    if not rehearsal:
+        for tag in "FL":
+            r = rn_arms[tag]
+            r["loader"].set_state_dict({"epoch": 1, "batch": n_steps - 2})
+            it = iter(r["loader"])
+            wall, busy, rows = profile_step(
+                torch, lambda: r["exe"].run(main_r, feed=next(it),  # noqa: B023
+                                            fetch_list=[loss_r], scope=r["scope"]),
+                f"one ResNet-{depth} bf16 step, arm {tag}")
+            it.close()
+            stats["resnet"][tag].update(profile_wall_ms=round(wall, 3), busy_ms=round(busy, 3),
+                                        idle=round(max(0.0, 1 - busy / wall), 4) if wall else None,
+                                        htod_memcpys=htod(rows))
+    print(f"[data] (b) ResNet losses held: {held}; H2D of one batch "
+          f"{stats['resnet']['L'].get('h2d_ms')}; {json.dumps(stats['resnet'], default=str)}")
+    del rn_arms, RF, RL, rstate0
+    gc.collect()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    stats["gates"] = gates
+    failed = [g for g, ok in gates.items() if not ok]
+    print(f"[data] gates: {gates}")
+    require(not failed, f"[data] gates failed: {failed}")
+    print(f"[data] launches over the BERT arms: {path_launches}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return path_launches, stats
 
 
 def bert_pretrain_feed(np, rs, cfg, b, s, max_preds):

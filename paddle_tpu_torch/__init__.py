@@ -30,13 +30,19 @@ PADDLE_TPU_PASSES=none turns them off, and PADDLE_TPU_FUSE_LAYER_SCAN=1
 adds fuse_layer_scan. Dygraph (`dygraph`: `with fluid.dygraph.guard():`,
 the Layer classes, `optimizer.*(parameter_list=...)`, `loss.backward()`)
 runs eagerly on torch tensors, and `dygraph.to_compiled` replays a whole
-train step as one CUDA graph.
+train step as one CUDA graph. The input pipeline (`reader`: the decorators
+and `DataLoader`, which stages batches onto the card ahead of the step;
+`DataFeeder`; `DatasetFactory` with `Executor.train_from_dataset`;
+`datasets`; `incubate.data_generator`) and `contrib.Trainer` feed it.
 """
 
-from . import (clip, contrib, decoding, dygraph, inference, initializer, io, layers,
-               models, nets, optimizer, param_attr, passes, profiler, regularizer)
+from . import (clip, contrib, data_feeder, dataset, datasets, decoding, dygraph, incubate,
+               inference, initializer, io, layers, models, nets, optimizer, param_attr,
+               passes, profiler, reader, regularizer)
 from .backward import append_backward, calc_gradient, gradients
 from .compiler import BuildStrategy
+from .data_feeder import DataFeeder
+from .dataset import DatasetFactory
 from .executor import Executor
 from .framework import (
     Program,

@@ -401,3 +401,71 @@ class Executor:
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
+
+    # ------------------------------------------------------------------
+    def _run_dataset(self, program, dataset, scope, thread, fetch_list, fetch_info,
+                     print_period, debug):
+        """The dataset loop of train_from_dataset / infer_from_dataset:
+        the dataset's batches (parsed on `thread` host threads; 0 means the
+        dataset's `thread_num`) go
+        through a DeviceStager, which casts each array to its var's IR
+        dtype and copies it onto this Executor's device on its own
+        stream, so batch N+1's copy overlaps the step on batch N. Each step
+        runs with return_numpy=False, so the host does not wait on the
+        card between steps; the last fetch comes back as numpy."""
+        if dataset is None:
+            raise ValueError("dataset is required")
+        from .reader.stager import DeviceStager, host_tensor
+
+        num_threads = max(1, int(thread or 0) or int(getattr(dataset, "thread_num", 0) or 0))
+        fetch_list = fetch_list or []
+        fetch_info = fetch_info or [
+            getattr(v, "name", str(v)) for v in fetch_list
+        ]
+        program = program or default_main_program()
+        block = program.global_block()
+
+        def _stage(feed):
+            out = {}
+            for k, v in feed.items():
+                var = block._find_var_recursive(k)
+                out[k] = host_tensor(v, TORCH_DTYPE(var.dtype) if var is not None else None)
+            return out
+
+        step = 0
+        last = None
+        stager = DeviceStager(dataset.batches(num_threads), _stage, depth=2,
+                              device=self.device)
+        try:
+            for feed in stager:
+                last = self.run(program, feed=feed, fetch_list=fetch_list,
+                                scope=scope, return_numpy=False)
+                step += 1
+                if debug and fetch_list and step % print_period == 0:
+                    msg = ", ".join(
+                        f"{info}={to_numpy(v).reshape(-1)[0]:.6f}"
+                        for info, v in zip(fetch_info, last)
+                    )
+                    print(f"step {step}: {msg}")
+        finally:
+            stager.close()  # unblock the stager whatever happened
+        if last is not None:
+            last = [to_numpy(v) for v in last]
+        return last
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """File-driven training: each batch of `dataset` runs one step of
+        `program`. `thread` parallelizes the host side (file shards parse
+        on `thread` concurrent readers); 0 means the dataset's
+        `thread_num` (set_thread)."""
+        return self._run_dataset(program, dataset, scope, thread, fetch_list, fetch_info,
+                                 print_period, debug)
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """The train_from_dataset loop over an inference program."""
+        return self._run_dataset(program, dataset, scope, thread, fetch_list, fetch_info,
+                                 print_period, debug)

@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -50,6 +51,10 @@ def test_import_loads_neither_jax_nor_paddle_tpu():
         "import paddle_tpu_torch.streaming.export_int8, paddle_tpu_torch.inference.fleet\n"
         "import paddle_tpu_torch.dygraph, paddle_tpu_torch.dygraph.jit\n"
         "import paddle_tpu_torch.ops.vision_ops, paddle_tpu_torch.ops.sequence_ops\n"
+        "import paddle_tpu_torch.reader, paddle_tpu_torch.reader.stager\n"
+        "import paddle_tpu_torch.data_feeder, paddle_tpu_torch.dataset\n"
+        "import paddle_tpu_torch.datasets, paddle_tpu_torch.incubate.data_generator\n"
+        "import paddle_tpu_torch.contrib.trainer, paddle_tpu_torch.contrib.reader\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )
@@ -130,6 +135,62 @@ def test_entry_points_without_a_card_raise(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fleet.main(["--model-dir", str(tmp_path), "--replicas", "2"])
     assert spawned == []
+    # the DataLoader stages onto CUDAPlace(0) by default and the contrib
+    # Trainer runs there: with no card both raise, naming CPUPlace()
+    from paddle_tpu_torch import contrib, reader
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [2])
+    loader = reader.DataLoader.from_generator([x])
+    loader.set_sample_generator(lambda: iter([(np.zeros(2, "float32"),)] * 4), 2)
+    with pytest.raises(RuntimeError, match=r"no CUDA device.*CPUPlace\(\)"):
+        iter(loader)
+    with pytest.raises(RuntimeError, match=r"no CUDA device.*CPUPlace\(\)"):
+        iter(loader.set_sample_generator(lambda: iter([]), 2, places=[fluid.CUDAPlace(0)]))
+    assert [f["x"].shape for f in loader.set_sample_generator(
+        lambda: iter([(np.zeros(2, "float32"),)] * 4), 2, places=fluid.CPUPlace())] == [
+        torch.Size([2, 2])] * 2
+    assert contrib.trainer.check_and_get_place(None) == fluid.CUDAPlace(0)
+
+    def train_func():
+        return fluid.layers.mean(fluid.layers.fc(fluid.layers.data("x", [2]), 1))
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contrib.Trainer(train_func, lambda: fluid.optimizer.SGD(0.1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        contrib.Inferencer(train_func, str(tmp_path))
+
+
+def test_data_modules_load_neither_jax_nor_paddle_tpu():
+    """reader/, data_feeder.py, dataset.py, datasets/, incubate/ and the
+    contrib Trainer, Inferencer and reader: their own copies of the JAX
+    package's pure-numpy modules, importing neither package."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = (sorted((pkg / "reader").glob("*.py")) + sorted((pkg / "datasets").glob("*.py"))
+             + sorted((pkg / "incubate").rglob("*.py")) + sorted((pkg / "contrib").rglob("*.py"))
+             + [pkg / "data_feeder.py", pkg / "dataset.py", pkg / "io" / "__init__.py",
+                pkg / "layers" / "io.py"])
+    mods = sorted({"paddle_tpu_torch." + ".".join(
+        f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
+    assert len(mods) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
+    # no native library of the JAX package is loaded by path either
+    assert [str(f.relative_to(ROOT)) for f in files
+            if "slot_parser" in f.read_text() or "ctypes" in f.read_text()] == []
 
 
 def test_dygraph_loads_neither_jax_nor_paddle_tpu(monkeypatch):
