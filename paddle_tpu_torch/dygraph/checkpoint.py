@@ -2,9 +2,9 @@
 dygraph/checkpoint.py, with learning.py's `.pdparams` / `.pdopt` split).
 One .npz per state dict, `<path>.pdparams.npz` for a layer's state and
 `<path>.pdopt.npz` for an optimizer's, the JAX package's archives: either
-package reads what the other wrote. Each is published through the port's
-atomic write (io/__init__.py), so a crash never leaves a truncated
-archive."""
+package reads what the other wrote. Each is published through
+`resilience.snapshot.atomic_write_bytes`, so a crash never leaves a
+truncated archive."""
 
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from ..io import _atomic_write_bytes
+from ..resilience.snapshot import atomic_write_bytes
 
 __all__ = ["save_dygraph", "load_dygraph", "save_persistables", "load_persistables"]
 
@@ -41,13 +41,13 @@ def save_dygraph(state_dict, model_path, optimizer=None):
     if hasattr(state_dict, "state_dict"):
         state_dict = state_dict.state_dict()
     if _is_opt_state(state_dict):
-        _atomic_write_bytes(model_path + ".pdopt.npz", _npz_bytes(state_dict))
+        atomic_write_bytes(model_path + ".pdopt.npz", _npz_bytes(state_dict))
         return
-    _atomic_write_bytes(model_path + ".pdparams.npz", _npz_bytes(state_dict))
+    atomic_write_bytes(model_path + ".pdparams.npz", _npz_bytes(state_dict))
     if optimizer is not None:
         opt_state = (optimizer.state_dict() if hasattr(optimizer, "state_dict")
                      else dict(optimizer))
-        _atomic_write_bytes(model_path + ".pdopt.npz", _npz_bytes(opt_state))
+        atomic_write_bytes(model_path + ".pdopt.npz", _npz_bytes(opt_state))
 
 
 def load_dygraph(model_path):
@@ -84,7 +84,7 @@ def save_persistables(model_dict, dirname="save_dir", optimizers=None):
         for k, v in state.items():
             merged[prefix + k] = v
     if merged:
-        _atomic_write_bytes(base + ".pdopt.npz", _npz_bytes(merged))
+        atomic_write_bytes(base + ".pdopt.npz", _npz_bytes(merged))
 
 
 def load_persistables(dirname="save_dir"):

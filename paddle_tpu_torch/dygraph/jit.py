@@ -971,9 +971,15 @@ class CompiledFunction:
         for i, vb in var_leaf_map.items():
             if rec.input_grad_touched[i]:
                 vb.grad = new_input_grads[i]
+        # the supervised trainer's heartbeat: a compiled dygraph loop is a
+        # dispatch path too, or the watchdog reads a healthy job as hung;
+        # tick only (no CheckpointManager counts dygraph steps)
+        from ..executor import _trainer_heartbeat
         from ..resilience.faults import fault_point
 
+        self._dispatch_count = getattr(self, "_dispatch_count", 0) + 1
         fault_point("trainer.step")
+        _trainer_heartbeat(None, self._dispatch_count)
         return _rebuild_out(rec.out_template, out_leaves)
 
     # -- introspection ---------------------------------------------------

@@ -50,6 +50,13 @@ backward instead of holding them; `torch.autograd.grad`
 gives the `<param>@GRAD` each optimizer op reads, and the optimizer and
 learning-rate ops run after it under no_grad (`_run_recompute`).
 
+Resilience (resilience/, as in the JAX `Executor.run`): each run fires
+the `executor.dispatch` chaos site before the step and advances the seed
+counter only after it; after the state write-back it fires `trainer.step`,
+publishes the supervised rank's heartbeat (`_trainer_heartbeat`, when
+PADDLE_TPU_PROGRESS_FILE is set) and calls the attached CheckpointManager's
+`_on_executor_step`, which snapshots on its cadence.
+
 Every run draws its randomness from the threefry key
 `fold_in(key(program.random_seed or 42), runs so far + 1)`, the key the
 JAX executor threads into the same run (executor.py:889-891 there), so
@@ -58,6 +65,8 @@ the dropout masks of the two packages agree.
 
 from __future__ import annotations
 
+import json
+import os
 import time
 import weakref
 from collections import OrderedDict
@@ -86,9 +95,38 @@ from .ops.registry import (
 )
 from .passes import apply_program_passes, cache_signature, scope_reads_current
 from .place import CUDAPlace, Place
+from .resilience.faults import fault_point
 from .scope import Scope, global_scope, to_numpy
 
 __all__ = ["Executor", "as_tensor"]
+
+# the elastic TrainSupervisor's (resilience/trainer_fleet.py) per-rank
+# progress file; unset, the heartbeat is one dict lookup
+_PROGRESS_ENV = "PADDLE_TPU_PROGRESS_FILE"
+
+
+def _trainer_heartbeat(step, tick: int) -> None:
+    """Publish {tick, pid, time, step} to the supervisor's progress file
+    (temp file + os.replace: the watchdog never reads a torn JSON). `tick`
+    counts every dispatch (liveness); `step` is the attached
+    CheckpointManager's training step (None without one), so a startup
+    dispatch never passes for training step N. A failure is swallowed: a
+    lost heartbeat is the watchdog's business, never a crash."""
+    path = os.environ.get(_PROGRESS_ENV)
+    if not path:
+        return
+    try:
+        # chaos site: a raise is a lost heartbeat
+        fault_point("trainer.heartbeat")
+        payload = {"tick": int(tick), "pid": os.getpid(), "time": time.time()}
+        if step is not None:
+            payload["step"] = int(step)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, path)
+    except Exception:  # noqa: BLE001
+        pass
 
 
 def as_tensor(value, dtype, device) -> torch.Tensor:
@@ -273,6 +311,7 @@ class Executor:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self._seed_counter = 0
+        self._dispatch_count = 0  # every run, startup included (heartbeat tick)
         # op types whose __auto_grad__ re-ran the forward in the last run,
         # and those whose forward the dead-op pass removed, so that their
         # __auto_grad__ ran it, once
@@ -344,10 +383,18 @@ class Executor:
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
+        # a CheckpointManager attached to the user's Program (the passes
+        # run on a clone)
+        user_program = program
+        mgr = getattr(program, "_ckpt_manager", None)
         program = self._passed_program(program, feed, fetch_names, scope,
                                        build_strategy)
         block = program.global_block()
 
+        # chaos site: a failure at the dispatch boundary, before the step
+        # touches the scope; the seed counter advances only after the step,
+        # so a caught and retried failure replays the same dropout keys
+        fault_point("executor.dispatch")
         generator = torch.Generator(device=self.device)
         generator.manual_seed((program.random_seed or 42) * 1_000_003
                               + self._seed_counter + 1)
@@ -398,6 +445,17 @@ class Executor:
                     scope.set(n, ctx.values[n].detach())
         if fetches is None:
             fetches = [ctx.get(n).detach() for n in fetch_names]
+
+        # the step boundary, state written back: trainer.step is the chaos
+        # anchor for "crash or wedge at step N", then the heartbeat; both
+        # before the checkpoint hook, so a crash here leaves the newest
+        # snapshot at step N-1 and the respawned attempt retrains step N
+        self._dispatch_count += 1
+        fault_point("trainer.step")
+        _trainer_heartbeat(None if mgr is None else mgr._auto_step,
+                           self._dispatch_count)
+        if mgr is not None:
+            mgr._on_executor_step(user_program, scope, self)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches

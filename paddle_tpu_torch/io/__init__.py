@@ -5,7 +5,8 @@ export's `params_filename=`) one `np.savez` blob at `dirname/filename`,
 `.npz` appended when it is missing. Either package reads what the other
 wrote.
 
-Every file is published atomically (temp file + os.replace), and
+Every file is published through `resilience.snapshot.atomic_write_*`
+(temp file + os.replace; fsync only with PADDLE_TPU_CKPT_FSYNC=1), and
 `save_inference_model` writes the params first and `__model__.json` last,
 so a reader that finds the model file finds its params too. `load_vars`
 raises on missing tensors unless `allow_missing=True`. numpy has no
@@ -22,6 +23,7 @@ import torch
 
 from ..executor import as_tensor
 from ..framework import Parameter, Program, Variable, default_main_program
+from ..resilience.snapshot import atomic_write_array, atomic_write_bytes
 from ..scope import global_scope, to_numpy
 
 __all__ = [
@@ -35,21 +37,6 @@ __all__ = [
     "load_inference_model",
     "set_persistables_from_numpy",
 ]
-
-
-def _atomic_write_bytes(path, data: bytes):
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
-def _atomic_write_array(path, arr):
-    buf = _bytesio.BytesIO()
-    np.save(buf, np.asarray(arr), allow_pickle=False)
-    _atomic_write_bytes(path, buf.getvalue())
 
 
 def _is_persistable(v):
@@ -96,11 +83,11 @@ def save_vars(executor, dirname, main_program=None, vars=None, predicate=None,
         if filename:
             blob[name] = arr
         else:
-            _atomic_write_array(_var_file(dirname, name), arr)
+            atomic_write_array(_var_file(dirname, name), arr)
     if filename:
         buf = _bytesio.BytesIO()
         np.savez(buf, **blob)
-        _atomic_write_bytes(_blob_path(dirname, filename), buf.getvalue())
+        atomic_write_bytes(_blob_path(dirname, filename), buf.getvalue())
 
 
 def save_params(executor, dirname, main_program=None, filename=None):
@@ -187,7 +174,7 @@ def save_inference_model(dirname, feeded_var_names, target_vars, executor,
         "feed_names": list(feeded_var_names),
         "fetch_names": [t.name for t in targets],
     }
-    _atomic_write_bytes(os.path.join(dirname, model_filename or "__model__.json"),
+    atomic_write_bytes(os.path.join(dirname, model_filename or "__model__.json"),
                         json.dumps(meta).encode("utf-8"))
     return [t.name for t in targets]
 

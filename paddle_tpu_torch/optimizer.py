@@ -89,6 +89,13 @@ class Optimizer:
     def _get_accumulator(self, name, param):
         return self._accumulators[(name, param.name)]
 
+    def accumulator_names(self):
+        """The names of every accumulator var this optimizer appended
+        (moments, velocities, beta_pow counters), sorted. They are
+        persistables, so a CheckpointManager snapshot carries them with
+        the parameters."""
+        return sorted(v.name for v in self._accumulators.values())
+
     def _create_accumulators(self, block, parameters):
         pass
 

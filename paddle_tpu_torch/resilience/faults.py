@@ -36,6 +36,22 @@ and, when a `FaultPlan` is installed, fire deterministic faults there:
                                verified, before the pointer flips (an abort
                                at either keeps the old version serving)
 
+    sites (wired in the port's training path):
+      executor.dispatch        Executor.run, before the step (the seed
+                               counter has not advanced)
+      trainer.step             Executor.run and the dygraph JIT, after the
+                               state write-back, before the heartbeat and
+                               the checkpoint hook (hold = a wedged step)
+      trainer.heartbeat        the progress-file write (raise = a lost
+                               heartbeat; training goes on)
+      snapshot.flush.write     before each record of a snapshot's data
+      snapshot.commit          just before the atomic publish rename
+      fleet.kill_trainer       TrainSupervisor, once per global step first
+                               reached (raise = SIGKILL that rank)
+      fleet.kill_host          the same trigger; the kill is host loss
+                               (with allow_shrink, the next attempt runs
+                               at a smaller world)
+
 Actions per rule: `raises=` an exception class (with `err=` an errno
 name/number for OSError family), `delay=` seconds, `truncate=` the
 payload of a bytes-site to N bytes, `corrupt=` XOR-flips N seeded byte

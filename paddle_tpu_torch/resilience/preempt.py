@@ -3,10 +3,10 @@ port's own copy of `paddle_tpu/resilience/preempt.py` (stdlib only).
 
 `PreemptionHandler` turns SIGTERM / SIGINT into a flag and an
 `on_preempt` callback; the inference server's graceful drain rides on it
-(`inference/server.py:serve`). Its `final_save` drains a checkpoint
-manager and commits one synchronous snapshot; the port has no
-`CheckpointManager` yet (ROADMAP Queue 1 item 8), so without a manager it
-raises, exactly as the JAX one does.
+(`inference/server.py:serve`), and so does a supervised trainer's orderly
+stop: `final_save` drains the CheckpointManager's async saves and commits
+one blocking snapshot of the current state, so a resume loses no completed
+step. Without a manager it raises, as the JAX one does.
 
 `CircuitBreaker` is the server's predictor breaker. `retry_call` /
 `backoff_delays` are the shared transient-failure wrapper (exponential

@@ -280,3 +280,44 @@ def test_fleet_spawns_the_port_server_only(tmp_path, monkeypatch):
         sup.stop()
     module = seen[0][seen[0].index("-m") + 1]
     assert module == "paddle_tpu_torch.inference.server" and not _forbidden(module)
+
+
+def test_resilience_modules_load_neither_jax_nor_paddle_tpu(tmp_path, monkeypatch):
+    """resilience/, distributed/ and autoshard/: the port's own copies,
+    importing neither package; the trainer supervisor runs its workers on
+    the card by default, and with no card raises before any spawn."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = [p for d in ("resilience", "distributed", "autoshard")
+             for p in sorted((pkg / d).glob("*.py"))]
+    mods = sorted({"paddle_tpu_torch." + ".".join(
+        f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
+    assert len(mods) == 11
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
+    from paddle_tpu_torch.distributed import launch
+    from paddle_tpu_torch.resilience import trainer_fleet
+
+    spawned = []
+    monkeypatch.setattr(launch.subprocess, "Popen", lambda *a, **k: spawned.append(a))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sup = trainer_fleet.TrainSupervisor(["train.py"], workdir=str(tmp_path))
+    assert sup.device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sup.run()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trainer_fleet.main(["--started_port", "7330", "train.py"])
+    assert spawned == []
+    with pytest.raises(ValueError, match="device"):
+        trainer_fleet.TrainSupervisor(["train.py"], device="tpu")
