@@ -269,16 +269,33 @@
             two steps with a NaN mask weight, check False twice, the
             rollback bit-equal to snapshot 4, nan_steps_skipped 2 and
             nan_rollbacks 1, then two clean steps finite and falling
-21. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+21. mesh    CompiledProgram and the mesh (mesh_phase), under deterministic
+            algorithms, on phase 5's BERT-base cell (fp32, b 8, s 128,
+            dropout 0.1, Adam). (a) 10 steps from one state in four arms:
+            Executor.run; CompiledProgram(main).with_data_parallel(loss_name=
+            ...) without a process group (the 1x1x1 mesh); the same under a
+            one-rank NCCL process group over a file:// store (a
+            DeviceMesh("cuda", 1x1x1), its grad all-reduce and fetch mean
+            run); and that with zero1=True: every fetch and persistable
+            bit-equal across the arms, 12 short forward, 12 short backward and
+            26 LayerNorm backward launches a step; each arm's step p50; one
+            mesh step's all-reduces through the NCCL group and its device
+            kernels (torch.profiler): #1, #7's two launches and #8. (b) a
+            snapshot under the mesh, restore(mesh=...) into a fresh scope:
+            every persistable and the seed counter bit-equal, the
+            manifest's mesh recorded, the next step bit-equal. (c) dygraph DataParallel on the one-rank
+            group (an MLP at BERT's width on 1024 rows): grads bit-equal to
+            the run without it
+22. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
-serve_registry, serve_fleet, dygraph, data, resilience) runs with every launch
-count set to 0 just before it and read just after (serve_fleet: each worker's
-counts read from its /healthz before and after, the difference taken; data:
-each BERT arm's counts, summed; resilience: each step's counts in every arm and
-worker attempt, summed); a kernel
+serve_registry, serve_fleet, dygraph, data, resilience, mesh) runs with every
+launch count set to 0 just before it and read just after (serve_fleet: each
+worker's counts read from its /healthz before and after, the difference taken;
+data: each BERT arm's counts, summed; resilience: each step's counts in every
+arm and worker attempt, summed; mesh: the three mesh arms); a kernel
 of the path that was not launched fails the run, and so does any launch
 on a path that expects none (resnet, conv, dygraph).
 
@@ -312,6 +329,8 @@ Run from the root of a checkout:
                                            # prints ok
     python3 chip_smoke.py --only resilience  # phases 1 and 20 alone;
                                              # never prints ok
+    python3 chip_smoke.py --phase 21       # phases 1 and 21 alone (also
+                                           # --only mesh); never prints ok
 
 Imports torch, numpy, the standard library and paddle_tpu_torch only.
 """
@@ -554,12 +573,17 @@ def main():
                     help="tiny sizes on the CPU through the plain versions; "
                     "never prints the ok line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["dygraph", "data", "resilience"],
+    ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh"],
                     help="run phase 1 and this one phase only (phase 18, dygraph; "
-                    "phase 19, data; phase 20, resilience); never prints the ok line")
+                    "phase 19, data; phase 20, resilience; phase 21, mesh); never prints "
+                    "the ok line")
+    ap.add_argument("--phase", choices=["18", "19", "20", "21"],
+                    help="the same as --only, by the phase's number")
     # phase 20's supervised worker: the script re-invoked by the TrainSupervisor
     ap.add_argument("--resilience-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.phase:
+        args.only = {"18": "dygraph", "19": "data", "20": "resilience", "21": "mesh"}[args.phase]
     # whole lines as they come: a run cut by its time limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -641,6 +665,12 @@ def main():
         print(f"[result] launches on the resilience path's run: {launches}")
         print("[result] resilience: " + json.dumps(stats, default=str))
         print(f"[result] phase 20 alone passed (no ok line); {smi}")
+        return 0
+    if args.only == "mesh":
+        launches, stats = mesh_phase(args.seed, rehearsal, smi)
+        print(f"[result] launches on the mesh path's run: {launches}")
+        print("[result] mesh: " + json.dumps(stats, default=str))
+        print(f"[result] phase 21 alone passed (no ok line); {smi}")
         return 0
 
     # ---- the passes: notes and the A/B of passes off against on ---------
@@ -3087,7 +3117,12 @@ def main():
     print("[result] resilience: " + json.dumps(resilience_stats, default=str))
 
     elapsed("phase 21")
-    # ---- 21. result ------------------------------------------------------
+    # ---- 21. mesh: CompiledProgram, the one-rank NCCL mesh, ZeRO-1, restore ----
+    path_launches["mesh"], mesh_stats = mesh_phase(args.seed, rehearsal, smi)
+    print("[result] mesh: " + json.dumps(mesh_stats, default=str))
+
+    elapsed("phase 22")
+    # ---- 22. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -5572,6 +5607,273 @@ def _resilience_phase(seed, rehearsal, smi):
     require(not failed, f"[resilience] gates failed: {failed}")
     stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
     print(f"[time] phase 20 took {stats['wall_s']} s; launches over the resilience path: "
+          f"{path_launches}")
+    return path_launches, stats
+
+
+MESH_STEPS = 10  # BERT-base steps an arm in phase 21 (the p50 over the last 9)
+
+
+def mesh_phase(seed, rehearsal, smi):
+    """Phase 21: CompiledProgram and the mesh on the card -> (launch counts
+    of the mesh path, the phase's result dict). (a) BERT-base as phase 5
+    trains it, MESH_STEPS steps from one state in four arms: Executor.run;
+    CompiledProgram.with_data_parallel without a process group; the same
+    under a one-rank NCCL process group (a file:// store), whose
+    DeviceMesh("cuda", 1x1x1) runs the grad all-reduce and the fetch
+    mean; and that with zero1=True. Every fetch and persistable bit-equal
+    across the arms, kernels #1, #7 and #8 launched a step on the mesh
+    arms, and read from torch.profiler beside the step's all-reduces
+    through the group. (b) a snapshot under the mesh, restored with restore(mesh=...)
+    into a fresh scope: bit-equal, and the next step too. (c) one-rank
+    dygraph DataParallel under NCCL: grads bit-equal to the run without
+    it. Under deterministic algorithms (warn_only), as phase 20."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(not rehearsal or deterministic, warn_only=True)
+    try:
+        return _mesh_phase(seed, rehearsal, smi)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _mesh_phase(seed, rehearsal, smi):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph as D
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.resilience import snapshot
+    from paddle_tpu_torch.scope import full_value
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    b, s, p = (2, 32, 5) if rehearsal else (8, 128, 20)
+    cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    main_p, startup_p = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup_p.random_seed = seed + 2
+    with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+        loss = build_bert_pretrain(cfg, b, s, mlm_only=True, max_preds=p)["loss"]
+        fluid.optimizer.Adam(LR).minimize(loss)
+    rs = np.random.RandomState(seed)
+    feeds = [bert_pretrain_feed(np, rs, cfg, b, s, p) for _ in range(MESH_STEPS + 1)]
+    exe0, scope0 = fluid.Executor(place), fluid.Scope()
+    exe0.run(startup_p, scope=scope0)
+    names = sorted(v.name for v in main_p.list_vars() if v.persistable and scope0.has(v.name))
+    state0 = {n: scope0.get(n).detach().clone() for n in names}
+    counter0 = exe0._seed_counter
+    del scope0, exe0
+    zero = {n: 0 for n in kernels.LAUNCHES}
+    want = dict(zero, mha_short_fwd=cfg.num_layers, mha_short_bwd=cfg.num_layers,
+                layer_norm_bwd=2 * cfg.num_layers + 2)
+    stats = {"card": smi, "cell": f"BERT-base fp32 b {b} s {s} max_preds {p}, Adam({LR}), "
+             f"dropout {cfg.hidden_dropout}"}
+    gates = {}
+
+    def arm(prog):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe._seed_counter = counter0  # the startup's run, as in every arm
+        for n, t in state0.items():
+            scope.set(n, t.clone())
+        return dict(exe=exe, scope=scope, prog=prog, fetched=[], ms=[], per_step=[])
+
+    def step(a, f):
+        before = kernels.launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        (lv,) = a["exe"].run(a["prog"], feed=dict(f), fetch_list=[loss], scope=a["scope"],
+                             return_numpy=False)
+        sync()
+        a["ms"].append((time.perf_counter() - t0) * 1e3)
+        a["fetched"].append(lv.detach().clone())
+        a["per_step"].append({k: c - before[k] for k, c in kernels.launch_counts().items()})
+
+    def bitwise(a, ref):
+        return (all(torch.equal(x, y) for x, y in zip(a["fetched"], ref["fetched"]))
+                and all(torch.equal(full_value(a["scope"].get(n)), ref["scope"].get(n))
+                        for n in names))
+
+    # ---- (a) four arms from one state, their steps interleaved -----------------
+    t_a = time.perf_counter()
+    unit = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name)
+    unit._get_mesh()  # the 1x1x1 mesh without a process group
+    backend = "gloo" if rehearsal else "nccl"
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=f"file://{work / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        nccl = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name)
+        zero1 = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name,
+                                                                  zero1=True)
+        mesh = nccl._get_mesh()
+        zero1._get_mesh()
+        stats["group_init_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        labels = {"plain": "Executor.run", "mesh": "CompiledProgram, no process group",
+                  "nccl": f"CompiledProgram under a one-rank {backend} group",
+                  "zero1": f"CompiledProgram(zero1=True) under the {backend} group"}
+        arms = {"plain": arm(main_p), "mesh": arm(unit), "nccl": arm(nccl), "zero1": arm(zero1)}
+        kernels.reset_launch_counts()  # the mesh path's run: the three mesh arms' steps
+        for f in feeds[:MESH_STEPS]:
+            for a in arms.values():
+                step(a, f)
+        path_launches = {k: sum(d[k] for tag in ("mesh", "nccl", "zero1")
+                                for d in arms[tag]["per_step"]) for k in zero}
+        for tag, a in arms.items():
+            a["p50"] = statistics.median(a["ms"][1:])
+            print(f"[mesh] (a) {labels[tag]}: losses "
+                  f"{[float(x.reshape(-1)[0]) for x in a['fetched']]}; step p50 "
+                  f"{a['p50']:.2f} ms over steps 2-{MESH_STEPS} (first {a['ms'][0]:.2f} ms, "
+                  f"the passes' run); card {smi}")
+        gates["(a) the no-group arm's mesh is 1x1x1 without a DeviceMesh"] = (
+            unit._get_mesh().device_mesh is None
+            and dict(unit._get_mesh().shape) == {"batch": 1, "model": 1, "pipe": 1})
+        gates[f"(a) the group's mesh is a DeviceMesh on {place}"] = (
+            mesh.device_mesh is not None and mesh.device_type == ("cpu" if rehearsal else "cuda")
+            and zero1._get_mesh().device_mesh is mesh.device_mesh)
+        for tag in ("mesh", "nccl", "zero1"):
+            gates[f"(a) {tag}: every fetch and persistable bit-equal to Executor.run"] = bitwise(
+                arms[tag], arms["plain"])
+        if not rehearsal:
+            gates["(a) #1, #7 and #8 launched every step of every arm"] = all(
+                c == want for a in arms.values() for c in a["per_step"])
+            gates["(a) the mesh path launched its kernels"] = all(
+                path_launches[k] > 0 for k in ("mha_short_fwd", "mha_short_bwd",
+                                               "layer_norm_bwd"))
+        stats["a"] = {tag: dict(p50_ms=round(a["p50"], 3), ms=[round(x, 3) for x in a["ms"]])
+                      for tag, a in arms.items()}
+        stats["a"]["group_overhead_ms"] = round(arms["nccl"]["p50"] - arms["mesh"]["p50"], 3)
+        stats["a"]["mesh_over_plain"] = round(arms["nccl"]["p50"] / arms["plain"]["p50"], 4)
+        print(f"[mesh] (a) step p50: Executor.run {arms['plain']['p50']:.2f} ms, "
+              f"CompiledProgram {arms['mesh']['p50']:.2f} ms, under the one-rank group "
+              f"{arms['nccl']['p50']:.2f} ms (the group's collectives "
+              f"{stats['a']['group_overhead_ms']:+.2f} ms), zero1 {arms['zero1']['p50']:.2f} ms; "
+              f"group init {stats['group_init_ms']} ms; {time.perf_counter() - t_a:.1f} s; "
+              f"card {smi}")
+
+        # ---- (b) a snapshot under the mesh, restored onto it ----------------
+        z = arms["zero1"]
+        mgr = resilience.CheckpointManager(str(work / "ckpt"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(MESH_STEPS, program=main_p, scope=z["scope"], executor=z["exe"])
+        mgr.drain()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        manifest = snapshot.read_manifest(snapshot.list_snapshots(str(work / "ckpt"))[0][1])
+        exe_r, fresh = fluid.Executor(place), fluid.Scope()
+        t0 = time.perf_counter()
+        got = mgr.restore(program=main_p, scope=fresh, executor=exe_r, mesh=mesh)
+        sync()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        mgr.close()
+        gates["(b) restore(mesh=...) bit-equal, the seed counter too"] = (
+            got == MESH_STEPS and exe_r._seed_counter == z["exe"]._seed_counter
+            and all(torch.equal(full_value(fresh.get(n)), full_value(z["scope"].get(n)))
+                    for n in names))
+        gates["(b) the manifest records the mesh"] = manifest.get("mesh") == dict(mesh.shape)
+        nxt = [e.run(zero1, feed=dict(feeds[MESH_STEPS]), fetch_list=[loss], scope=sc,
+                     return_numpy=False)[0] for e, sc in ((z["exe"], z["scope"]), (exe_r, fresh))]
+        gates["(b) the next step bit-equal from the restored scope"] = torch.equal(*nxt)
+        stats["b"] = dict(save_ms=round(save_ms, 1), restore_ms=round(restore_ms, 1),
+                          mesh=manifest.get("mesh"), vars=len(manifest["vars"]))
+        print(f"[mesh] (b) snapshot of {len(manifest['vars'])} vars under mesh "
+              f"{manifest.get('mesh')}: save + drain {save_ms:.1f} ms, restore(mesh=...) "
+              f"{restore_ms:.1f} ms; card {smi}")
+
+        # one mesh step under the group: its collectives as torch.profiler's
+        # host events (a one-rank NCCL all-reduce launches no device kernel),
+        # and its device kernels
+        from torch.profiler import ProfilerActivity, profile
+
+        n_arm = arms["nccl"]
+
+        def mesh_step():
+            n_arm["exe"].run(nccl, feed=dict(feeds[0]), fetch_list=[loss],
+                             scope=n_arm["scope"], return_numpy=False)
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            mesh_step()
+            sync()
+        collectives = {e.key: e.count for e in prof.key_averages()
+                       if "all_reduce" in e.key or "allreduce" in e.key}
+        gates[f"(a) the step's all-reduces ran through the {backend} group"] = any(
+            backend in k.lower() for k in collectives)
+        stats["collectives"] = collectives
+        print(f"[mesh] one mesh step's collectives (torch.profiler host events): "
+              f"{collectives}")
+        if not rehearsal:
+            per_call, sessions = kernels.device_kernels(mesh_step, calls=1)
+            ours = {k: sum(c for n, c in per_call.items() if k in n)
+                    for k in ("mha_short_fwd_kernel", "short_bwd_dkv_kernel",
+                              "short_bwd_dq_kernel", "layer_norm_bwd_")}
+            gates["(a) #1, #7 (both launches) and #8 on the device in a mesh step"] = all(
+                c > 0 for c in ours.values())
+            stats["device_kernels"] = dict(ours=ours, sessions=sessions)
+            print(f"[mesh] one mesh step's kernels (torch.profiler, {sessions} sessions): "
+                  f"{ours}")
+        del arms, z, fresh, nxt
+
+        # ---- (c) one-rank dygraph DataParallel under the group ----------------
+        drs = np.random.RandomState(seed + 21)
+        width, rows = (16, 8) if rehearsal else (cfg.hidden_size, b * s)
+        x = drs.randn(rows, width).astype("float32")
+        y = drs.randn(rows, width).astype("float32")
+        grads = []
+        class MLP(D.Layer):
+            def __init__(self):
+                super().__init__("mesh_mlp")
+                self.fc1 = D.Linear(width, 4 * width, act="relu")
+                self.fc2 = D.Linear(4 * width, width)
+
+            def forward(self, v):
+                return self.fc2(self.fc1(v))
+
+        with D.guard(place):
+            env = D.prepare_context()
+            model = MLP()
+            start = {k: v.copy() for k, v in model.state_dict().items()}
+            for wrap in (False, True):
+                model.set_dict(start)
+                net = D.DataParallel(model) if wrap else model
+                out = net(D.to_variable(x))
+                dloss = ((out - D.to_variable(y)) ** 2).mean()
+                (net.scale_loss(dloss) if wrap else dloss).backward()
+                sync()
+                t0 = time.perf_counter()
+                if wrap:
+                    net.apply_collective_grads()
+                sync()
+                ar_ms = (time.perf_counter() - t0) * 1e3
+                grads.append({n: q.gradient() for n, q in model.named_parameters()})
+                model.clear_gradients()
+        gates["(c) DataParallel's grads bit-equal to the run without it"] = (
+            env.nranks == 1 and all(np.array_equal(grads[0][n], grads[1][n]) for n in grads[0]))
+        stats["c"] = dict(params=len(grads[0]), allreduce_ms=round(ar_ms, 3),
+                          shape=[rows, width])
+        print(f"[mesh] (c) dygraph DataParallel, MLP {width} -> {4 * width} -> {width} on "
+              f"{rows} rows: grads bit-equal; apply_collective_grads {ar_ms:.2f} ms; card {smi}")
+    finally:
+        dist.destroy_process_group()
+        mesh_mod.set_current_mesh(None)
+    shutil.rmtree(work, ignore_errors=True)
+    stats["gates"] = gates
+    failed = [g for g, ok in gates.items() if not ok]
+    print(f"[mesh] gates: {gates}")
+    require(not failed, f"[mesh] gates failed: {failed}")
+    stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[time] phase 21 took {stats['wall_s']} s; launches over the mesh path: "
           f"{path_launches}")
     return path_launches, stats
 

@@ -34,13 +34,16 @@ train step as one CUDA graph. The input pipeline (`reader`: the decorators
 and `DataLoader`, which stages batches onto the card ahead of the step;
 `DataFeeder`; `DatasetFactory` with `Executor.train_from_dataset`;
 `datasets`; `incubate.data_generator`) and `contrib.Trainer` feed it.
+`CompiledProgram(main).with_data_parallel(loss_name=...)` trains over the
+mesh (`parallel`): a torch.distributed DeviceMesh over the ranks of the
+default process group, one device a rank, ZeRO-1 with `zero1=True`.
 """
 
 from . import (clip, contrib, data_feeder, dataset, datasets, decoding, dygraph, incubate,
                inference, initializer, io, layers, models, nets, optimizer, param_attr,
-               passes, profiler, reader, regularizer)
+               parallel, passes, profiler, reader, regularizer)
 from .backward import append_backward, calc_gradient, gradients
-from .compiler import BuildStrategy
+from .compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from .data_feeder import DataFeeder
 from .dataset import DatasetFactory
 from .executor import Executor
@@ -50,6 +53,7 @@ from .framework import (
     default_main_program,
     default_startup_program,
     in_dygraph_mode,
+    name_scope,
     program_guard,
     recompute_scope,
     unique_name,

@@ -13,10 +13,10 @@ built by binding every parameter and buffer `.value` (and the bound
 optimizer's accumulators, step and learning rate) to the step's inputs and
 running the user's Python. The cache key is the same: the input
 signature, the layers' training flags and state identities, which
-parameters hold a grad, and whether the tape records; `cache_info()`,
-the LRU cap (PADDLE_TPU_JIT_CACHE_CAP, default 128) and the
-dygraph_jit_cache_hit / _miss / _fallback / _evictions counters too. The
-key has no mesh signature: the port has no mesh yet.
+parameters hold a grad, whether the tape records, and the current mesh's
+signature (`parallel.mesh.mesh_signature`); `cache_info()`, the LRU cap
+(PADDLE_TPU_JIT_CACHE_CAP, default 128) and the dygraph_jit_cache_hit /
+_miss / _fallback / _evictions counters too.
 
 Where the JAX bridge compiles the pure step with `jax.jit` and donates
 the state's buffers, the port on the card captures it into a CUDA graph:
@@ -871,7 +871,12 @@ class CompiledFunction:
                 grads_in["inputs"][idx] = (vb.grad if vb.grad is not None
                                            else self._zeros(vb.value))
         grad_presence = tuple(n in grads_in["params"] for n in self._params)
-        sig = (arg_sig, self._training_sig(), grad_presence, _ag.is_tracing())
+        # the current mesh keys the cache too: flipping the global mesh
+        # between calls records the step again instead of replaying a stale one
+        from ..parallel.mesh import current_mesh, mesh_signature
+
+        sig = (arg_sig, self._training_sig(), grad_presence, _ag.is_tracing(),
+               mesh_signature(current_mesh()))
         opt = self._opt
         lr_sched = None
         step, lr = 0, 0.0

@@ -26,16 +26,18 @@ set, const_fold, copy_prop, dce, fuse_conv_bn, layout_opt and
 fuse_optimizer; PADDLE_TPU_PASSES overrides it) rewrite a clone of the
 Program, as the JAX executor runs them before its trace
 (executor.py:639-658 there). `run`'s `build_strategy` (compiler.py) sets
-the pass knobs of a run; the JAX package takes it through CompiledProgram,
-which the port has not yet (ROADMAP Queue 1, item 9). The rewritten clone
+the pass knobs of a run, as a CompiledProgram's does. The rewritten clone
 is cached per Executor, 256 entries at most, least recently used out
 first, under what the passes read: the Program (its identity, `_version`
 and op count), the sorted feed names (not their shapes: the decode loop
 varies its batch), the fetch names, the scope, the AMP dtype and the
-pass set's `cache_signature`. An entry whose passes read scope values
+pass set's `cache_signature`, and for a CompiledProgram the mesh's
+signature and its zero1 flag. An entry whose passes read scope values
 (fuse_conv_bn folds the BN statistics and conv weights) holds only while
 the scope holds those same values: a training step writes new ones, and
-the next run of the eval clone folds again. A second run of the same
+the next run of the eval clone folds again. `run(...,
+use_program_cache=False)` runs the passes afresh and caches nothing;
+`close()` empties the cache. A second run of the same
 Program runs no pass. `last_pass_stats` holds the stats of the passes a
 run ran (None when it found them cached), with their wall time.
 
@@ -56,6 +58,11 @@ counter only after it; after the state write-back it fires `trainer.step`,
 publishes the supervised rank's heartbeat (`_trainer_heartbeat`, when
 PADDLE_TPU_PROGRESS_FILE is set) and calls the attached CheckpointManager's
 `_on_executor_step`, which snapshots on its cadence.
+
+A `compiler.CompiledProgram` goes to its `_run`, which walks the Program
+through the same `_run_walk` with a `parallel.step.MeshPlan`: the grad
+averaging over the mesh's batch group, the fetch rule, the ZeRO-1
+shards, and the batch group that batch_norm and dropout read.
 
 Every run draws its randomness from the threefry key
 `fold_in(key(program.random_seed or 42), runs so far + 1)`, the key the
@@ -96,7 +103,7 @@ from .ops.registry import (
 from .passes import apply_program_passes, cache_signature, scope_reads_current
 from .place import CUDAPlace, Place
 from .resilience.faults import fault_point
-from .scope import Scope, global_scope, to_numpy
+from .scope import Scope, full_value, global_scope, to_numpy
 
 __all__ = ["Executor", "as_tensor"]
 
@@ -153,23 +160,32 @@ def _is_inference_program(program) -> bool:
                    for blk in program.blocks for op in blk.ops)
 
 
-def _run_training(ctx, block):
+def _run_training(ctx, block, plan=None):
     """Forward-role ops record their graphs on requires-grad aliases of the
     parameters and float feeds (those whose grads `__auto_grad__` pulls
     through the graph; the others record none); Backward / Optimize ops run
-    under no_grad."""
+    under no_grad. Under a mesh `plan` the param grads are averaged over
+    the batch group where the plan puts it, and optimizer ops go through
+    its ZeRO-1 rows."""
     for name, t in list(ctx.values.items()):
         v = block._find_var_recursive(name)
         if v is not None and t.is_floating_point() and (
                 v.is_data or (isinstance(v, Parameter) and v.trainable)):
             ctx.values[name] = t.detach().requires_grad_(True)
     users = graph_users(block)
-    for op in block.ops:
+    for i, op in enumerate(block.ops):
+        if plan is not None:
+            plan.before_op(ctx.values, i)
         if (op.attrs.get("op_role") or 0) & _TRAIN_ROLES:
             with torch.no_grad():
-                lower_op(ctx, op)
+                if plan is not None:
+                    plan.lower_optimizer(ctx, op, lower_op)
+                else:
+                    lower_op(ctx, op)
         else:
             lower_forward_op(ctx, op, users)
+    if plan is not None:
+        plan.before_op(ctx.values, len(block.ops))
 
 
 def _segment_fn(ctx, ops, reads, out_names, counter):
@@ -190,7 +206,7 @@ def _segment_fn(ctx, ops, reads, out_names, counter):
     return fn
 
 
-def _run_recompute(ctx, program, block, feed_names, fetch_names):
+def _run_recompute(ctx, program, block, feed_names, fetch_names, plan=None):
     """The RecomputeOptimizer step (`_make_recompute_step` in the JAX
     executor): the forward-role ops under enable_grad from requires-grad
     leaves of the parameters the optimizer updates, with no graph cut,
@@ -272,6 +288,8 @@ def _run_recompute(ctx, program, block, feed_names, fetch_names):
     grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = {g: torch.zeros_like(p) if d is None else d
              for g, p, d in zip(grad_names, params, grads)}
+    if plan is not None:
+        grads = plan.reduce_all(grads)
 
     post = LoweringContext(program, device=ctx.device, generator=ctx.generator,
                            rng_key=prng.fold_in(ctx.rng_key, 7))
@@ -279,7 +297,10 @@ def _run_recompute(ctx, program, block, feed_names, fetch_names):
     post.values.update(grads)
     with torch.no_grad():
         for op in post_ops:
-            lower_op(post, op)
+            if plan is not None:
+                plan.lower_optimizer(post, op, lower_op)
+            else:
+                lower_op(post, op)
     new_state = {n: post.values[n] if n in post.values else mid_state[n]
                  for n in state_names
                  if n in post.values or mid_state[n] is not None}
@@ -323,14 +344,17 @@ class Executor:
         self.last_pass_stats = None
 
     def _passed_program(self, program, feed_names, fetch_names, scope,
-                        build_strategy=None):
+                        build_strategy=None, mesh_key=(), use_cache=True):
         """The program after the enabled passes, from the cache when this
-        Program, feed / fetch names, scope and pass set were seen and the
-        scope still holds the values the passes read."""
+        Program, feed / fetch names, scope, pass set and `mesh_key` (a
+        CompiledProgram's mesh signature and zero1 flag) were seen and the
+        scope still holds the values the passes read. `use_cache=False`
+        runs the passes and keeps nothing."""
         key = (id(program), program._version, len(program.global_block().ops),
                tuple(sorted(feed_names)), tuple(fetch_names), id(scope),
-               getattr(program, "_amp_dtype", None), cache_signature(build_strategy))
-        hit = self._pass_cache.pop(key, None)
+               getattr(program, "_amp_dtype", None), cache_signature(build_strategy),
+               mesh_key)
+        hit = self._pass_cache.pop(key, None) if use_cache else None
         # the entry holds weak references: an id is only reused by a new
         # object after the old one died
         if hit is not None and hit[0]() is program and hit[1]() is scope:
@@ -346,11 +370,31 @@ class Executor:
         if stats is not None:
             stats["ms"] = (time.perf_counter() - t0) * 1e3
         self.last_pass_stats = stats
-        self._pass_cache[key] = (weakref.ref(program), weakref.ref(scope),
-                                 _UNCHANGED if passed is program else passed)
-        if len(self._pass_cache) > _PASS_CACHE_CAP:
-            self._pass_cache.popitem(last=False)
+        if use_cache:
+            self._pass_cache[key] = (weakref.ref(program), weakref.ref(scope),
+                                     _UNCHANGED if passed is program else passed)
+            if len(self._pass_cache) > _PASS_CACHE_CAP:
+                self._pass_cache.popitem(last=False)
         return passed
+
+    def _prepare_mesh(self, program, mesh, feed_names, fetch_names, scope,
+                      build_strategy=None, zero1=False):
+        """A CompiledProgram's post-pass Program and its MeshPlan
+        (parallel/step.py), the plan kept on the post-pass Program per
+        mesh signature, zero1 flag and fetch names."""
+        from .parallel.mesh import mesh_signature
+        from .parallel.step import MeshPlan
+
+        sig = (mesh_signature(mesh, program._sharding_specs), bool(zero1))
+        passed = self._passed_program(program, feed_names, fetch_names, scope,
+                                      build_strategy, mesh_key=sig)
+        plans = passed.__dict__.setdefault("_mesh_plans", {})
+        key = (sig, id(mesh.device_mesh), passed._version, len(passed.global_block().ops),
+               tuple(fetch_names))
+        plan = plans.get(key)
+        if plan is None:
+            plan = plans[key] = MeshPlan(mesh, passed, fetch_names, zero1)
+        return plan
 
     @staticmethod
     def _state_read(block, feed_names):
@@ -372,23 +416,41 @@ class Executor:
         fetch_list=None,
         scope: Scope = None,
         return_numpy: bool = True,
+        use_program_cache: bool = True,
         build_strategy=None,
     ):
-        """`build_strategy`: a compiler.BuildStrategy whose knobs choose
-        the passes of this run (PADDLE_TPU_PASSES overrides them); None
-        runs the default set."""
+        """`program`: a Program, or a compiler.CompiledProgram, which runs
+        over its mesh. `use_program_cache=False` runs the passes afresh
+        and keeps nothing in the pass cache. `build_strategy`: a
+        compiler.BuildStrategy whose knobs choose the passes of this run
+        (PADDLE_TPU_PASSES overrides them); None runs the default set."""
+        from .compiler import CompiledProgram
+
+        if isinstance(program, CompiledProgram):
+            return program._run(self, feed, fetch_list, scope, return_numpy)
         program = program or default_main_program()
-        scope = scope or global_scope()
-        feed = feed or {}
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
+        return self._run_walk(program, feed, fetch_names, scope, return_numpy,
+                              build_strategy=build_strategy, use_cache=use_program_cache,
+                              manager=getattr(program, "_ckpt_manager", None))
+
+    def _run_walk(self, program, feed, fetch_names, scope, return_numpy,
+                  build_strategy=None, use_cache=True, plan=None, manager=None):
+        """One step of `program` (the user's; the walk runs its post-pass
+        clone, or `plan.program` under a mesh), with the resilience hooks:
+        `manager` is the attached CheckpointManager."""
+        scope = scope or global_scope()
+        feed = feed or {}
         # a CheckpointManager attached to the user's Program (the passes
         # run on a clone)
         user_program = program
-        mgr = getattr(program, "_ckpt_manager", None)
-        program = self._passed_program(program, feed, fetch_names, scope,
-                                       build_strategy)
+        if plan is not None:
+            program = plan.program
+        else:
+            program = self._passed_program(program, feed, fetch_names, scope,
+                                           build_strategy, use_cache=use_cache)
         block = program.global_block()
 
         # chaos site: a failure at the dispatch boundary, before the step
@@ -402,6 +464,8 @@ class Executor:
                                self._seed_counter + 1)
         ctx = LoweringContext(program, device=self.device, generator=generator,
                               rng_key=rng_key)
+        if plan is not None:
+            plan.bind(ctx)
         training = not _is_inference_program(program)
         for n in sorted(self._state_read(block, feed)):
             if not scope.has(n) or scope.get(n) is None:
@@ -411,14 +475,21 @@ class Executor:
                     "(reference behavior: executor.cc var-init check)"
                 )
             val = scope.get(n)
+            # a DTensor (a ZeRO-1 shard of a mesh run) as this step lays it
+            # out: its rows under a ZeRO-1 plan, else whole; the write-back
+            # stores a ZeRO-1 accumulator as a DTensor again
+            sharded = plan is not None and n in plan.zero1
+            val = plan.local_state(n, val) if plan is not None else full_value(val)
             if not isinstance(val, torch.Tensor) or val.device != self.device:
                 val = as_tensor(val, block.var(n).dtype, self.device)
-                scope.set(n, val)
+                if not sharded:
+                    scope.set(n, val)
             if training and val.is_inference():
                 # written by an inference-mode run (the startup program):
                 # autograd cannot record or alias inference tensors
                 val = val.clone()
-                scope.set(n, val)
+                if not sharded:
+                    scope.set(n, val)
             ctx.values[n] = val
         for name, value in feed.items():
             v = block._find_var_recursive(name)
@@ -427,9 +498,9 @@ class Executor:
 
         fetches = None
         if training and getattr(program, "_recompute_loss", None):
-            fetches = _run_recompute(ctx, program, block, list(feed), fetch_names)
+            fetches = _run_recompute(ctx, program, block, list(feed), fetch_names, plan)
         elif training:
-            _run_training(ctx, block)
+            _run_training(ctx, block, plan)
         else:
             with torch.inference_mode():
                 for op in block.ops:
@@ -442,9 +513,12 @@ class Executor:
             for n in op.output_arg_names():
                 v = block._find_var_recursive(n) if n else None
                 if v is not None and v.persistable:
-                    scope.set(n, ctx.values[n].detach())
+                    t = ctx.values[n].detach()
+                    scope.set(n, plan.wrap_state(n, t) if plan is not None else t)
         if fetches is None:
             fetches = [ctx.get(n).detach() for n in fetch_names]
+        if plan is not None:
+            fetches = [plan.fetch(n, f) for n, f in zip(fetch_names, fetches)]
 
         # the step boundary, state written back: trainer.step is the chaos
         # anchor for "crash or wedge at step N", then the heartbeat; both
@@ -452,13 +526,18 @@ class Executor:
         # snapshot at step N-1 and the respawned attempt retrains step N
         self._dispatch_count += 1
         fault_point("trainer.step")
-        _trainer_heartbeat(None if mgr is None else mgr._auto_step,
+        _trainer_heartbeat(None if manager is None else manager._auto_step,
                            self._dispatch_count)
-        if mgr is not None:
-            mgr._on_executor_step(user_program, scope, self)
+        if manager is not None:
+            manager._on_executor_step(user_program, scope, self)
         if return_numpy:
             return [to_numpy(f) for f in fetches]
         return fetches
+
+    def close(self):
+        """Drop the cached post-pass Programs (the JAX Executor's close
+        empties its compile caches)."""
+        self._pass_cache.clear()
 
     # ------------------------------------------------------------------
     def _run_dataset(self, program, dataset, scope, thread, fetch_list, fetch_info,
@@ -470,9 +549,13 @@ class Executor:
         dtype and copies it onto this Executor's device on its own
         stream, so batch N+1's copy overlaps the step on batch N. Each step
         runs with return_numpy=False, so the host does not wait on the
-        card between steps; the last fetch comes back as numpy."""
+        card between steps; the last fetch comes back as numpy. A
+        CompiledProgram's steps run over its mesh: under a process group
+        each rank feeds the batches of the dataset it was given, its shard
+        of the job's data."""
         if dataset is None:
             raise ValueError("dataset is required")
+        from .compiler import CompiledProgram
         from .reader.stager import DeviceStager, host_tensor
 
         num_threads = max(1, int(thread or 0) or int(getattr(dataset, "thread_num", 0) or 0))
@@ -481,7 +564,8 @@ class Executor:
             getattr(v, "name", str(v)) for v in fetch_list
         ]
         program = program or default_main_program()
-        block = program.global_block()
+        block = (program._program if isinstance(program, CompiledProgram)
+                 else program).global_block()
 
         def _stage(feed):
             out = {}

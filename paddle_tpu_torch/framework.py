@@ -14,6 +14,7 @@ import contextlib
 import copy
 import os
 import sys
+import threading
 
 import numpy as np
 
@@ -35,7 +36,10 @@ __all__ = [
     "op_reads",
     "op_has_sub_block",
     "block_external_reads",
+    "name_scope",
+    "cpu_places",
     "cuda_places",
+    "cuda_pinned_places",
 ]
 
 # ---------------------------------------------------------------------------
@@ -151,6 +155,22 @@ class _UniqueNameModule:
 
 unique_name = _UniqueNameModule()
 
+_name_scope_stack = threading.local()
+
+
+@contextlib.contextmanager
+def name_scope(prefix: str):
+    """A name scope for the ops built inside it (reference: framework.py
+    name_scope). As in the JAX package it is a per-thread stack of
+    prefixes that names nothing yet."""
+    stack = getattr(_name_scope_stack, "stack", [])
+    stack.append(prefix)
+    _name_scope_stack.stack = stack
+    try:
+        yield
+    finally:
+        stack.pop()
+
 
 # ---------------------------------------------------------------------------
 # Variable
@@ -194,6 +214,16 @@ class Variable:
             "is_data": self.is_data,
             "type": self.type,
         }
+
+    def numel(self):
+        """The element count of the declared shape, a -1 / None dim
+        counting as 1 (None without a shape)."""
+        if self.shape is None:
+            return None
+        n = 1
+        for d in self.shape:
+            n *= abs(d) if d is not None else 1
+        return n
 
     def __repr__(self):
         return (
@@ -281,6 +311,9 @@ class Operator:
 
     def attr(self, name, default=None):
         return self.attrs.get(name, default)
+
+    def set_attr(self, name, val):
+        self.attrs[name] = val
 
     def to_dict(self):
         attrs = {}
@@ -392,6 +425,9 @@ class Block:
             raise KeyError(f"variable {name!r} not found in block {self.idx}")
         return v
 
+    def has_var(self, name) -> bool:
+        return self._find_var_recursive(name) is not None
+
     def has_var_local(self, name) -> bool:
         return name in self.vars
 
@@ -411,6 +447,14 @@ class Block:
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.append(op)
         return op
+
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        op = Operator(self, type, inputs, outputs, attrs)
+        self.ops.insert(index, op)
+        return op
+
+    def prepend_op(self, type, inputs=None, outputs=None, attrs=None) -> Operator:
+        return self._insert_op(0, type, inputs, outputs, attrs)
 
     def to_dict(self):
         return {
@@ -573,6 +617,23 @@ class Program:
                 blk.append_op(od["type"], od["inputs"], od["outputs"], attrs)
         return p
 
+    def fingerprint(self) -> str:
+        """sha1 of the Program's `to_dict()` as sorted-key JSON: the JAX
+        package's structural hash (framework.py:701 there), equal for
+        Programs that serialize alike."""
+        import hashlib
+        import json
+
+        def _default(o):
+            if isinstance(o, Block):
+                return {"__block__": o.idx}
+            if isinstance(o, np.ndarray):
+                return o.tolist()
+            return str(o)
+
+        payload = json.dumps(self.to_dict(), sort_keys=True, default=_default)
+        return hashlib.sha1(payload.encode()).hexdigest()
+
     def __repr__(self):
         return "\n".join(repr(b) for b in self.blocks)
 
@@ -632,6 +693,21 @@ def recompute_scope(segment):
         yield
     finally:
         prog._current_recompute_segment = old
+
+
+def cpu_places(device_count=None):
+    """`device_count` CPUPlaces (default: the CPU_NUM variable, else 1)."""
+    from .place import CPUPlace
+
+    n = device_count or int(os.environ.get("CPU_NUM", 1))
+    return [CPUPlace() for _ in range(n)]
+
+
+def cuda_pinned_places(device_count=None):
+    """`device_count` CUDAPinnedPlaces (default 1): host staging places."""
+    from .place import CUDAPinnedPlace
+
+    return [CUDAPinnedPlace() for _ in range(device_count or 1)]
 
 
 def cuda_places(device_ids=None):

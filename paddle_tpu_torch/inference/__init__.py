@@ -22,24 +22,35 @@ __all__ = [
     "PaddleTensor",
     "ZeroCopyTensor",
     "create_paddle_predictor",
+    "create_predictor",
 ]
 
 
 class AnalysisConfig:
-    """Predictor settings: the model directory and the device (the GPU
-    unless `disable_gpu()`). `switch_ir_optim` / `ir_optim` are stored as
-    the JAX package's Config stores them (inference/__init__.py:47,72-76
-    there), and read by neither: the Executor runs the Program passes on
-    every program (PADDLE_TPU_PASSES=none turns them off)."""
+    """Predictor settings: the model directory (and a params file name,
+    recorded) and the device (the GPU unless `disable_gpu()`). The
+    deployment knobs (`switch_ir_optim`, `enable_memory_optim`,
+    `enable_mkldnn`, `enable_tensorrt_engine`,
+    `set_cpu_math_library_num_threads`, `enable_profile`,
+    `switch_use_feed_fetch_ops`, `switch_specify_input_names`) are taken
+    and recorded as the JAX package's config records them
+    (inference/__init__.py:43-100 there), and change nothing: the
+    Executor runs the Program passes on every program
+    (PADDLE_TPU_PASSES=none turns them off)."""
 
-    def __init__(self, model_dir=None):
+    def __init__(self, model_dir=None, params_file=None):
         self._model_dir = model_dir
+        self._params_file = params_file
         self._use_gpu = True
         self._device_id = 0
         self._ir_optim = True
+        self._memory_optim = True
+        self._cpu_math_threads = 1
+        self._enable_profile = False
 
-    def set_model(self, model_dir):
+    def set_model(self, model_dir, params_file=None):
         self._model_dir = model_dir
+        self._params_file = params_file
 
     def model_dir(self):
         return self._model_dir
@@ -62,6 +73,27 @@ class AnalysisConfig:
 
     def ir_optim(self):
         return self._ir_optim
+
+    def enable_memory_optim(self):
+        self._memory_optim = True
+
+    def enable_mkldnn(self):
+        pass
+
+    def enable_tensorrt_engine(self, *args, **kwargs):
+        pass
+
+    def set_cpu_math_library_num_threads(self, n):
+        self._cpu_math_threads = n
+
+    def enable_profile(self):
+        self._enable_profile = True
+
+    def switch_use_feed_fetch_ops(self, flag=True):
+        pass
+
+    def switch_specify_input_names(self, flag=True):
+        pass
 
 
 class PaddleTensor:
@@ -130,8 +162,12 @@ class AnalysisPredictor:
     def get_input_handle(self, name):
         return self._input_handles[name]
 
+    get_input_tensor = get_input_handle
+
     def get_output_handle(self, name):
         return ZeroCopyTensor(name, self)
+
+    get_output_tensor = get_output_handle
 
     def _run_feed(self, feed: dict):
         outs = self._exe.run(
@@ -178,9 +214,17 @@ class AnalysisPredictor:
         self._input_handles = {}
         self._exe._pass_cache.clear()
 
+    def clone(self):
+        """A second predictor over the same config: its own scope and
+        Executor, the weights loaded again."""
+        return AnalysisPredictor(self._config)
+
     def program(self):
         return self._program
 
 
 def create_paddle_predictor(config: AnalysisConfig) -> AnalysisPredictor:
     return AnalysisPredictor(config)
+
+
+create_predictor = create_paddle_predictor

@@ -11,7 +11,10 @@ Each wrapper runs its plain version for a CPU tensor and launches the
 CUDA kernel for a CUDA tensor. Attention dropout draws its int32 seed
 from the threefry key of the op's output name, as the JAX op does
 (mha_short.py:567-570, flash_attention.py:634-636), so both packages
-drop the same pairs.
+drop the same pairs. On a mesh, rank r's batch rows are rows of the
+global batch: the kernels hash (b * heads + h) * 0xC2B2AE35 + seed in
+uint32, so shifting the seed by r * (local batch * heads) * 0xC2B2AE35
+draws the global mask's rows.
 """
 
 from __future__ import annotations
@@ -72,6 +75,9 @@ def _fused_mha(ctx, op):
     seed = 0
     if dropout > 0.0:
         seed = prng.randint(ctx.rng_for(op.output("Out")[0]), 1, 0, _INT32_MAX)[0]
+        if ctx.batch_rank:
+            heads = q.shape[2] if layout == "bshd" else q.shape[1]
+            seed = (seed + ctx.batch_rank * q.shape[0] * heads * 0xC2B2AE35) & 0xFFFFFFFF
     if bias is not None:
         bias = bias.detach().to(torch.float32).contiguous()
     seq_axis = 1 if layout == "bshd" else 2

@@ -286,6 +286,18 @@ def _bn_bshape(x, axis):
     return shape
 
 
+def _batch_sums(ctx, m, *sums):
+    """Per-channel `sums` summed over the mesh's batch group (one
+    all-reduce; differentiable, for a recompute step's autograd), and the
+    element count `m` of a channel over the whole batch."""
+    import torch.distributed.nn.functional as dist_fn
+
+    n = [t.numel() for t in sums]
+    total = dist_fn.all_reduce(torch.cat([t.reshape(-1) for t in sums]),
+                               group=ctx.batch_group)
+    return (*(t.view_as(s) for t, s in zip(total.split(n), sums)), m * ctx.batch_ranks)
+
+
 @register_op("batch_norm_grad", differentiable=False)
 def _batch_norm_grad(ctx, op):
     """dx = (gamma * inv / M) * (M * dy - sum(dy) - xhat * dgamma), with
@@ -303,10 +315,17 @@ def _batch_norm_grad(ctx, op):
     m = x.numel() // x.shape[axis]
     xf, dyf = x.float(), dy.float()
     dbeta = dyf.sum(dim=axes)
-    dgamma = inv * ((dyf * xf).sum(dim=axes) - mean * dbeta)
+    dyx = (dyf * xf).sum(dim=axes)
+    dgamma = inv * (dyx - mean * dbeta)
+    # dX from the sums over the mesh's whole batch; dScale / dBias stay
+    # this rank's shares, which the mesh step averages with the other grads
+    g_dbeta, g_dgamma = dbeta, dgamma
+    if ctx.batch_ranks > 1:
+        g_dbeta, g_dyx, m = _batch_sums(ctx, m, dbeta, dyx)
+        g_dgamma = inv * (g_dyx - mean * g_dbeta)
     xhat = (xf - mean.reshape(bshape)) * inv.reshape(bshape)
     dx = (scale * inv / m).reshape(bshape) * (
-        m * dyf - dbeta.reshape(bshape) - xhat * dgamma.reshape(bshape))
+        m * dyf - g_dbeta.reshape(bshape) - xhat * g_dgamma.reshape(bshape))
     ctx.out(op, "IGRAD_X", dx.to(x.dtype))
     if op.output("IGRAD_Scale"):
         ctx.out(op, "IGRAD_Scale", dgamma)
@@ -342,8 +361,12 @@ def _batch_norm(ctx, op):
         m = x.numel() // x.shape[axis]
         rm = mean.float().detach()
         d = xf - rm.reshape(bshape)
-        s1 = d.sum(dim=axes) / m
-        s2 = torch.square(d).sum(dim=axes) / m
+        s1 = d.sum(dim=axes)
+        s2 = torch.square(d).sum(dim=axes)
+        if ctx.batch_ranks > 1:
+            s1, s2, m = _batch_sums(ctx, m, s1, s2)
+        s1 = s1 / m
+        s2 = s2 / m
         use_mean = rm + s1
         use_var = torch.clamp(s2 - torch.square(s1), min=0.0)
         ctx.out(op, "MeanOut", momentum * mean + (1 - momentum) * use_mean)
@@ -502,15 +525,17 @@ def _quantized_keep_prob(p):
     return 1.0 - _drop_threshold(p) / 2.0**32
 
 
-def dropout_keep_mask(key, p, shape, device):
+def dropout_keep_mask(key, p, shape, device, offset=0):
     """(keep bool tensor of `shape`, effective keep prob): one murmur-mixed
     word per element from its flat index and the seed word of the threefry
-    `key`, kept when the word is >= round(p * 2^32) (nn_ops.py:720-741)."""
+    `key`, kept when the word is >= round(p * 2^32) (nn_ops.py:720-741).
+    `offset` is the flat index of the first element: on a mesh, rank r's
+    rows of the global tensor start at r times its element count."""
     k0, k1 = key
     seed = int(murmur_mix(torch.tensor(((k0 * 0x9E3779B1) & 0xFFFFFFFF) ^ k1,
                                        dtype=torch.int64)))
     n = int(np.prod(shape)) if len(shape) else 1
-    i = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device).reshape(shape)
     words = murmur_mix(mul32(i, 0x9E3779B1) ^ seed)
     return words >= _drop_threshold(p), _quantized_keep_prob(p)
 
@@ -528,7 +553,8 @@ def _dropout(ctx, op):
         ctx.out(op, "Mask", torch.ones_like(x, dtype=torch.uint8))
         return
     keep, keep_prob = dropout_keep_mask(ctx.rng_for(op.output("Out")[0]), p,
-                                        tuple(x.shape), x.device)
+                                        tuple(x.shape), x.device,
+                                        ctx.batch_rank * x.numel())
     kept = x * (1.0 / keep_prob) if impl == "upscale_in_train" else x
     ctx.out(op, "Out", torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                            device=x.device)))
@@ -544,7 +570,7 @@ def _dropout_grad(ctx, op):
     if rng_name is not None:
         # regenerate the forward's mask bit for bit from the shared rng
         keep, keep_prob = dropout_keep_mask(ctx.rng_for(rng_name), p, tuple(dy.shape),
-                                            dy.device)
+                                            dy.device, ctx.batch_rank * dy.numel())
     else:
         # a program serialized before mask regeneration: the saved Mask
         mask = ctx.in_(op, "Mask")

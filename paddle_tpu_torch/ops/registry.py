@@ -115,7 +115,12 @@ class LoweringContext:
     none, and `deferred` those whose forward op the dead-op pass removed,
     so that it runs once, in its `__auto_grad__`. `crcs` is None but in a
     `layer_scan` body, where it maps each template name to the crc32 of
-    this layer's name for it."""
+    this layer's name for it. Under a CompiledProgram's mesh
+    (parallel/step.py) `batch_group` is the process group of the mesh's
+    batch axis, `batch_rank` this rank's place on it and `batch_ranks` its
+    size: batch_norm sums its statistics over the group and dropout draws
+    this rank's rows of the global mask; outside a mesh they are None, 0
+    and 1."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -130,6 +135,9 @@ class LoweringContext:
         self.recomputed: set[str] = set()
         self.deferred: set[str] = set()
         self.crcs = None
+        self.batch_group = None
+        self.batch_rank = 0
+        self.batch_ranks = 1
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -212,6 +220,8 @@ class LoweringContext:
         sub.recomputed = self.recomputed
         sub.deferred = self.deferred
         sub.crcs = self.crcs
+        sub.batch_group, sub.batch_rank, sub.batch_ranks = (
+            self.batch_group, self.batch_rank, self.batch_ranks)
         return sub
 
     def scan_body(self, crcs):

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["CPUPlace", "CUDAPlace"]
+__all__ = ["CPUPlace", "CUDAPlace", "CUDAPinnedPlace"]
 
 
 class Place:
@@ -30,6 +30,10 @@ class CPUPlace(Place):
 
     def torch_device(self) -> torch.device:
         return torch.device("cpu")
+
+
+class CUDAPinnedPlace(CPUPlace):
+    """Host memory that stages copies to the card: the CPU device."""
 
 
 class CUDAPlace(Place):

@@ -19,14 +19,20 @@ interval and never a mixed state. Two restore surfaces:
 that program counts one step, and steps on the `should_save` cadence
 snapshot asynchronously (AsyncSnapshotEngine).
 
-`restore(mesh=...)` raises NotImplementedError: the port has no mesh until
-ROADMAP Queue 1 item 9, which brings the mesh-elastic re-placement
-(`_place_elastic` there).
+Mesh-elastic restore: under a mesh (`restore(mesh=...)`, or the current
+one) each var whose manifest records a spec is re-placed on that mesh
+from it (`_place_elastic`): a ZeRO-1 moment written on 2 ranks lands as a
+DTensor of this rank's rows on a mesh of any batch size that divides it,
+and whole on the 1x1x1 mesh; a var whose recorded axis no longer divides
+its dim degrades to replicated with a warning, as
+`parallel.mesh.sharding_with_degrade` reports it.
 """
 
 from __future__ import annotations
 
+import logging
 import shutil
+import time
 
 import numpy as np
 
@@ -44,6 +50,8 @@ from .snapshot import (
 
 __all__ = ["CheckpointManager"]
 
+_log = logging.getLogger(__name__)
+
 _DY_PARAM = "param:"
 _DY_OPT = "opt:"
 
@@ -59,12 +67,6 @@ def _persistable_state(program, scope):
         if scope.has(v.name) and scope.get(v.name) is not None:
             state[v.name] = scope.get(v.name)
     return state
-
-
-def _mesh_unsupported():
-    raise NotImplementedError(
-        "CheckpointManager.restore(mesh=...): the port has no mesh yet; "
-        "mesh-elastic restore comes with ROADMAP Queue 1 item 9")
 
 
 class CheckpointManager:
@@ -220,20 +222,98 @@ class CheckpointManager:
         return offenders
 
     @staticmethod
-    def _place(chosen, program, scope, executor):
-        """Each restored array into `scope` as a tensor of its var's IR
-        dtype on the executor's device (numpy when there is no executor)."""
+    def _placed(chosen, program, executor):
+        """Each restored array as a tensor of its var's IR dtype on the
+        executor's device (the array itself when there is no executor)."""
         if executor is None:
-            for name, arr in chosen.items():
-                scope.set(name, arr)
-            return
+            return dict(chosen)
         from ..executor import as_tensor
 
         block = program.global_block() if program is not None else None
+        out = {}
         for name, arr in chosen.items():
             v = block._find_var_recursive(name) if block is not None else None
-            scope.set(name, as_tensor(arr, v.dtype if v is not None else None,
-                                      executor.device))
+            out[name] = as_tensor(arr, v.dtype if v is not None else None, executor.device)
+        return out
+
+    @staticmethod
+    def _place(chosen, program, scope, executor):
+        """`_placed` into `scope`."""
+        for name, value in CheckpointManager._placed(chosen, program, executor).items():
+            scope.set(name, value)
+
+    @staticmethod
+    def _place_elastic(chosen, manifest, mesh, scope, program=None, executor=None):
+        """Re-place restored arrays under `mesh` from each var's RECORDED
+        PartitionSpec. The spec is mesh-shape-agnostic (P('batch') means
+        "shard dim 0 over however many ranks the batch axis has NOW"), so
+        one manifest restores onto any mesh: a sharded var lands as a
+        DTensor of this rank's rows. A dim whose recorded axis no longer
+        divides it degrades to replicated with a warning, never a crash
+        and never a wrong shard; a var without a spec, or a mesh without a
+        process group, restores whole. Counters: `restore_place_ms`, and
+        the gauges `restore_resharded_vars` / `restore_degraded_vars`."""
+        from .. import profiler
+        from ..parallel.mesh import sharding_with_degrade, spec_from_manifest
+
+        var_meta = manifest.get("vars", {})
+        src_mesh = manifest.get("mesh")
+        dst_mesh = {a: int(s) for a, s in mesh.shape.items()}
+        whole, sharded = {}, {}
+        degraded = recorded = 0
+        for name, arr in chosen.items():
+            spec_entry = var_meta.get(name, {}).get("spec")
+            if not spec_entry:
+                whole[name] = arr
+                continue
+            recorded += 1
+            shape = tuple(np.asarray(arr).shape)
+            placements, fell = sharding_with_degrade(
+                mesh, spec_from_manifest(spec_entry), shape)
+            if fell:
+                degraded += 1
+                detail = "; ".join(
+                    f"dim{d} (size {sz}) not divisible by axis group "
+                    f"{list(axes)} (extent {grp})" for d, axes, sz, grp in fell)
+                _log.warning(
+                    "mesh-elastic restore: %s recorded spec %s does not fit mesh %s "
+                    "— degrading to replicated (%s)", name, spec_entry, dst_mesh, detail)
+            if mesh.device_mesh is None or all(p.is_replicate() for p in placements):
+                whole[name] = arr
+            else:
+                sharded[name] = (arr, placements)
+        if src_mesh and src_mesh != dst_mesh:
+            _log.info(
+                "mesh-elastic restore: snapshot written on mesh %s re-placed onto "
+                "mesh %s (%d sharded var(s), %d degraded to replicated)",
+                src_mesh, dst_mesh, recorded, degraded)
+        CheckpointManager._place(whole, program, scope, executor)
+        if sharded:
+            import torch
+            from torch.distributed.tensor import DTensor
+
+            t0 = time.perf_counter()
+            staged = CheckpointManager._placed({n: a for n, (a, _) in sharded.items()},
+                                               program, executor)
+            for name, (_, placements) in sharded.items():
+                t = staged[name]
+                if not isinstance(t, torch.Tensor):  # no executor: a host array
+                    t = torch.from_numpy(np.ascontiguousarray(t))
+                for ax, pl in zip(mesh.axis_names, placements):
+                    if pl.is_shard():
+                        n = mesh.shape[ax]
+                        rows = t.shape[pl.dim] // n
+                        t = t.narrow(pl.dim, mesh.local_rank(ax) * rows, rows)
+                scope.set(name, DTensor.from_local(t.contiguous(), mesh.device_mesh,
+                                                   placements, run_check=False))
+            profiler.bump_counter("restore_place_ms",
+                                  int((time.perf_counter() - t0) * 1000))
+        # "resharded": the manifest recorded a mesh and it differs; every
+        # var with a recorded spec counts, degraded or not
+        profiler.set_counter(
+            "restore_resharded_vars",
+            recorded if (src_mesh and src_mesh != dst_mesh) else 0)
+        profiler.set_counter("restore_degraded_vars", degraded)
 
     # -- restore: static graph -------------------------------------------
     def restore(self, program=None, scope=None, executor=None, step=None,
@@ -246,10 +326,10 @@ class CheckpointManager:
         or dtype mismatch always raises, listing every offender, before a
         value lands in `scope`. `require_finite=True` skips, and deletes,
         snapshots whose float state holds a NaN or Inf (the NanGuard
-        rollback: the cadence may have saved a poisoned step). Returns the
-        restored step, or None."""
-        if mesh is not None:
-            _mesh_unsupported()
+        rollback: the cadence may have saved a poisoned step). `mesh=` is
+        the target mesh (default: the current one); under a mesh each var
+        with a recorded spec is re-placed from it (`_place_elastic`).
+        Returns the restored step, or None."""
         if scope is None:
             from ..scope import global_scope
 
@@ -289,7 +369,13 @@ class CheckpointManager:
                 # never let a poisoned snapshot become a later resume point
                 shutil.rmtree(snapshot_dir(self.root, got_step), ignore_errors=True)
                 continue
-            self._place(chosen, program, scope, executor)
+            from ..parallel.mesh import current_mesh
+
+            target = mesh if mesh is not None else current_mesh()
+            if target is not None:
+                self._place_elastic(chosen, manifest, target, scope, program, executor)
+            else:
+                self._place(chosen, program, scope, executor)
             if executor is not None:
                 sc = manifest.get("extra", {}).get("seed_counter")
                 if sc is not None:
@@ -306,13 +392,12 @@ class CheckpointManager:
                               scope=None, require_finite=True, mesh=None):
         """Run `startup_program` (every declared persistable gets a value),
         then overwrite from the newest valid, finite snapshot. Returns the
-        restored step, or -1 after a fresh initialize."""
-        if mesh is not None:
-            _mesh_unsupported()
+        restored step, or -1 after a fresh initialize. `mesh=` passes the
+        target mesh through to `restore`."""
         if startup_program is not None:
             executor.run(startup_program, scope=scope)
         step = self.restore(program=program, scope=scope, executor=executor,
-                            require_finite=require_finite)
+                            require_finite=require_finite, mesh=mesh)
         return -1 if step is None else step
 
     # -- restore: dygraph -------------------------------------------------

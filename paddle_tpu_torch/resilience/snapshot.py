@@ -9,10 +9,13 @@ crc32, the `extra` dict). It is written into `<final>@tmp`, the manifest
 last, and published by one `os.replace`; re-saving a step moves the old
 directory aside to `@old` first. A SIGKILL at any point leaves the
 earlier snapshots whole and at most an `@tmp` directory that discovery
-skips. Retention keeps the newest `keep`. The port records no mesh and no
-sharding (it has none until ROADMAP Queue 1 item 9): `snapshot_specs` and
-`snapshot_mesh_shape` return empty results, and a manifest from the JAX
-package loads with its `mesh` and `spec` entries ignored.
+skips. Retention keeps the newest `keep`. As in the JAX package a
+manifest records each sharded var's PartitionSpec (`spec`, in
+`parallel.mesh.spec_to_manifest`'s form, from a ZeRO-1 DTensor's
+placements) and the current mesh's shape (`mesh`), so a restore under a
+mesh re-places it sharded. A DTensor is written whole: its all-gather
+runs on the caller's thread at save, a collective of every rank of its
+mesh, so every rank saves (each into a root of its own).
 
 `AsyncSnapshotEngine.submit` takes the step's values where the step left
 them, into a slot: host memory laid out as the snapshot's `state.bin`
@@ -124,7 +127,11 @@ def _bump(name, amount=1):
 
 def _host(value) -> np.ndarray:
     """A value as a host array (a bfloat16 tensor widens to float32,
-    which numpy lacks; restore casts it back to the var's IR dtype)."""
+    which numpy lacks; restore casts it back to the var's IR dtype; a
+    DTensor is gathered whole)."""
+    from ..scope import full_value
+
+    value = full_value(value)
     if isinstance(value, torch.Tensor):
         t = value.detach()
         if t.dtype == torch.bfloat16:
@@ -163,13 +170,39 @@ def snapshot_dir(root: str, step: int) -> str:
 
 
 def snapshot_specs(arrays: dict) -> dict:
-    """Per-var sharding specs: none, the port has no mesh yet."""
-    return {}
+    """Per-var PartitionSpec table (manifest form) from the DTensors among
+    `arrays`, taken before they are gathered whole; replicated vars are
+    left out."""
+    from ..parallel.mesh import spec_of_placements, spec_to_manifest
+
+    out = {}
+    for name, v in arrays.items():
+        placements = getattr(v, "placements", None)
+        if placements is None:
+            continue
+        m = spec_to_manifest(spec_of_placements(placements))
+        if any(e is not None for e in m):
+            out[name] = m
+    return out
 
 
 def snapshot_mesh_shape():
-    """The active mesh's shape: None, the port has no mesh yet."""
-    return None
+    """{'batch': b, 'model': m, 'pipe': p} of the current mesh (or None),
+    recorded in every manifest so a restore under another mesh can tell a
+    re-placement from a same-mesh restore."""
+    from ..parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    return {a: int(s) for a, s in mesh.shape.items()}
+
+
+def _gathered(arrays: dict) -> dict:
+    """`arrays` with every DTensor gathered whole, on the caller's thread."""
+    from ..scope import full_value
+
+    return {k: full_value(v) for k, v in arrays.items()}
 
 
 def pack_stream(f, arrays: dict, *, fault_site: str = None,
@@ -209,8 +242,14 @@ def write_snapshot(root: str, step: int, arrays: dict, extra: dict = None,
                    mesh_shape: dict = None) -> str:
     """Write and commit one snapshot synchronously -> the committed
     directory. `extra` rides in the manifest (the executor's seed counter,
-    the readers' cursors). `specs` and `mesh_shape` are recorded as the
-    JAX package records them, when given."""
+    the readers' cursors). `specs` and `mesh_shape` (by default those of
+    `arrays` and of the current mesh) are recorded as the JAX package
+    records them."""
+    if specs is None:
+        specs = snapshot_specs(arrays)
+    if mesh_shape is None:
+        mesh_shape = snapshot_mesh_shape()
+    arrays = _gathered(arrays)
     return _commit(root, step, lambda f, delay: pack_stream(
         f, arrays, fault_site="snapshot.flush.write", delay=delay),
         extra, keep, specs, mesh_shape)
@@ -467,7 +506,7 @@ class AsyncSnapshotEngine:
         self.keep = int(keep)
         os.makedirs(root, exist_ok=True)
         self._cv = threading.Condition()
-        self._pending = None  # (step, _Copied, extra)
+        self._pending = None  # (step, _Copied, extra, specs, mesh shape)
         self._busy = False
         self._closed = False
         self._error = None
@@ -545,6 +584,9 @@ class AsyncSnapshotEngine:
 
     def submit(self, step: int, arrays: dict, extra: dict = None):
         t_submit = time.perf_counter()
+        # the specs and mesh of THIS submit, before DTensors are gathered
+        specs, mesh_shape = snapshot_specs(arrays), snapshot_mesh_shape()
+        arrays = _gathered(arrays)
         with self._cv:
             self._raise_pending_error()
             if self._closed:
@@ -563,7 +605,7 @@ class AsyncSnapshotEngine:
             raise
         with self._cv:
             self._wait(lambda: self._pending is not None)
-            self._pending = (int(step), copied, dict(extra or {}))
+            self._pending = (int(step), copied, dict(extra or {}), specs, mesh_shape)
             self._cv.notify_all()
         self.submit_ms.append((time.perf_counter() - t_submit) * 1e3)
 
@@ -604,7 +646,7 @@ class AsyncSnapshotEngine:
                     self._cv.wait(0.2)
                 if self._pending is None and self._closed:
                     return
-                step, copied, extra = self._pending
+                step, copied, extra, specs, mesh_shape = self._pending
                 self._pending = None
                 self._busy = True
                 blocked_before = self._blocked_s
@@ -615,7 +657,8 @@ class AsyncSnapshotEngine:
                     raise copied.error
                 if copied.done is not None:
                     copied.done.synchronize()
-                path = _commit(self.root, step, copied.slot.pack, extra=extra, keep=self.keep)
+                path = _commit(self.root, step, copied.slot.pack, extra=extra, keep=self.keep,
+                               specs=specs, mesh_shape=mesh_shape)
                 flush_s = time.perf_counter() - t0
                 copy_ms = copied.copy_ms()
                 with self._cv:

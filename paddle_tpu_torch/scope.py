@@ -1,18 +1,36 @@
-"""Scope: name -> value store. Values are torch tensors on the device of
-the executor that wrote them (numpy arrays are accepted too, and moved to
-the device on first use)."""
+"""Scope: name -> value store, with the fluid surface of the JAX package's
+(`paddle_tpu/scope.py`): a parent chain that `get` / `has` look through,
+`var`, `find_var` with `get_tensor()` / `get_value()` views, `new_scope`,
+`drop_kids`, `delete` and `local_names`.
+
+Values are torch tensors on the device of the executor that wrote them
+(numpy arrays are accepted too, and moved to the device on first use).
+Under a ZeRO-1 mesh run (compiler.CompiledProgram) an optimizer
+accumulator is a DTensor sharded on the mesh's `batch` axis; `to_numpy`
+gives its whole value, which is a collective every rank of the mesh
+takes part in."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["Scope", "global_scope", "scope_guard", "to_numpy"]
+__all__ = ["Scope", "global_scope", "scope_guard", "to_numpy", "full_value"]
+
+
+def full_value(value):
+    """A DTensor's whole value (an all-gather on its mesh); any other value
+    as it is."""
+    full = getattr(value, "full_tensor", None)
+    if full is not None and hasattr(value, "placements"):
+        return full()
+    return value
 
 
 def to_numpy(value) -> np.ndarray:
     """A scope value as a host numpy array (bf16 widens to float32, which
     numpy lacks)."""
+    value = full_value(value)
     if isinstance(value, torch.Tensor):
         t = value.detach()
         if t.dtype == torch.bfloat16:
@@ -21,20 +39,83 @@ def to_numpy(value) -> np.ndarray:
     return np.asarray(value)
 
 
+class _TensorView:
+    """Stand-in for fluid's LoDTensor handle, `find_var(name).get_tensor()`."""
+
+    def __init__(self, scope, name):
+        self._scope = scope
+        self._name = name
+
+    def __array__(self, dtype=None, copy=None):
+        arr = to_numpy(self._scope.get(self._name))
+        return arr.astype(dtype) if dtype is not None else arr
+
+    def set(self, value, place=None):
+        self._scope.set(self._name, value)
+
+    def shape(self):
+        return list(np.asarray(self).shape)
+
+
+class _ScopeVar:
+    def __init__(self, scope, name):
+        self._scope = scope
+        self.name = name
+
+    def get_tensor(self):
+        return _TensorView(self._scope, self.name)
+
+    def get_value(self):
+        return self._scope.get(self.name)
+
+
 class Scope:
-    def __init__(self):
+    def __init__(self, parent: "Scope" = None):
         self._values = {}
+        self._parent = parent
+        self._kids = []
 
     def get(self, name):
-        if name not in self._values:
-            raise KeyError(f"variable {name!r} not found in scope")
-        return self._values[name]
+        s = self
+        while s is not None:
+            if name in s._values:
+                return s._values[name]
+            s = s._parent
+        raise KeyError(f"variable {name!r} not found in scope")
 
     def set(self, name, value):
         self._values[name] = value
 
     def has(self, name) -> bool:
-        return name in self._values
+        s = self
+        while s is not None:
+            if name in s._values:
+                return True
+            s = s._parent
+        return False
+
+    def delete(self, name):
+        self._values.pop(name, None)
+
+    def local_names(self):
+        return list(self._values.keys())
+
+    # -- the fluid surface ---------------------------------------------------
+    def var(self, name) -> _ScopeVar:
+        if name not in self._values:
+            self._values[name] = None
+        return _ScopeVar(self, name)
+
+    def find_var(self, name):
+        return _ScopeVar(self, name) if self.has(name) else None
+
+    def new_scope(self) -> "Scope":
+        kid = Scope(self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids.clear()
 
 
 _scope_stack = [Scope()]

@@ -563,11 +563,13 @@ def test_data_parallel_single_process_and_multi_rank_raises(monkeypatch):
         m.apply_collective_grads()
         assert len(m.parameters()) == 4
         assert TD.prepare_context().nranks == 1
+        # more ranks need the PADDLE_* contract's endpoints (or a process
+        # group the caller initialized); without either both raise
         monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(RuntimeError, match="PADDLE_TRAINER_ENDPOINTS is empty"):
             TD.prepare_context()
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            TD.DataParallel(_MLP.make(TD))
+        with pytest.raises(RuntimeError, match="call prepare_context"):
+            TD.DataParallel(_MLP.make(TD)).apply_collective_grads()
 
 
 # -- training against the JAX package ------------------------------------------

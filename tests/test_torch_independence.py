@@ -321,3 +321,33 @@ def test_resilience_modules_load_neither_jax_nor_paddle_tpu(tmp_path, monkeypatc
     assert spawned == []
     with pytest.raises(ValueError, match="device"):
         trainer_fleet.TrainSupervisor(["train.py"], device="tpu")
+
+
+def test_parallel_and_compiler_load_neither_jax_nor_paddle_tpu():
+    """parallel/ (the mesh, its api and the mesh step's plan) and
+    compiler.py (CompiledProgram): the port's own copies, importing
+    neither package; a CompiledProgram's entry points run on the card
+    unless the caller asks for the CPU."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = sorted((pkg / "parallel").glob("*.py")) + [pkg / "compiler.py"]
+    mods = sorted({"paddle_tpu_torch." + ".".join(
+        f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
+    assert mods == ["paddle_tpu_torch.compiler", "paddle_tpu_torch.parallel",
+                    "paddle_tpu_torch.parallel.api", "paddle_tpu_torch.parallel.mesh",
+                    "paddle_tpu_torch.parallel.step"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import paddle_tpu_torch\n"
+        "assert paddle_tpu_torch.CompiledProgram is paddle_tpu_torch.compiler.CompiledProgram\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []

@@ -372,8 +372,14 @@ def test_restore_mismatch_strict_and_mesh(tmp_path):
         mgr.restore(program=main, scope=scope, strict=True)
     with pytest.raises(ValueError, match="requires program"):
         mgr.restore(strict=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        mgr.restore(program=main, scope=scope, mesh=object())
+    # under a mesh (the 1x1x1 one, no process group) the snapshot lands whole
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    try:
+        assert mgr.restore(program=main, scope=scope, mesh=tmesh.build_mesh()) == 1
+    finally:
+        tmesh.set_current_mesh(None)
+    assert to_numpy(scope.get(w)).shape == (4, 3)
     assert mgr.restore(program=main, scope=scope) == 1
     assert to_numpy(scope.get(w)).shape == (4, 3)
 
