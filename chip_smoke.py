@@ -23,7 +23,10 @@
             the short forward / backward and the LayerNorm backward at the
             Transformer's shapes too (b 256, 8 heads, s 64: causal and
             not, each with a key bias, dropout 0.1 on the backward; rows
-            16384 x 512)
+            16384 x 512); each of #1-#7 with dropout 0.1 and its seed a
+            device word (the static step's seed slot, read through a
+            pointer), bit-equal to the launch with the same word by value
+            and at its gate against the plain version given that word
 4. serve    BERT-base (hidden 768, 12 layers, b 8, s 128, random weights
             from --seed) exported with save_inference_model and served by
             the port's InferenceServer over HTTP; every reply finite, equal
@@ -286,16 +289,36 @@
             manifest's mesh recorded, the next step bit-equal. (c) dygraph DataParallel on the one-rank
             group (an MLP at BERT's width on 1024 rows): grads bit-equal to
             the run without it
-22. result  a `{"kernels": [...]}` JSON line, the nvidia-smi line, and last
+22. repeated  Executor.run_repeated (repeated_phase), under deterministic
+            algorithms: each cell from one state three ways, 10 run() calls,
+            run_repeated(steps=10) and 3 run() + run_repeated(7), every
+            stacked fetch, persistable and the seed counter bit-equal. (a)
+            phase 5's BERT-base cell (fp32, b 8, s 128, dropout 0.1, Adam);
+            (b) phase 5c's full pretraining (bhsd, bf16 AMP, dynamic loss
+            scaling, Lamb with a global-norm clip); (c) (a)'s Program as a
+            CompiledProgram on a one-rank NCCL group, run_repeated(10)
+            bit-equal to (a)'s run() arm; (d) phase 8's ResNet-50 b 128 bf16
+            AMP, run_repeated(10) bit-equal to 10 run(), no kernel of #1-#10;
+            (e) CheckpointManager(save_interval=4) across run_repeated(10):
+            one snapshot, labelled 9, bit-equal to (a)'s state after step
+            10. On the card each window replays one captured CUDA graph; a
+            profiled replay window's device kernels a step (12 #1 or #2, 12
+            of each of #6 / #7's two launches, 26 #8 for (a)); each arm's
+            capture ms, the walk's step p50, the replay's per-step p50, host
+            ms a step, idle share and the graph pool's memory
+23. result  a `{"kernels": [...]}` JSON line (each attention kernel with its
+            seed-pointer launches of phase 3), the nvidia-smi line, and last
             `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
-serve_registry, serve_fleet, dygraph, data, resilience, mesh) runs with every
+serve_registry, serve_fleet, dygraph, data, resilience, mesh, repeated) runs with every
 launch count set to 0 just before it and read just after (serve_fleet: each
 worker's counts read from its /healthz before and after, the difference taken;
 data: each BERT arm's counts, summed; resilience: each step's counts in every
-arm and worker attempt, summed; mesh: the three mesh arms); a kernel
+arm and worker attempt, summed; mesh: the three mesh arms; repeated: the
+walks and each static step's discovery and capture, its replays read from
+torch.profiler); a kernel
 of the path that was not launched fails the run, and so does any launch
 on a path that expects none (resnet, conv, dygraph).
 
@@ -331,6 +354,8 @@ Run from the root of a checkout:
                                              # never prints ok
     python3 chip_smoke.py --phase 21       # phases 1 and 21 alone (also
                                            # --only mesh); never prints ok
+    python3 chip_smoke.py --phase 22       # phases 1 and 22 alone (also
+                                           # --only repeated); never prints ok
 
 Imports torch, numpy, the standard library and paddle_tpu_torch only.
 """
@@ -573,17 +598,18 @@ def main():
                     help="tiny sizes on the CPU through the plain versions; "
                     "never prints the ok line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh"],
+    ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh", "repeated"],
                     help="run phase 1 and this one phase only (phase 18, dygraph; "
-                    "phase 19, data; phase 20, resilience; phase 21, mesh); never prints "
-                    "the ok line")
-    ap.add_argument("--phase", choices=["18", "19", "20", "21"],
+                    "phase 19, data; phase 20, resilience; phase 21, mesh; phase 22, "
+                    "repeated); never prints the ok line")
+    ap.add_argument("--phase", choices=["18", "19", "20", "21", "22"],
                     help="the same as --only, by the phase's number")
     # phase 20's supervised worker: the script re-invoked by the TrainSupervisor
     ap.add_argument("--resilience-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.phase:
-        args.only = {"18": "dygraph", "19": "data", "20": "resilience", "21": "mesh"}[args.phase]
+        args.only = {"18": "dygraph", "19": "data", "20": "resilience", "21": "mesh",
+                     "22": "repeated"}[args.phase]
     # whole lines as they come: a run cut by its time limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -671,6 +697,12 @@ def main():
         print(f"[result] launches on the mesh path's run: {launches}")
         print("[result] mesh: " + json.dumps(stats, default=str))
         print(f"[result] phase 21 alone passed (no ok line); {smi}")
+        return 0
+    if args.only == "repeated":
+        launches, stats = repeated_phase(args.seed, rehearsal, smi)
+        print(f"[result] launches on the repeated path's run: {launches}")
+        print("[result] repeated: " + json.dumps(stats, default=str))
+        print(f"[result] phase 22 alone passed (no ok line); {smi}")
         return 0
 
     # ---- the passes: notes and the A/B of passes off against on ---------
@@ -1219,6 +1251,58 @@ def main():
                         for tag in ("dkv", "dq"))
                 print(f"[kernels] {name} {shape} {layout} {dtype} by launch (torch.profiler): "
                       f"launch 1 (dK, dV) ms {per[dkv]}, launch 2 (dQ) ms {per[dq]}{bounds}")
+    # the seed in device memory (the TPU kernels' seed_ref; a static step's
+    # seed slot, which Executor.run_repeated's CUDA graph reads at each
+    # replay): each of #1-#7 launched with a device word as its dropout
+    # seed, against the launch with the same word by value (bit for bit) and
+    # the plain version given the same device word (at the kernel's gate)
+    word = 0x9E3779B9
+    slot = torch.tensor(word - (1 << 32), dtype=torch.int32, device=dev)
+    sb, ss, sl = (2, 4, 32) if rehearsal else (8, 12, 128)
+    fb_, fs = (1, 2) if rehearsal else (2, 12)
+    flash_s = 96 if rehearsal else 1000
+    ptr_checks = [  # kernel, the TPU kernels, b h sq sk d, layout, dtype, causal
+        ("mha_short_fwd", "#1", (sb, ss, sl, sl, 64), "bshd", "float32", False),
+        ("mha_short_fwd", "#2", (sb, ss, sl, sl, 64), "bhsd", "bfloat16", False),
+        ("flash_fwd", "#3", (fb_, fs, flash_s, flash_s, 64), "bhsd", "float32", True),
+        ("flash_bwd", "#4 #5", (fb_, fs, flash_s, flash_s, 64), "bhsd", "float32", True),
+        ("mha_short_bwd", "#6", (sb, ss, sl, sl, 64), "bhsd", "bfloat16", False),
+        ("mha_short_bwd", "#7", (sb, ss, sl, sl, 64), "bshd", "float32", False)]
+    seed_ptr = {}
+    for name, which, shape, layout, dtype, causal in ptr_checks:
+        q, k, v, bias = attn_inputs(shape, layout, dtype, True)
+        kw = dict(causal=causal, dropout=0.1, layout=layout)
+        if name in kernel_fns:
+            wrapper, plain = kernel_fns[name]
+            run = lambda sd: wrapper(q, k, v, bias=bias, seed=sd, **kw)[:1]  # noqa: E731
+            ref = plain(q, k, v, bias=bias, seed=slot, **kw)[:1]
+        else:
+            fwd, wrapper, plain = bwd_fns[name]
+            out, lse = fwd(q, k, v, bias=bias, seed=word, **kw)
+            dout = (0.25 * torch.randn(q.shape, generator=gen, device=dev)).to(q.dtype)
+            args_ = (q, k, v, bias, dout, lse, attention_delta(out, dout, layout))
+            run = lambda sd: wrapper(*args_, seed=sd, **kw)  # noqa: E731
+            ref = plain(*args_, seed=slot, **kw)
+        before = kernels.launch_counts()[name]
+        by_ptr, by_value = run(slot), run(word)
+        if not rehearsal:
+            torch.cuda.synchronize()
+            require(kernels.launch_counts()[name] == before + 2,
+                    f"{name}: the seed-pointer runs did not launch the kernel")
+        bit = all(torch.equal(a, c) for a, c in zip(by_ptr, by_value))
+        errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(by_ptr, ref)]
+        tols = [kernel_tol(dtype, r) for r in ref]
+        require(bit and all(e <= tl for e, tl in zip(errs, tols)),
+                f"{name} {which} seed from device memory {shape} {layout} {dtype}: bit-equal "
+                f"to the by-value launch {bit}; max abs errs {errs} against tols {tols}")
+        seed_ptr.setdefault(name, []).append(dict(
+            kernels=which, shape=list(shape), layout=layout, dtype=dtype, launches=1,
+            bit_equal_to_by_value=bit, max_abs_err=max(errs), tol=max(tols)))
+        print(f"[kernels] {name} ({which}) b,h,sq,sk,d={shape} {layout} {dtype} causal={causal} "
+              f"dropout 0.1, the seed a device word: bit-equal to the by-value launch; max abs "
+              f"err {max(errs):.3e} against the plain version (tol {max(tols):.3e})")
+        del q, k, v, bias, ref, by_ptr, by_value
+
     for n, k in ln_checks:
         for dtype in KERNEL_DTYPES:
             x = (2 * torch.randn(n, k, generator=gen, device=dev) + 0.5).to(getattr(torch, dtype))
@@ -3122,7 +3206,12 @@ def main():
     print("[result] mesh: " + json.dumps(mesh_stats, default=str))
 
     elapsed("phase 22")
-    # ---- 22. result ------------------------------------------------------
+    # ---- 22. repeated: run_repeated as captured CUDA graphs -------------------
+    path_launches["repeated"], repeated_stats = repeated_phase(args.seed, rehearsal, smi)
+    print("[result] repeated: " + json.dumps(repeated_stats, default=str))
+
+    elapsed("phase 23")
+    # ---- 23. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -3173,6 +3262,7 @@ def main():
             "library_ms": main_row["library_ms"],
             "shape": list(main_row["shape"]), "dtype": dtype,
             "causal_launches": sum(c.get(name, 0) for c in causal_launches.values()),
+            "seed_ptr": seed_ptr.get(name, []),
         })
     require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
             "the result line must list every kernel")
@@ -5875,6 +5965,399 @@ def _mesh_phase(seed, rehearsal, smi):
     stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
     print(f"[time] phase 21 took {stats['wall_s']} s; launches over the mesh path: "
           f"{path_launches}")
+    return path_launches, stats
+
+
+REPEAT_STEPS, REPEAT_HEAD = 10, 3  # phase 22: steps a window; run() calls before the split one
+REPEAT_TIMED = 3  # phase 22: timed windows of a recorded step (the replay's p50 over them)
+REPEAT_PROFILED = 2  # phase 22: steps of the profiled replay window
+# phase 22's device kernels of #1-#8, by a part of their names
+REPEAT_KERNELS = {"#1/#2 mha_short_fwd": "mha_short_fwd_kernel",
+                  "#6/#7 launch 1": "short_bwd_dkv_kernel",
+                  "#6/#7 launch 2": "short_bwd_dq_kernel",
+                  "#8 layer_norm_bwd": "layer_norm_bwd_"}
+OUR_KERNEL_NAMES = ("mha_short_fwd_kernel", "short_bwd_dkv_kernel", "short_bwd_dq_kernel",
+                    "flash_fwd_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel",
+                    "layer_norm_bwd_", "fused_block_")
+
+
+def repeated_phase(seed, rehearsal, smi):
+    """Phase 22: Executor.run_repeated on the card -> (launch counts of the
+    phase's run, the phase's result dict). Each cell from one state three
+    ways, each a fresh Executor: REPEAT_STEPS run() calls; one
+    run_repeated(REPEAT_STEPS); REPEAT_HEAD run() calls then
+    run_repeated(REPEAT_STEPS - REPEAT_HEAD). Every stacked fetch, every
+    persistable and the seed counter bit-equal across the three. (a) phase
+    5's BERT-base cell (fp32, b 8, s 128, dropout 0.1, Adam); (b) phase 5c's
+    full pretraining (both heads, bhsd, bf16 AMP with dynamic loss scaling
+    around Lamb with a global-norm clip); (c) (a)'s Program as a
+    CompiledProgram on a one-rank NCCL group, run_repeated bit-equal to
+    (a)'s run() arm; (d) phase 8's ResNet-50 b 128 bf16 AMP, run() against
+    run_repeated only, no kernel of #1-#10 launched; (e) a
+    CheckpointManager(save_interval=4) attached across (a)'s
+    run_repeated(REPEAT_STEPS): one snapshot, labelled REPEAT_STEPS - 1,
+    its records bit-equal to (a)'s state after the last step. A profiled
+    replay window of each recorded step: the device kernels a step (12 #1
+    or #2, 12 of each of #6 / #7's two launches and 26 #8 for BERT). Each
+    arm's capture ms, the walk's step p50, the replay's per-step p50 and
+    host ms a step, the window's idle share and the graph pool's memory.
+    Under deterministic algorithms (warn_only), as phase 21."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(not rehearsal or deterministic, warn_only=True)
+    try:
+        return _repeated_phase(seed, rehearsal, smi)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _repeated_phase(seed, rehearsal, smi):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import layers, resilience
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models.bert import BertConfig, build_bert_pretrain
+    from paddle_tpu_torch.models.resnet import resnet
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.resilience.snapshot import list_snapshots, load_snapshot
+    from paddle_tpu_torch.scope import full_value, to_numpy
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "repeated"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    n, head = REPEAT_STEPS, REPEAT_HEAD
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    stats, gates = {"card": smi}, {}
+    # the repeated path's run: the walks, and each recording's discovery and
+    # capture (a replay adds nothing to the Python counts: the device
+    # kernels a replayed step are read from torch.profiler)
+    kernels.reset_launch_counts()
+
+    def fresh(state0, counter0):
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe._seed_counter = counter0
+        for name, t in state0.items():
+            scope.set(name, t.clone())
+        return exe, scope
+
+    def persistables(main_p, scope):
+        return {v.name: full_value(scope.get(v.name)).detach().clone()
+                for v in main_p.list_vars()
+                if v.persistable and scope.has(v.name)
+                and isinstance(full_value(scope.get(v.name)), torch.Tensor)}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    def start_state(startup_p, main_p):
+        exe0, scope0 = fluid.Executor(place), fluid.Scope()
+        exe0.run(startup_p, scope=scope0)
+        return persistables(main_p, scope0), exe0._seed_counter
+
+    def walk(main_p, state0, counter0, feed, fetch):
+        """REPEAT_STEPS run() calls -> (fetches stacked, state, seed
+        counter, ms a step)."""
+        exe, scope = fresh(state0, counter0)
+        got, ms = [], []
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            out = exe.run(main_p, feed=dict(feed), fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got.append([o.detach().clone() for o in out])
+        stacked = [torch.stack([g[i] for g in got]) for i in range(len(fetch))]
+        return stacked, persistables(main_p, scope), exe._seed_counter, ms
+
+    def repeated(prog, main_p, state0, counter0, feed, fetch, head_runs=0):
+        """`head_runs` run() calls, then run_repeated of the rest of the
+        window -> (fetches stacked, state, seed counter, the Executor, its
+        scope, the call's wall ms)."""
+        exe, scope = fresh(state0, counter0)
+        got = [[o.detach().clone() for o in exe.run(prog, feed=dict(feed), fetch_list=fetch,
+                                                     scope=scope, return_numpy=False)]
+               for _ in range(head_runs)]
+        sync()
+        t0 = time.perf_counter()
+        outs = exe.run_repeated(prog, feed=dict(feed), fetch_list=fetch, steps=n - head_runs,
+                                scope=scope, return_numpy=False)
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        stacked = [torch.cat([g[i][None] for g in got] + [outs[i]]) for i in range(len(fetch))]
+        return stacked, persistables(main_p, scope), exe._seed_counter, exe, scope, wall
+
+    def replay_report(tag, exe, prog, feed, fetch, scope, want=None):
+        """The recorded step of `exe` timed over REPEAT_TIMED windows of
+        REPEAT_STEPS, and a window of one step issued on an idle card; a
+        REPEAT_PROFILED-step window profiled: the device kernels a step
+        (gated against `want` where given), busy ms and idle share."""
+        step = exe.last_static_step
+
+        def call(steps):
+            exe.run_repeated(prog, feed=dict(feed), fetch_list=fetch, steps=steps, scope=scope,
+                             return_numpy=False)
+
+        per_step, host_ms = [], []
+        for _ in range(REPEAT_TIMED):
+            sync()
+            t0 = time.perf_counter()
+            call(n)
+            t1 = time.perf_counter()
+            sync()
+            per_step.append((time.perf_counter() - t0) * 1e3 / n)
+            host_ms.append((t1 - t0) * 1e3 / n)
+        sync()
+        t0 = time.perf_counter()
+        call(1)
+        issue_one = (time.perf_counter() - t0) * 1e3
+        sync()
+        rec = dict(replay_step_p50_ms=round(statistics.median(per_step), 3),
+                   replay_step_ms=[round(x, 3) for x in per_step],
+                   host_ms_a_step=round(statistics.median(host_ms), 3),
+                   issue_ms_one_step=round(issue_one, 3),
+                   capture_ms=None if step.capture_ms is None else round(step.capture_ms, 1),
+                   graph_pool_mib=None if step.pool_bytes is None
+                   else round(step.pool_bytes / 2**20, 1),
+                   seed_slots=len(step.slots.specs), captured=step.graph is not None)
+        if rehearsal:
+            return rec
+        walls = []
+
+        def window():
+            t0 = time.perf_counter()
+            call(REPEAT_PROFILED)
+            sync()
+            walls.append((time.perf_counter() - t0) * 1e3)
+
+        per_call, sessions = kernels.device_kernel_stats(window, calls=1)
+        busy = sum(ms for _, ms in per_call.values())
+        ours = {label: sum(c for name, (c, _) in per_call.items() if part in name) / REPEAT_PROFILED
+                for label, part in REPEAT_KERNELS.items()}
+        top = sorted(((ms, name) for name, (_, ms) in per_call.items()), reverse=True)[:3]
+        rec.update(window_steps=REPEAT_PROFILED, window_wall_ms=round(walls[-1], 3),
+                   window_busy_ms=round(busy, 3),
+                   idle_share=round(max(0.0, 1 - busy / walls[-1]), 4) if busy else "not measured",
+                   device_kernels_a_step=ours, kernel_names=len(per_call),
+                   top_kernels=[[round(ms / REPEAT_PROFILED, 3), name[:60]] for ms, name in top],
+                   ours_any=sorted(name for name in per_call
+                                   if any(part in name for part in OUR_KERNEL_NAMES)))
+        if want is not None:
+            gates[f"({tag}) the replayed step's device kernels {want}"] = all(
+                ours[k] == v for k, v in want.items())
+        print(f"[repeated] ({tag}) a profiled replay window of {REPEAT_PROFILED} steps "
+              f"(torch.profiler, {sessions} sessions): wall {walls[-1]:.2f} ms, busy "
+              f"{busy:.2f} ms, idle share {rec['idle_share']}; device kernels a step {ours}; "
+              f"top kernels a step {rec['top_kernels']}")
+        return rec
+
+    def three_ways(tag, main_p, startup_p, feed, fetch, want=None):
+        state0, counter0 = start_state(startup_p, main_p)
+        t0 = time.perf_counter()
+        w_fetch, w_state, w_counter, w_ms = walk(main_p, state0, counter0, feed, fetch)
+        r_fetch, r_state, r_counter, r_exe, r_scope, r_wall = repeated(
+            main_p, main_p, state0, counter0, feed, fetch)
+        i_fetch, i_state, i_counter, i_exe, _, _ = repeated(
+            main_p, main_p, state0, counter0, feed, fetch, head)
+        i_exe.close()
+        del i_exe
+        for arm, (f, st, c) in (("run_repeated", (r_fetch, r_state, r_counter)),
+                                ("run() + run_repeated", (i_fetch, i_state, i_counter))):
+            gates[f"({tag}) {arm}: every fetch, persistable and the seed counter bit-equal to "
+                  f"{n} run()"] = (all(torch.equal(a, b) for a, b in zip(f, w_fetch))
+                                   and same(st, w_state) and c == w_counter == counter0 + n)
+        losses = [float(x) for x in w_fetch[0].float().reshape(n, -1)[:, 0]]
+        gates[f"({tag}) the losses finite and not all equal"] = (
+            all(math.isfinite(x) for x in losses) and len(set(losses)) > 1)
+        rec = dict(walk_step_p50_ms=round(statistics.median(w_ms[1:]), 3),
+                   first_call_ms=round(r_wall, 1), losses=losses)
+        rec.update(replay_report(tag, r_exe, main_p, feed, fetch, r_scope, want))
+        r_exe.close()
+        print(f"[repeated] ({tag}) {n} run() against run_repeated({n}) and {head} run() + "
+              f"run_repeated({n - head}): losses {losses}; walk step p50 "
+              f"{rec['walk_step_p50_ms']} ms, replay per-step p50 {rec['replay_step_p50_ms']} "
+              f"ms (host {rec['host_ms_a_step']} ms a step; one step issued on an idle card "
+              f"{rec['issue_ms_one_step']} ms), capture {rec['capture_ms']} ms, first call "
+              f"{rec['first_call_ms']} ms, graph pool {rec['graph_pool_mib']} MiB, "
+              f"idle share {rec.get('idle_share')}, {rec['seed_slots']} seed slots; "
+              f"{time.perf_counter() - t0:.1f} s; card {smi}")
+        del r_exe, r_scope
+        gc.collect()
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        return rec, (state0, counter0, w_fetch, w_state, w_counter)
+
+    # ---- (a) BERT-base fp32, phase 5's cell ---------------------------------
+    b, s, p = (2, 32, 5) if rehearsal else (8, 128, 20)
+    cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
+    main_a, startup_a = fluid.Program(), fluid.Program()
+    main_a.random_seed = startup_a.random_seed = seed + 2
+    with fluid.program_guard(main_a, startup_a), fluid.unique_name.guard():
+        loss_a = build_bert_pretrain(cfg, b, s, mlm_only=True, max_preds=p)["loss"]
+        fluid.optimizer.Adam(LR).minimize(loss_a)
+    feed_a = bert_pretrain_feed(np, np.random.RandomState(seed), cfg, b, s, p)
+    L = cfg.num_layers
+    want_bert = {"#1/#2 mha_short_fwd": L, "#6/#7 launch 1": L, "#6/#7 launch 2": L,
+                 "#8 layer_norm_bwd": 2 * L + 2}
+    stats["a"], ref_a = three_ways("a", main_a, startup_a, feed_a, [loss_a], want_bert)
+    stats["a"]["cell"] = (f"BERT hidden {cfg.hidden_size} x {L} layers fp32 b {b} s {s} "
+                          f"max_preds {p}, Adam({LR}), dropout {cfg.hidden_dropout}")
+
+    # ---- (c) the same Program over the one-rank NCCL mesh -------------------
+    state0, counter0, w_fetch, w_state, w_counter = ref_a
+    backend = "gloo" if rehearsal else "nccl"
+    dist.init_process_group(backend, init_method=f"file://{work / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        compiled = fluid.CompiledProgram(main_a).with_data_parallel(loss_name=loss_a.name)
+        mesh = compiled._get_mesh()
+        c_fetch, c_state, c_counter, c_exe, c_scope, c_wall = repeated(
+            compiled, main_a, state0, counter0, feed_a, [loss_a])
+        gates[f"(c) CompiledProgram run_repeated({n}) under the one-rank {backend} group "
+              "bit-equal to (a)'s run() arm"] = (
+            mesh.device_mesh is not None and torch.equal(c_fetch[0], w_fetch[0])
+            and same(c_state, w_state) and c_counter == w_counter)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            c_exe.run_repeated(compiled, feed=dict(feed_a), fetch_list=[loss_a], steps=n,
+                               scope=c_scope, return_numpy=False)
+            sync()
+        collectives = {e.key: e.count for e in prof.key_averages()
+                       if "all_reduce" in e.key or "allreduce" in e.key}
+        stats["c"] = dict(first_call_ms=round(c_wall, 1), collectives_host_events=collectives,
+                          capture_ms=None if c_exe.last_static_step.capture_ms is None
+                          else round(c_exe.last_static_step.capture_ms, 1))
+        if rehearsal:
+            # the CPU re-runs the lowering: each step's all-reduces run
+            gates["(c) the grads' all-reduces ran through the group"] = any(
+                backend in k.lower() for k in collectives)
+        print(f"[repeated] (c) CompiledProgram over the one-rank {backend} group, "
+              f"run_repeated({n}): bit-equal to (a)'s run(); first call {c_wall:.1f} ms, capture "
+              f"{stats['c']['capture_ms']} ms; a further window's collectives (host events: "
+              f"a replay issues none) {collectives}; card {smi}")
+        c_exe.close()
+        del c_exe, c_scope
+    finally:
+        dist.destroy_process_group()
+        mesh_mod.set_current_mesh(None)
+
+    # ---- (e) a CheckpointManager attached across the window ---------------
+    mgr = resilience.CheckpointManager(str(work / "ckpt"), save_interval=4, keep=3)
+    mgr.attach(main_a)
+    try:
+        e_fetch, e_state, e_counter, e_exe, _, e_wall = repeated(
+            main_a, main_a, state0, counter0, feed_a, [loss_a])
+        mgr.drain()
+        snaps = list_snapshots(str(work / "ckpt"))
+        arrays, _ = load_snapshot(snaps[-1][1]) if snaps else ({}, None)
+        want_state = {k: to_numpy(v) for k, v in w_state.items()}
+        gates[f"(e) one snapshot across run_repeated({n}), labelled {n - 1}, the final "
+              "state bit for bit"] = (
+            [st for st, _ in snaps] == [n - 1] and mgr._auto_step == n
+            and sorted(arrays) == sorted(want_state)
+            and all(np.array_equal(arrays[k], want_state[k]) for k in want_state)
+            and torch.equal(e_fetch[0], w_fetch[0]))
+        stats["e"] = dict(snapshots=[st for st, _ in snaps], auto_step=mgr._auto_step,
+                          call_ms=round(e_wall, 1), vars=len(arrays))
+        print(f"[repeated] (e) CheckpointManager(save_interval=4) across run_repeated({n}): "
+              f"snapshots {stats['e']['snapshots']}, _auto_step {mgr._auto_step}, "
+              f"{len(arrays)} records bit-equal to (a)'s state after step {n}; call "
+              f"{e_wall:.1f} ms with the submit; card {smi}")
+        e_exe.close()
+        del e_exe
+    finally:
+        mgr.detach(main_a)
+        mgr.close()
+    del state0, w_fetch, w_state, ref_a
+    gc.collect()
+
+    # ---- (b) full pretraining: bhsd, bf16 AMP, Lamb, loss scaling ------------
+    cfg_f = BertConfig.tiny() if rehearsal else BertConfig()
+    cfg_f.attn_layout = "bhsd"
+    main_b, startup_b = fluid.Program(), fluid.Program()
+    main_b.random_seed = startup_b.random_seed = seed + 3
+    with fluid.program_guard(main_b, startup_b), fluid.unique_name.guard():
+        loss_b = build_bert_pretrain(cfg_f, b, s, mlm_only=False, max_preds=None)["loss"]
+        opt = mixed_precision.decorate(
+            fluid.optimizer.Lamb(FULL_LR, lamb_weight_decay=0.01,
+                                 grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)),
+            use_dynamic_loss_scaling=True)
+        opt.minimize(loss_b)
+    found_b = next(op.output("FoundInfinite")[0] for op in main_b.global_block().ops
+                   if op.type == "check_finite_and_unscale")
+    feed_b = bert_full_feed(np, np.random.RandomState(seed), cfg_f, b, s)
+    want_full = {"#1/#2 mha_short_fwd": L, "#6/#7 launch 1": L, "#6/#7 launch 2": L}
+    stats["b"], _ = three_ways("b", main_b, startup_b, feed_b,
+                               [loss_b, opt.get_loss_scaling(), found_b], want_full)
+    stats["b"]["cell"] = (f"BERT hidden {cfg_f.hidden_size} x {L} layers b {b} s {s}, NSP + MLM over every position, bhsd, bf16 "
+                          f"AMP with dynamic loss scaling, Lamb({FULL_LR}) + "
+                          "GradientClipByGlobalNorm(1.0)")
+    del main_b, startup_b
+    gc.collect()
+
+    # ---- (d) ResNet-50 b 128 bf16 AMP, phase 8's cell --------------------------
+    rb, depth, hw = (4, 18, 32) if rehearsal else (RN_BATCH, 50, 224)
+    main_d, startup_d = fluid.Program(), fluid.Program()
+    main_d.random_seed = startup_d.random_seed = seed + 3
+    with fluid.program_guard(main_d, startup_d), fluid.unique_name.guard():
+        img = layers.data("img", [rb, 3, hw, hw], append_batch_size=False)
+        label = layers.data("label", [rb, 1], dtype="int64", append_batch_size=False)
+        _, loss_d, _, _ = resnet(img, label, depth=depth, class_num=1000)
+        mixed_precision.decorate(fluid.optimizer.Momentum(RN_LR, RN_MOMENTUM)).minimize(loss_d)
+    rs = np.random.RandomState(seed + 22)
+    feed_d = {"img": rs.rand(rb, 3, hw, hw).astype("float32"),
+              "label": rs.randint(0, 1000, (rb, 1)).astype("int64")}
+    state_d, counter_d = start_state(startup_d, main_d)
+    before = kernels.launch_counts()
+    w_fetch, w_state, w_counter, w_ms = walk(main_d, state_d, counter_d, feed_d, [loss_d])
+    r_fetch, r_state, r_counter, r_exe, r_scope, r_wall = repeated(
+        main_d, main_d, state_d, counter_d, feed_d, [loss_d])
+    gates[f"(d) ResNet-{depth} run_repeated({n}) bit-equal to {n} run()"] = (
+        torch.equal(r_fetch[0], w_fetch[0]) and same(r_state, w_state) and r_counter == w_counter)
+    rec = dict(walk_step_p50_ms=round(statistics.median(w_ms[1:]), 3),
+               first_call_ms=round(r_wall, 1),
+               losses=[float(x) for x in w_fetch[0].float().reshape(-1)])
+    rec.update(replay_report("d", r_exe, main_d, feed_d, [loss_d], r_scope))
+    gates["(d) no kernel of #1-#10 launched"] = (
+        all(c == before[k] for k, c in kernels.launch_counts().items())
+        and not rec.get("ours_any"))
+    stats["d"] = rec
+    stats["d"]["cell"] = f"ResNet-{depth} b {rb} {hw}x{hw} bf16 AMP, Momentum({RN_LR}, {RN_MOMENTUM})"
+    print(f"[repeated] (d) {stats['d']['cell']}: {n} run() against run_repeated({n}): losses "
+          f"{rec['losses']}; walk step p50 {rec['walk_step_p50_ms']} ms, replay per-step p50 "
+          f"{rec['replay_step_p50_ms']} ms (host {rec['host_ms_a_step']} ms a step), capture "
+          f"{rec['capture_ms']} ms, graph pool {rec['graph_pool_mib']} MiB, idle share "
+          f"{rec.get('idle_share')}; card {smi}")
+    r_exe.close()
+    del r_exe, r_scope, state_d, w_state, r_state
+    gc.collect()
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    path_launches = kernels.launch_counts()
+    if not rehearsal:
+        gates["the repeated path launched #1 / #2, #6 / #7 and #8"] = all(
+            path_launches[k] > 0 for k in ("mha_short_fwd", "mha_short_bwd", "layer_norm_bwd"))
+    shutil.rmtree(work, ignore_errors=True)
+    stats["gates"] = gates
+    failed = [g for g, ok in gates.items() if not ok]
+    print(f"[repeated] gates: {gates}")
+    require(not failed, f"[repeated] gates failed: {failed}")
+    stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[time] phase 22 took {stats['wall_s']} s; launches over the phase's run (the "
+          f"walks, and each recording's discovery and capture): {path_launches}")
     return path_launches, stats
 
 

@@ -29,9 +29,11 @@ parameter's new rows.
 
 Without a process group, with `places` None or 1, the mesh is the 1x1x1
 mesh without one, and a run is the plain `Executor.run` walk, bit for
-bit. A `model` or `pipe` axis larger than 1, `with_pipeline`,
-`auto_shard` and `_run_repeated` raise NotImplementedError naming the
-ROADMAP Queue 1 item that brings them.
+bit. `Executor.run_repeated` of a CompiledProgram (`_run_repeated`) runs
+the mesh step's static step: on the card one captured CUDA graph, the
+plan's collectives inside it, replayed N times. A `model` or `pipe` axis
+larger than 1, `with_pipeline` and `auto_shard` raise
+NotImplementedError naming the ROADMAP Queue 1 item that brings them.
 """
 
 from __future__ import annotations
@@ -188,9 +190,17 @@ class CompiledProgram:
 
     def _run_repeated(self, executor, feed, fetch_list, steps, scope,
                       return_numpy):
-        raise NotImplementedError(
-            "CompiledProgram._run_repeated: N steps in one dispatch are not ported "
-            "yet (ROADMAP Queue 1 item 12)")
+        """`steps` mesh steps as one static step replayed `steps` times
+        (Executor.run_repeated over the mesh; compiler.py:263-345 there):
+        each rank's step with the plan's collectives, on the card captured
+        in one CUDA graph; fetches stacked [steps, ...] after the plan's
+        fetch rule; the hooks as in `_run`, once for the window."""
+        scope = scope or global_scope()
+        plan = self._prepare_mesh_run(executor, feed, fetch_list, scope)
+        mgr = (getattr(self._program, "_ckpt_manager", None)
+               or getattr(self, "_ckpt_manager", None))
+        return executor._run_static(self._program, feed, plan.fetch_names, steps, scope,
+                                    return_numpy, plan=plan, manager=mgr)
 
     def _prepare_mesh_run(self, executor, feed, fetch_list, scope):
         """The post-pass Program and its mesh plan for this feed / fetch

@@ -64,6 +64,11 @@ through the same `_run_walk` with a `parallel.step.MeshPlan`: the grad
 averaging over the mesh's batch group, the fetch rule, the ZeRO-1
 shards, and the batch group that batch_norm and dropout read.
 
+`run_repeated` runs N steps of one feed as a static step
+(static_step.py): on the card one captured CUDA graph replayed N times,
+where the JAX executor runs a `lax.scan`; its numbers are N `run()`
+calls' bit for bit.
+
 Every run draws its randomness from the threefry key
 `fold_in(key(program.random_seed or 42), runs so far + 1)`, the key the
 JAX executor threads into the same run (executor.py:889-891 there), so
@@ -150,6 +155,9 @@ def as_tensor(value, dtype, device) -> torch.Tensor:
 _TRAIN_ROLES = core_op_role.Backward | core_op_role.Optimize
 # the pass cache's size, the JAX executor's cap
 _PASS_CACHE_CAP = 256
+# the static steps an Executor keeps (each holds its state and, on the
+# card, a CUDA graph and its memory pool)
+_STATIC_CACHE_CAP = 8
 # a pass-cache entry's program when the passes changed nothing: the entry
 # then holds no strong reference to the user's Program
 _UNCHANGED = object()
@@ -291,8 +299,7 @@ def _run_recompute(ctx, program, block, feed_names, fetch_names, plan=None):
     if plan is not None:
         grads = plan.reduce_all(grads)
 
-    post = LoweringContext(program, device=ctx.device, generator=ctx.generator,
-                           rng_key=prng.fold_in(ctx.rng_key, 7))
+    post = ctx.derived(7)
     post.values.update({n: v.detach() for n, v in mid_state.items() if v is not None})
     post.values.update(grads)
     with torch.no_grad():
@@ -316,6 +323,33 @@ def _run_recompute(ctx, program, block, feed_names, fetch_names, plan=None):
         else:
             fetches.append(post.get(n))
     return [f.detach() for f in fetches]
+
+
+def _lower_step(ctx, program, block, feed_names, fetch_names, plan, training):
+    """One step of `block` lowered in `ctx`, which holds the state and the
+    feeds: the recompute step, the training walk or the inference walk.
+    Leaves the new values in `ctx.values` and returns the fetches,
+    detached, before a mesh plan's fetch rule."""
+    if training and getattr(program, "_recompute_loss", None):
+        return _run_recompute(ctx, program, block, list(feed_names), fetch_names, plan)
+    if training:
+        _run_training(ctx, block, plan)
+    else:
+        with torch.inference_mode():
+            for op in block.ops:
+                lower_op(ctx, op)
+    return [ctx.get(n).detach() for n in fetch_names]
+
+
+def _state_written(block):
+    """The persistables the block's ops write, in order, each once."""
+    written = {}
+    for op in block.ops:
+        for n in op.output_arg_names():
+            v = block._find_var_recursive(n) if n else None
+            if v is not None and v.persistable:
+                written.setdefault(n, None)
+    return list(written)
 
 
 class Executor:
@@ -342,6 +376,11 @@ class Executor:
         # _UNCHANGED), in order of use
         self._pass_cache = OrderedDict()
         self.last_pass_stats = None
+        # run_repeated's static steps (static_step.py), keyed as the pass
+        # cache is, and by feed shapes and dtypes: key -> (program ref,
+        # scope ref, StaticStep), in order of use
+        self._static_steps = OrderedDict()
+        self.last_static_step = None
 
     def _passed_program(self, program, feed_names, fetch_names, scope,
                         build_strategy=None, mesh_key=(), use_cache=True):
@@ -496,27 +535,14 @@ class Executor:
             ctx.values[name] = as_tensor(value, v.dtype if v is not None else None,
                                          self.device)
 
-        fetches = None
-        if training and getattr(program, "_recompute_loss", None):
-            fetches = _run_recompute(ctx, program, block, list(feed), fetch_names, plan)
-        elif training:
-            _run_training(ctx, block, plan)
-        else:
-            with torch.inference_mode():
-                for op in block.ops:
-                    lower_op(ctx, op)
+        fetches = _lower_step(ctx, program, block, feed, fetch_names, plan, training)
         self._seed_counter += 1
         self.recomputed_forwards = sorted(ctx.recomputed)
         self.deferred_forwards = sorted(ctx.deferred)
 
-        for op in block.ops:
-            for n in op.output_arg_names():
-                v = block._find_var_recursive(n) if n else None
-                if v is not None and v.persistable:
-                    t = ctx.values[n].detach()
-                    scope.set(n, plan.wrap_state(n, t) if plan is not None else t)
-        if fetches is None:
-            fetches = [ctx.get(n).detach() for n in fetch_names]
+        for n in _state_written(block):
+            t = ctx.values[n].detach()
+            scope.set(n, plan.wrap_state(n, t) if plan is not None else t)
         if plan is not None:
             fetches = [plan.fetch(n, f) for n, f in zip(fetch_names, fetches)]
 
@@ -534,10 +560,136 @@ class Executor:
             return [to_numpy(f) for f in fetches]
         return fetches
 
+    def run_repeated(
+        self,
+        program: Program = None,
+        feed: dict = None,
+        fetch_list=None,
+        steps: int = 1,
+        scope: Scope = None,
+        return_numpy: bool = True,
+        use_program_cache: bool = True,
+    ):
+        """Run the same Program `steps` times with the same feed, as the
+        JAX `Executor.run_repeated` does (executor.py:1026-1141 there):
+        each fetch comes back stacked [steps, ...], its last entry what
+        the last of `steps` consecutive `run()` calls would fetch; the
+        numbers are those `run()` calls' bit for bit, and interleaving is
+        allowed (3 `run()` + `run_repeated(steps=3)` equals 6 `run()`).
+        The seed counter advances by `steps`, and only on success.
+        `trainer.step` and the heartbeat fire once, reporting the window's
+        final step, before the attached CheckpointManager's cadence counts
+        the whole window (`_on_executor_step(..., steps=steps)`: one
+        snapshot of the final state if a boundary fell inside it).
+
+        The one difference: where the JAX executor runs a `lax.scan` in
+        one dispatch, this one records a static step (static_step.py) and
+        on the card replays one captured CUDA graph `steps` times, the
+        dropout and attention kernels reading each step's seeds from
+        device memory; the host waits once, at the end. On the CPU the
+        static step re-runs its lowering `steps` times. The step is cached
+        like the pass cache (and by feed shapes and dtypes); `close()`
+        drops the cached steps, and `use_program_cache=False` drops them and
+        records this call's step afresh without keeping it. After the call
+        the scope holds the step's own state tensors.
+
+        Raises ValueError for `steps` < 1, RuntimeError under
+        PADDLE_TPU_CHECK_NAN_INF=1, for a persistable without a value
+        (run the startup program first), for a Program that draws from a
+        torch.Generator, and on the card for a step the capture refuses.
+        A CompiledProgram runs over its mesh (`_run_repeated`)."""
+        from .compiler import CompiledProgram
+
+        if steps < 1:
+            raise ValueError(f"steps must be >= 1, got {steps}")
+        if os.environ.get("PADDLE_TPU_CHECK_NAN_INF") == "1":
+            raise RuntimeError(
+                "run_repeated does not support PADDLE_TPU_CHECK_NAN_INF "
+                "(per-op flag shapes vary per step); use run()")
+        program = program or default_main_program()
+        if isinstance(program, CompiledProgram):
+            return program._run_repeated(self, feed, fetch_list, steps, scope, return_numpy)
+        fetch_names = [
+            v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
+        ]
+        return self._run_static(program, feed, fetch_names, steps, scope, return_numpy,
+                                use_cache=use_program_cache,
+                                manager=getattr(program, "_ckpt_manager", None))
+
+    def _run_static(self, program, feed, fetch_names, steps, scope, return_numpy,
+                    use_cache=True, plan=None, manager=None):
+        """`steps` steps of `program` through its static step (plan: a
+        CompiledProgram's MeshPlan), with the resilience hooks."""
+        from .static_step import StaticStep
+
+        scope = scope or global_scope()
+        feed = feed or {}
+        user_program = program
+        if plan is not None:
+            program = plan.program
+        else:
+            program = self._passed_program(program, feed, fetch_names, scope,
+                                           use_cache=use_cache)
+        block = program.global_block()
+        read = self._state_read(block, feed)
+        unsettled = sorted(n for n in read if not scope.has(n) or scope.get(n) is None)
+        if unsettled:
+            raise RuntimeError(
+                f"persistable vars {unsettled} have no settled value yet — run the "
+                "startup program before run_repeated (the static step needs stable "
+                "shapes)")
+        fault_point("executor.dispatch")
+        feed_t = {}
+        for name, value in feed.items():
+            v = block._find_var_recursive(name)
+            feed_t[name] = as_tensor(value, v.dtype if v is not None else None, self.device)
+        key = (id(program), program._version, len(block.ops),
+               tuple((n, tuple(x.shape), x.dtype) for n, x in sorted(feed_t.items())),
+               tuple(fetch_names), str(self.device), id(scope), id(plan))
+        if not use_cache:
+            self._static_steps.clear()
+        hit = self._static_steps.pop(key, None)
+        step = None
+        if hit is not None and hit[0]() is program and hit[1]() is scope:
+            step = hit[2]
+        if step is None:
+            step = StaticStep(program, self.device, feed_t, fetch_names, plan,
+                              not _is_inference_program(program), read,
+                              _state_written(block), _lower_step)
+        step.load(scope, feed_t)
+        base = prng.key(program.random_seed or 42)
+        run_keys = [prng.fold_in(base, self._seed_counter + 1 + i) for i in range(steps)]
+        if step.slots is None:
+            step.record(run_keys[0])
+        stacked = step.run(run_keys)
+        # advance only on success: a failed call replays the same keys
+        self._seed_counter += steps
+        step.bind(scope)
+        self.recomputed_forwards, self.deferred_forwards = step.recomputed, step.deferred
+        self.last_static_step = step
+        if use_cache:
+            self._static_steps[key] = (weakref.ref(program), weakref.ref(scope), step)
+            if len(self._static_steps) > _STATIC_CACHE_CAP:
+                self._static_steps.popitem(last=False)
+
+        # trainer.step and the heartbeat before the snapshot hook, reporting
+        # the window's final step (run_repeated's order in the JAX package)
+        self._dispatch_count += 1
+        fault_point("trainer.step")
+        _trainer_heartbeat(None if manager is None else manager._auto_step + steps - 1,
+                           self._dispatch_count)
+        if manager is not None:
+            manager._on_executor_step(user_program, scope, self, steps=steps)
+        if return_numpy:
+            return [to_numpy(s) for s in stacked]
+        return stacked
+
     def close(self):
-        """Drop the cached post-pass Programs (the JAX Executor's close
-        empties its compile caches)."""
+        """Drop the cached post-pass Programs and static steps (the JAX
+        Executor's close empties its compile caches)."""
         self._pass_cache.clear()
+        self._static_steps.clear()
+        self.last_static_step = None
 
     # ------------------------------------------------------------------
     def _run_dataset(self, program, dataset, scope, thread, fetch_list, fetch_info,

@@ -25,6 +25,7 @@ __all__ = [
     "gather",
     "cumsum",
     "reduce_sum",
+    "reduce_mean",
     "elementwise_sub",
     "elementwise_mul",
     "elementwise_div",
@@ -374,21 +375,29 @@ def cumsum(x, axis=-1, exclusive=False, reverse=False, name=None):
                        shape=x.shape)
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    reduce_all = dim is None
-    dims = [0] if dim is None else (dim if isinstance(dim, (list, tuple)) else [dim])
-    if input.shape is None or reduce_all:
-        # a full reduce gives [1] (fluid convention), or all ones with keep_dim
-        shape = ((1,) * len(input.shape) or (1,)) if keep_dim and input.shape is not None \
-            else (1,)
-    else:
-        axes = {d % len(input.shape) for d in dims}
-        shape = tuple((1 if i in axes else s) for i, s in enumerate(input.shape)
-                      if keep_dim or i not in axes) or (1,)
-    return _single_out(helper, "reduce_sum", {"X": [input]},
-                       {"dim": dims, "keep_dim": keep_dim, "reduce_all": reduce_all},
-                       shape=shape)
+def _reduce_layer(op_type):
+    def f(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        reduce_all = dim is None
+        dims = [0] if dim is None else (dim if isinstance(dim, (list, tuple)) else [dim])
+        if input.shape is None or reduce_all:
+            # a full reduce gives [1] (fluid convention), or all ones with keep_dim
+            shape = ((1,) * len(input.shape) or (1,)) if keep_dim and input.shape is not None \
+                else (1,)
+        else:
+            axes = {d % len(input.shape) for d in dims}
+            shape = tuple((1 if i in axes else s) for i, s in enumerate(input.shape)
+                          if keep_dim or i not in axes) or (1,)
+        return _single_out(helper, op_type, {"X": [input]},
+                           {"dim": dims, "keep_dim": keep_dim, "reduce_all": reduce_all},
+                           shape=shape)
+
+    f.__name__ = op_type
+    return f
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["sigmoid", "tanh", "sqrt", "sign"]
+__all__ = ["sigmoid", "tanh", "sqrt", "square", "sign"]
 
 
 def _make(op_type):
@@ -23,4 +23,5 @@ def _make(op_type):
 sigmoid = _make("sigmoid")
 tanh = _make("tanh")
 sqrt = _make("sqrt")
+square = _make("square")
 sign = _make("sign")

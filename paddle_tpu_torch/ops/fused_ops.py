@@ -11,22 +11,22 @@ Each wrapper runs its plain version for a CPU tensor and launches the
 CUDA kernel for a CUDA tensor. Attention dropout draws its int32 seed
 from the threefry key of the op's output name, as the JAX op does
 (mha_short.py:567-570, flash_attention.py:634-636), so both packages
-drop the same pairs. On a mesh, rank r's batch rows are rows of the
-global batch: the kernels hash (b * heads + h) * 0xC2B2AE35 + seed in
-uint32, so shifting the seed by r * (local batch * heads) * 0xC2B2AE35
-draws the global mask's rows.
+drop the same pairs. In a static step (Executor.run_repeated) the seed
+is a device word of the step's seed table (`LoweringContext.
+attention_seed`), which the kernels read through a pointer, so each
+replay of the captured step draws its own mask. On a mesh, rank r's
+batch rows are rows of the global batch: the kernels hash
+(b * heads + h) * 0xC2B2AE35 + seed in uint32, so shifting the seed by
+r * (local batch * heads) * 0xC2B2AE35 draws the global mask's rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import prng
 from .kernels.flash_attention import attention_delta, flash_attention, flash_attention_bwd
 from .kernels.mha_short import short_attention, short_attention_bwd, short_attention_viable
 from .registry import register_op
-
-_INT32_MAX = 2**31 - 1
 
 
 def _kernel_pair_fn(fwd, bwd, name):
@@ -74,10 +74,9 @@ def _fused_mha(ctx, op):
     layout = op.attr("layout", "bhsd") or "bhsd"
     seed = 0
     if dropout > 0.0:
-        seed = prng.randint(ctx.rng_for(op.output("Out")[0]), 1, 0, _INT32_MAX)[0]
-        if ctx.batch_rank:
-            heads = q.shape[2] if layout == "bshd" else q.shape[1]
-            seed = (seed + ctx.batch_rank * q.shape[0] * heads * 0xC2B2AE35) & 0xFFFFFFFF
+        heads = q.shape[2] if layout == "bshd" else q.shape[1]
+        seed = ctx.attention_seed(op.output("Out")[0],
+                                  ctx.batch_rank * q.shape[0] * heads * 0xC2B2AE35)
     if bias is not None:
         bias = bias.detach().to(torch.float32).contiguous()
     seq_axis = 1 if layout == "bshd" else 2

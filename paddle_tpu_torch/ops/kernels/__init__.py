@@ -96,16 +96,25 @@ def _profiled_kernels(fn, calls, tries):
     return events, session
 
 
-def device_kernels(fn, calls=3, tries=10):
-    """`fn` `calls` times under torch.profiler -> ({kernel name: launches a
-    call} of every kernel the device ran, sessions taken); sessions that
-    lost their records are taken again (`_profiled_kernels`)."""
+def device_kernel_stats(fn, calls=3, tries=10):
+    """`fn` `calls` times under torch.profiler -> ({kernel name: (launches a
+    call, device ms a call)} of every kernel the device ran, sessions
+    taken); sessions that lost their records are taken again
+    (`_profiled_kernels`)."""
     events, session = _profiled_kernels(fn, calls, tries)
-    return {name: count / calls for name, (count, _) in events.items()}, session
+    return {name: (count / calls, us / calls / 1e3)
+            for name, (count, us) in events.items()}, session
+
+
+def device_kernels(fn, calls=3, tries=10):
+    """As `device_kernel_stats` -> ({kernel name: launches a call},
+    sessions taken)."""
+    stats, session = device_kernel_stats(fn, calls, tries)
+    return {name: count for name, (count, _) in stats.items()}, session
 
 
 def device_kernel_ms(fn, calls=20, tries=10):
-    """As `device_kernels` -> ({kernel name: its device ms a call}, sessions
-    taken)."""
-    events, session = _profiled_kernels(fn, calls, tries)
-    return {name: us / calls / 1e3 for name, (_, us) in events.items()}, session
+    """As `device_kernel_stats` -> ({kernel name: its device ms a call},
+    sessions taken)."""
+    stats, session = device_kernel_stats(fn, calls, tries)
+    return {name: ms for name, (_, ms) in stats.items()}, session

@@ -71,6 +71,16 @@ __device__ __forceinline__ bool attn_dropout_keep(uint32_t seed, uint32_t bh,
   return h >= thresh;
 }
 
+// The dropout seed of a launch: the word `value`, or, when `ptr` is not
+// NULL, the word at `ptr` in device memory, which each kernel reads once
+// (the TPU kernels' seed_ref). A CUDA graph holds the pointer, so each
+// replay draws the word written there before it.
+struct AttnSeed {
+  uint32_t value;
+  const uint32_t* ptr;
+  __device__ __forceinline__ uint32_t get() const { return ptr != nullptr ? __ldg(ptr) : value; }
+};
+
 static inline AttnStrides attn_strides_from(const long long* s) {
   AttnStrides st;
   st.qb = s[0]; st.qs = s[1]; st.qh = s[2];

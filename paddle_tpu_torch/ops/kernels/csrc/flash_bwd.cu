@@ -173,8 +173,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, AttnBwdStrides st, int H, int sq, int sk, int d,
                      float sm_scale, int causal, int dropout_on, float drop_div,
-                     uint32_t thresh, uint32_t seed, int vec) {
+                     uint32_t thresh, AttnSeed seed_in, int vec) {
   typedef MmaOps<T> M;
+  const uint32_t seed = dropout_on ? seed_in.get() : 0u;
   typedef FlashBwdTile<T, DP> P;
   constexpr int BK = P::BK1, BQ = P::BQ1, NT = P::NT, LD = P::LD, S = P::STAGES;
   constexpr int BQH = BQ / 2;  // query rows of a tile per warp
@@ -363,8 +364,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq, AttnBwdStrides st,
                     int H, int sq, int sk, int d, float sm_scale, int causal, int dropout_on,
-                    float drop_div, uint32_t thresh, uint32_t seed, int vec) {
+                    float drop_div, uint32_t thresh, AttnSeed seed_in, int vec) {
   typedef MmaOps<T> M;
+  const uint32_t seed = dropout_on ? seed_in.get() : 0u;
   typedef FlashBwdTile<T, DP> P;
   constexpr int BQ = P::BQ2, BK = P::BK2, NT = P::NT, LD = P::LD, S = P::STAGES;
   constexpr int BKH = BK / 2;    // keys of a tile per warp
@@ -519,7 +521,7 @@ static int flash_bwd_launch(const void* q, const void* k, const void* v, const f
                             const void* dout, const float* lse, const float* delta, void* dq,
                             void* dk, void* dv, int B, int H, int sq, int sk, int d,
                             const AttnBwdStrides& st, float sm_scale, int causal,
-                            int dropout_on, float drop_div, uint32_t thresh, uint32_t seed,
+                            int dropout_on, float drop_div, uint32_t thresh, AttnSeed seed,
                             int vec, cudaStream_t stream) {
   typedef FlashBwdTile<T, DP> P;
   const T* qt = static_cast<const T*>(q);
@@ -553,7 +555,7 @@ static int flash_bwd_dispatch_d(const void* q, const void* k, const void* v,
                                 const float* delta, void* dq, void* dk, void* dv, int B,
                                 int H, int sq, int sk, int d, const AttnBwdStrides& st,
                                 float sm_scale, int causal, int dropout_on, float drop_div,
-                                uint32_t thresh, uint32_t seed, int vec, cudaStream_t s) {
+                                uint32_t thresh, AttnSeed seed, int vec, cudaStream_t s) {
   if (d <= 64)
     return flash_bwd_launch<T, 64>(q, k, v, bias, dout, lse, delta, dq, dk, dv, B, H, sq, sk,
                                    d, st, sm_scale, causal, dropout_on, drop_div, thresh,
@@ -568,12 +570,16 @@ static int flash_bwd_dispatch_d(const void* q, const void* k, const void* v,
 // (b, s, h) of q, k, v, dout, dq, dk, dv. bias: [B, sk] float32 or NULL. lse,
 // delta: [B, H, sq] float32. drop_div = 1 - rate. Returns the cudaError_t of
 // the launches (0 = success).
+// The dropout seed: seed_val, or the word at seed_ptr in device memory when
+// seed_ptr is not NULL (AttnSeed).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const float* bias,
                          const void* dout, const float* lse, const float* delta, void* dq,
                          void* dk, void* dv, int dtype, int B, int H, int sq, int sk,
                          int d, const long long* strides, float sm_scale, int causal,
                          int dropout_on, float drop_div, unsigned int thresh,
-                         unsigned int seed, void* stream) {
+                         unsigned int seed_val, const unsigned int* seed_ptr,
+                         void* stream) {
+  const AttnSeed seed{seed_val, seed_ptr};
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || (sq + 31) / 32 > 65535 ||
       (sk + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;

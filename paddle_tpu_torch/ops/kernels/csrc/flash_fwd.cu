@@ -92,8 +92,9 @@ __global__ void __launch_bounds__(FlashFwdTile<T, DP>::NT, FlashFwdTile<T, DP>::
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const float* __restrict__ bias, T* __restrict__ out, float* __restrict__ lse,
                  AttnStrides st, int H, int sq, int sk, int d, float sm_scale, int causal,
-                 int dropout_on, float drop_div, uint32_t thresh, uint32_t seed, int vec) {
+                 int dropout_on, float drop_div, uint32_t thresh, AttnSeed seed_in, int vec) {
   typedef MmaOps<T> M;
+  const uint32_t seed = dropout_on ? seed_in.get() : 0u;
   typedef FlashFwdTile<T, DP> P;
   constexpr int BQ = P::BQ, BK = P::BK, NT = P::NT, LD = P::LD;
   constexpr int NS = BK / 8;     // n8 tiles of S per warp
@@ -281,7 +282,7 @@ template <typename T, int DP>
 static int flash_fwd_launch(const void* q, const void* k, const void* v, const float* bias,
                             void* out, float* lse, int B, int H, int sq, int sk, int d,
                             const AttnStrides& st, float sm_scale, int causal,
-                            int dropout_on, float drop_div, uint32_t thresh, uint32_t seed,
+                            int dropout_on, float drop_div, uint32_t thresh, AttnSeed seed,
                             int vec, cudaStream_t stream) {
   typedef FlashFwdTile<T, DP> P;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
@@ -301,7 +302,7 @@ static int flash_fwd_dispatch_d(const void* q, const void* k, const void* v,
                                 const float* bias, void* out, float* lse, int B, int H,
                                 int sq, int sk, int d, const AttnStrides& st, float sm_scale,
                                 int causal, int dropout_on, float drop_div, uint32_t thresh,
-                                uint32_t seed, int vec, cudaStream_t s) {
+                                AttnSeed seed, int vec, cudaStream_t s) {
   if (d <= 64)
     return flash_fwd_launch<T, 64>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
                                    causal, dropout_on, drop_div, thresh, seed, vec, s);
@@ -313,11 +314,15 @@ static int flash_fwd_dispatch_d(const void* q, const void* k, const void* v,
 // 1, 2), the type of q, k, v and out. strides: 12 element strides (b, s, h) of
 // q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32. Returns
 // the cudaError_t of the launch (0 = success).
+// The dropout seed: seed_val, or the word at seed_ptr in device memory when
+// seed_ptr is not NULL (AttnSeed).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
                          void* out, float* lse, int dtype, int B, int H, int sq,
                          int sk, int d, const long long* strides, float sm_scale,
                          int causal, int dropout_on, float drop_div, unsigned int thresh,
-                         unsigned int seed, void* stream) {
+                         unsigned int seed_val, const unsigned int* seed_ptr,
+                         void* stream) {
+  const AttnSeed seed{seed_val, seed_ptr};
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || (sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const AttnStrides st = attn_strides_from(strides);

@@ -504,7 +504,19 @@ static cudaError_t ln_launch(const void* fn, const void* x, const void* dy, cons
   LnArgs<T> a{static_cast<const T*>(x), static_cast<const T*>(dy), mean, rstd, scale,
               static_cast<T*>(dx), part, out, n, k};
   void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(warps * 32), args, smem, s);
+  // a cooperative launch through cudaLaunchKernelEx, which stream capture
+  // records as a cooperative kernel node of a CUDA graph
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, fn, args);
 }
 
 // C entry points, bound with ctypes; each returns a cudaError_t (0 =

@@ -102,9 +102,10 @@ short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, T* __restrict__ ds_out, AttnBwdStrides st, int H,
                      int sq, int sk, int skp, int d, float sm_scale, int causal,
-                     int dropout_on, float drop_scale, uint32_t thresh, uint32_t seed,
+                     int dropout_on, float drop_scale, uint32_t thresh, AttnSeed seed_in,
                      int vec) {
   typedef MmaOps<T> M;
+  const uint32_t seed = dropout_on ? seed_in.get() : 0u;
   typedef ShortBwdDkv<T, DP> P;
   constexpr int BK = P::BK, NT = P::NT, BQ = P::BQ, LD = P::LD;
   constexpr int BQH = BQ / 2, NQ = BQH / 8, ND = DP / 8;
@@ -361,7 +362,7 @@ static int short_bwd_launch(const void* q, const void* k, const void* v, const f
                             void* dq, void* dk, void* dv, void* ds, int B, int H, int sq,
                             int sk, int skp, int d, const AttnBwdStrides& st,
                             float sm_scale, int causal, int dropout_on, float drop_scale,
-                            uint32_t thresh, uint32_t seed, int vec, cudaStream_t stream) {
+                            uint32_t thresh, AttnSeed seed, int vec, cudaStream_t stream) {
   constexpr int LD = ShortBwdTile<T, DP>::LD;
   typedef ShortBwdDkv<T, DP> P;
   const size_t smem1 = P::SMEM;
@@ -395,7 +396,7 @@ static int short_bwd_dispatch_d(int d, const void* q, const void* k, const void*
                                 int B, int H, int sq, int sk, int skp,
                                 const AttnBwdStrides& st, float sm_scale, int causal,
                                 int dropout_on, float drop_scale, uint32_t thresh,
-                                uint32_t seed, int vec, cudaStream_t s) {
+                                AttnSeed seed, int vec, cudaStream_t s) {
 #define SB_LAUNCH(DP)                                                                      \
   return short_bwd_launch<T, DP>(q, k, v, bias, dout, lse, delta, dq, dk, dv, ds, B, H, sq, \
                                  sk, skp, d, st, sm_scale, causal, dropout_on, drop_scale,  \
@@ -413,12 +414,16 @@ static int short_bwd_dispatch_d(int d, const void* q, const void* k, const void*
 // delta: [B, H, sq] float32. ds: scratch [B, H, sq, skp] of q's dtype, skp = sk
 // rounded up to a multiple of 8, written by launch 1 and read by launch 2.
 // Returns the cudaError_t of the launches (0 = success).
+// The dropout seed: seed_val, or the word at seed_ptr in device memory when
+// seed_ptr is not NULL (AttnSeed).
 extern "C" int mha_short_bwd(const void* q, const void* k, const void* v, const float* bias,
                              const void* dout, const float* lse, const float* delta,
                              void* dq, void* dk, void* dv, void* ds, int dtype, int B,
                              int H, int sq, int sk, int d, const long long* strides,
                              float sm_scale, int causal, int dropout_on, float drop_mul,
-                             unsigned int thresh, unsigned int seed, void* stream) {
+                             unsigned int thresh, unsigned int seed_val,
+                             const unsigned int* seed_ptr, void* stream) {
+  const AttnSeed seed{seed_val, seed_ptr};
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || sq > 512 || sk > 512)
     return (int)cudaErrorInvalidValue;
   const AttnBwdStrides st = attn_bwd_strides_from(strides);

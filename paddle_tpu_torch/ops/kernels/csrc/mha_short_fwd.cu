@@ -120,8 +120,9 @@ mha_short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, float* __restrict__ lse, AttnStrides st, int H,
                      int sq, int sk, int d, float sm_scale, int causal, int dropout_on,
-                     float drop_mul, uint32_t thresh, uint32_t seed, int vec, int nst) {
+                     float drop_mul, uint32_t thresh, AttnSeed seed_in, int vec, int nst) {
   typedef MmaOps<T> M;
+  const uint32_t seed = dropout_on ? seed_in.get() : 0u;
   typedef ShortFwdTile<T, DP> P;
   constexpr int RW = P::RW, NKW = P::NKW, BK = P::BK, BQ = P::BQ, RK = P::RK;
   constexpr int NT = P::NT, LD = P::LD, NO = P::NO, PART = P::PART;
@@ -359,7 +360,7 @@ template <typename T, int DP>
 static int short_fwd_launch(const void* q, const void* k, const void* v, const float* bias,
                             void* out, float* lse, int B, int H, int sq, int sk, int d,
                             const AttnStrides& st, float sm_scale, int causal,
-                            int dropout_on, float drop_mul, uint32_t thresh, uint32_t seed,
+                            int dropout_on, float drop_mul, uint32_t thresh, AttnSeed seed,
                             int vec, cudaStream_t stream) {
   typedef ShortFwdTile<T, DP> P;
   const int rounds = (sk + P::RK - 1) / P::RK;
@@ -382,7 +383,7 @@ static int short_fwd_dispatch_d(const void* q, const void* k, const void* v,
                                 const float* bias, void* out, float* lse, int B, int H,
                                 int sq, int sk, int d, const AttnStrides& st, float sm_scale,
                                 int causal, int dropout_on, float drop_mul, uint32_t thresh,
-                                uint32_t seed, int vec, cudaStream_t s) {
+                                AttnSeed seed, int vec, cudaStream_t s) {
   if (d <= 64)
     return short_fwd_launch<T, 64>(q, k, v, bias, out, lse, B, H, sq, sk, d, st, sm_scale,
                                    causal, dropout_on, drop_mul, thresh, seed, vec, s);
@@ -394,12 +395,16 @@ static int short_fwd_dispatch_d(const void* q, const void* k, const void* v,
 // 1, 2), the type of q, k, v and out. strides: 12 element strides (b, s, h) of
 // q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32. Returns
 // the cudaError_t of the launch (0 = success).
+// The dropout seed: seed_val, or the word at seed_ptr in device memory when
+// seed_ptr is not NULL (AttnSeed).
 extern "C" int mha_short_fwd(const void* q, const void* k, const void* v,
                              const float* bias, void* out, float* lse, int dtype,
                              int B, int H, int sq, int sk, int d,
                              const long long* strides, float sm_scale, int causal,
                              int dropout_on, float drop_mul, unsigned int thresh,
-                             unsigned int seed, void* stream) {
+                             unsigned int seed_val, const unsigned int* seed_ptr,
+                             void* stream) {
+  const AttnSeed seed{seed_val, seed_ptr};
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || sq > 512 || sk > 512)
     return (int)cudaErrorInvalidValue;
   const AttnStrides st = attn_strides_from(strides);

@@ -8,7 +8,9 @@ Counterpart of `paddle_tpu/ops/pallas/flash_attention.py`. Semantics: q
 with sk, an optional additive [b, sk] float32 key bias, a bottom-right
 aligned causal mask (offset sk - sq), and dropout from the murmur hash of
 the global (batch*head, query, key) coordinates and an int32 seed — the
-same mask, bit for bit, as the Pallas kernels draw. Every forward
+same mask, bit for bit, as the Pallas kernels draw. The seed is an int,
+passed by value, or a 0-dim int32 tensor on the card, whose word the
+kernels read through a pointer (the Pallas kernels' `seed_ref`). Every forward
 returns (out, lse): out in q's layout and dtype, lse [b, h, sq] float32.
 Every backward takes the forward's lse and delta = rowsum(dO * O)
 [b, h, sq] float32 and returns (dq, dk, dv) in the layout and dtypes of
@@ -35,7 +37,9 @@ __all__ = [
     "NEG_INF",
     "mul32",
     "murmur_mix",
+    "seed_word",
     "dropout_keep_mask",
+    "seed_args",
     "attention_plain",
     "flash_attention_plain",
     "flash_attention_fwd_mirror",
@@ -68,15 +72,25 @@ def murmur_mix(x):
     return x ^ (x >> 16)
 
 
+def seed_word(seed):
+    """An attention dropout seed as the hash takes it: an int's low 32 bits,
+    or a 0-dim int32 device tensor's word (a seed slot, read on the device)
+    as an int64 tensor in [0, 2**32)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _M32
+    return int(seed) & _M32
+
+
 def dropout_keep_mask(seed, b, h, sq, sk, rate, device):
     """[b, h, sq, sk] keep mask: the hash of flash_attention._dropout_keep /
-    mha_short._keep3 (and csrc/attn_common.cuh) in int64 arithmetic."""
+    mha_short._keep3 (and csrc/attn_common.cuh) in int64 arithmetic. `seed`:
+    an int or a 0-dim int32 tensor on `device` (`seed_word`)."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
     bh = ar(b * h).view(b, h, 1, 1)
     qi = ar(sq).view(1, 1, sq, 1)
     ki = ar(sk).view(1, 1, 1, sk)
     x = (mul32(qi, 0x9E3779B1) ^ mul32(ki, 0x85EBCA6B)
-         ^ ((int(seed) + mul32(bh, 0xC2B2AE35)) & _M32))
+         ^ ((seed_word(seed) + mul32(bh, 0xC2B2AE35)) & _M32))
     return murmur_mix(x) >= _dropout_thresh(rate)
 
 
@@ -350,7 +364,7 @@ def _kernel_fn(name):
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p])
+                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
@@ -386,6 +400,19 @@ def _drop_scale(name, dropout):
     return 1.0 / (1.0 - dropout) if name.startswith("mha_short") else 1.0 - dropout
 
 
+def seed_args(name, seed, q):
+    """The C entry points' (seed_val, seed_ptr) of a dropout seed: an int by
+    value; a 0-dim int32 tensor on q's device (a seed slot of a static step,
+    whose word a CUDA graph replay rewrites) by pointer, read by the
+    kernel."""
+    if not isinstance(seed, torch.Tensor):
+        return int(seed) & _M32, None
+    if seed.dtype != torch.int32 or seed.numel() != 1 or seed.device != q.device:
+        raise ValueError(f"{name}: a seed tensor must be one int32 word on q's device, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+    return 0, seed.data_ptr()
+
+
 def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
     """Check the inputs, allocate out / lse and launch the CUDA kernel
     `name` (mha_short_fwd or flash_fwd) on the current stream. Raises on
@@ -406,7 +433,7 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
                 b, h, sq, sk, d, strides, float(sm_scale), int(bool(causal)),
                 int(dropout > 0.0), float(_drop_scale(name, dropout)),
                 _dropout_thresh(dropout) if dropout > 0.0 else 0,
-                int(seed) & 0xFFFFFFFF, torch.cuda.current_stream().cuda_stream)
+                *seed_args(name, seed, q), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
@@ -422,7 +449,7 @@ def _bwd_kernel_fn():
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p])
+                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
@@ -466,7 +493,7 @@ def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, drop
             dv.data_ptr(), dtype_code(q.dtype), b, h, sq, sk, d, strides,
             float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
-            _dropout_thresh(dropout) if dropout > 0.0 else 0, int(seed) & 0xFFFFFFFF,
+            _dropout_thresh(dropout) if dropout > 0.0 else 0, *seed_args(name, seed, q),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")

@@ -34,6 +34,7 @@ from .flash_attention import (
     attention_plain,
     dropout_keep_mask,
     launch_attention,
+    seed_args,
 )
 
 __all__ = [
@@ -196,7 +197,7 @@ def _bwd_fn():
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p])
+                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
     return fn
 
 
@@ -229,7 +230,7 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
             dv.data_ptr(), scratch.data_ptr(), dtype_code(q.dtype), b, h, sq,
             sk, d, strides, float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
-            _dropout_thresh(dropout) if dropout > 0.0 else 0, int(seed) & 0xFFFFFFFF,
+            _dropout_thresh(dropout) if dropout > 0.0 else 0, *seed_args(name, seed, q),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")

@@ -184,6 +184,7 @@ _unary("relu", torch.relu)
 _unary("sigmoid", torch.sigmoid)
 _unary("tanh", torch.tanh)
 _unary("sqrt", torch.sqrt)
+_unary("square", torch.square)
 _unary("sign", torch.sign, differentiable=False)
 
 
@@ -239,18 +240,26 @@ def _sum(ctx, op):
     ctx.out(op, "Out", out)
 
 
-@register_op("reduce_sum")
-def _reduce_sum(ctx, op):
-    x = ctx.in_(op, "X")
-    dims = op.attr("dim", [0])
-    keep = op.attr("keep_dim", False)
-    if op.attr("reduce_all", False) or dims is None:
-        out = x.sum()
-        out = out.reshape((1,) * x.dim() if keep else (1,))  # fluid: [1]
-    else:
-        dims = dims if isinstance(dims, (list, tuple)) else [dims]
-        out = x.sum(dim=tuple(d % x.dim() for d in dims), keepdim=keep)
-    ctx.out(op, "Out", out)
+def _reduce(name, fn):
+    """reduce_sum / reduce_mean over `dim`, or over everything into [1]
+    (fluid's shape; all ones under keep_dim)."""
+
+    @register_op(name)
+    def lower(ctx, op):
+        x = ctx.in_(op, "X")
+        dims = op.attr("dim", [0])
+        keep = op.attr("keep_dim", False)
+        if op.attr("reduce_all", False) or dims is None:
+            out = fn(x)
+            out = out.reshape((1,) * x.dim() if keep else (1,))  # fluid: [1]
+        else:
+            dims = dims if isinstance(dims, (list, tuple)) else [dims]
+            out = fn(x, dim=tuple(d % x.dim() for d in dims), keepdim=keep)
+        ctx.out(op, "Out", out)
+
+
+_reduce("reduce_sum", torch.sum)
+_reduce("reduce_mean", torch.mean)
 
 
 @register_op("cumsum")

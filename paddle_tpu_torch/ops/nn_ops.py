@@ -525,15 +525,14 @@ def _quantized_keep_prob(p):
     return 1.0 - _drop_threshold(p) / 2.0**32
 
 
-def dropout_keep_mask(key, p, shape, device, offset=0):
+def dropout_keep_mask(seed, p, shape, device, offset=0):
     """(keep bool tensor of `shape`, effective keep prob): one murmur-mixed
-    word per element from its flat index and the seed word of the threefry
-    `key`, kept when the word is >= round(p * 2^32) (nn_ops.py:720-741).
-    `offset` is the flat index of the first element: on a mesh, rank r's
-    rows of the global tensor start at r times its element count."""
-    k0, k1 = key
-    seed = int(murmur_mix(torch.tensor(((k0 * 0x9E3779B1) & 0xFFFFFFFF) ^ k1,
-                                       dtype=torch.int64)))
+    word per element from its flat index and the seed word
+    (`LoweringContext.dropout_seed`: an int, or an int64 device scalar in
+    [0, 2^32) in a static step), kept when the word is >= round(p * 2^32)
+    (nn_ops.py:720-741). `offset` is the flat index of the first element:
+    on a mesh, rank r's rows of the global tensor start at r times its
+    element count."""
     n = int(np.prod(shape)) if len(shape) else 1
     i = torch.arange(offset, offset + n, dtype=torch.int64, device=device).reshape(shape)
     words = murmur_mix(mul32(i, 0x9E3779B1) ^ seed)
@@ -552,7 +551,7 @@ def _dropout(ctx, op):
         ctx.out(op, "Out", out)
         ctx.out(op, "Mask", torch.ones_like(x, dtype=torch.uint8))
         return
-    keep, keep_prob = dropout_keep_mask(ctx.rng_for(op.output("Out")[0]), p,
+    keep, keep_prob = dropout_keep_mask(ctx.dropout_seed(op.output("Out")[0]), p,
                                         tuple(x.shape), x.device,
                                         ctx.batch_rank * x.numel())
     kept = x * (1.0 / keep_prob) if impl == "upscale_in_train" else x
@@ -569,7 +568,7 @@ def _dropout_grad(ctx, op):
     rng_name = op.attr("rng_name")
     if rng_name is not None:
         # regenerate the forward's mask bit for bit from the shared rng
-        keep, keep_prob = dropout_keep_mask(ctx.rng_for(rng_name), p, tuple(dy.shape),
+        keep, keep_prob = dropout_keep_mask(ctx.dropout_seed(rng_name), p, tuple(dy.shape),
                                             dy.device, ctx.batch_rank * dy.numel())
     else:
         # a program serialized before mask regeneration: the saved Mask

@@ -26,7 +26,8 @@ from __future__ import annotations
 import zlib
 
 __all__ = ["key", "fold_in", "split", "random_bits", "key_data", "randint",
-           "name_key", "key_tensor", "random_bits_tensor", "bernoulli_mask"]
+           "name_key", "attention_seed", "dropout_seed", "key_tensor",
+           "random_bits_tensor", "bernoulli_mask"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -103,6 +104,28 @@ def name_key(run_key, name: str):
     """LoweringContext.rng_for: the run key folded with the crc32 of a
     variable name, so a forward op and its grad op draw the same bits."""
     return fold_in(run_key, zlib.crc32(name.encode()) & 0x7FFFFFFF)
+
+
+def attention_seed(k) -> int:
+    """The attention kernels' int32 dropout seed of key `k`:
+    randint(k, (1,), 0, 2**31 - 1) (mha_short.py:567-570,
+    flash_attention.py:634-636 of the JAX package)."""
+    return randint(k, 1, 0, (1 << 31) - 1)[0]
+
+
+def _murmur_mix(x):
+    """The murmur3 finalizer on a uint32 int."""
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_seed(k) -> int:
+    """The dropout op's seed word of key `k`: its two words mixed by the
+    murmur3 finalizer (nn_ops.py:720-741 of the JAX package)."""
+    return _murmur_mix(((k[0] * 0x9E3779B1) & _M32) ^ k[1])
 
 
 def key_tensor(k, device=None):

@@ -35,6 +35,7 @@ __all__ = [
     "register_op",
     "get_op",
     "LoweringContext",
+    "SeedSlots",
     "TORCH_DTYPE",
     "lower_op",
     "lower_forward_op",
@@ -102,6 +103,87 @@ def get_op(type) -> OpDef:
     return _OP_REGISTRY[type]
 
 
+_M32 = 0xFFFFFFFF
+
+
+def int32_words(words):
+    """uint32 words as the int32 values of the same bits."""
+    return [w - (1 << 32) if w >= 1 << 31 else w for w in words]
+
+
+class SeedSlots:
+    """The random draws of a static step (`Executor.run_repeated`), as slots
+    of a device table of int32 words.
+
+    The walk computes each draw's seed on the host from the run key. A CUDA
+    graph replays what it captured, so a host int would repeat the first
+    step's masks at every replay. In a static lowering each draw instead
+    registers a slot, which records how its word follows from the run key,
+    and the lowering reads the word from `table`: the attention kernels
+    through a pointer (the TPU kernels' seed_ref), the dropout op as a
+    device scalar. `words(run_key)` computes every slot's words of one
+    step on the host; the step writes them into the table before each
+    replay. A slot is (kind, path): `path` the fold_in data from the run
+    key to the draw's key (the context's own, then rng_for's var id or
+    next_rng's counter); `kind` "attn" and a shift (the int32 seed
+    prng.attention_seed, plus the mesh rank's shift, mod 2**32), "dropout"
+    (prng.dropout_seed) or "key" (the key's two words, two entries).
+
+    Slots register while `table` is None (the step's first, discovering
+    lowering), each draw then getting a fresh scalar of its word under
+    `discover_key`; `freeze()` allocates the table, and every later draw
+    reads its slot there. A draw the discovering lowering did not make
+    raises."""
+
+    def __init__(self, device, discover_key):
+        self.device = torch.device(device)
+        self.discover_key = discover_key
+        self.specs = []
+        self._offset = {}
+        self.size = 0
+        self.table = None
+
+    @staticmethod
+    def _spec_words(spec, run_key):
+        kind, path, shift = spec
+        k = run_key
+        for data in path:
+            k = prng.fold_in(k, data)
+        if kind == "attn":
+            return [(prng.attention_seed(k) + shift) & _M32]
+        if kind == "dropout":
+            return [prng.dropout_seed(k)]
+        return list(prng.key_data(k))
+
+    def words(self, run_key):
+        """Every slot's words under `run_key`, in table order."""
+        return [w for spec in self.specs for w in self._spec_words(spec, run_key)]
+
+    def freeze(self):
+        """Allocate the table (one entry when there is no slot)."""
+        self.table = torch.zeros(max(self.size, 1), dtype=torch.int32, device=self.device)
+
+    def draw(self, kind, path, shift=0):
+        """The int32 words of a draw: a 0-dim tensor ([2] for a key)."""
+        spec = (kind, tuple(path), int(shift) & _M32)
+        at = self._offset.get(spec)
+        width = 2 if kind == "key" else 1
+        if self.table is None:
+            if at is None:
+                at = self._offset[spec] = self.size
+                self.specs.append(spec)
+                self.size += width
+            out = torch.tensor(int32_words(self._spec_words(spec, self.discover_key)),
+                               dtype=torch.int32, device=self.device)
+        elif at is None:
+            raise RuntimeError(
+                f"a random draw {spec} that the static step's first lowering did not make: "
+                "the step's draws must not depend on its data")
+        else:
+            out = self.table[at:at + width]
+        return out.reshape(()) if width == 1 else out
+
+
 class LoweringContext:
     """Name -> tensor bindings while a Block runs, on one device.
 
@@ -120,7 +202,10 @@ class LoweringContext:
     batch axis, `batch_rank` this rank's place on it and `batch_ranks` its
     size: batch_norm sums its statistics over the group and dropout draws
     this rank's rows of the global mask; outside a mesh they are None, 0
-    and 1."""
+    and 1. `seed_slots` is None but in a static step's lowering
+    (`SeedSlots`), where `attention_seed`, `dropout_seed` and `next_rng`
+    return device words read from the slot table, and `rng_path` is the
+    fold_in data from the run key to this context's key."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -138,6 +223,8 @@ class LoweringContext:
         self.batch_group = None
         self.batch_rank = 0
         self.batch_ranks = 1
+        self.seed_slots = None
+        self.rng_path = ()
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -180,7 +267,12 @@ class LoweringContext:
         return self.rng_key
 
     def next_rng(self):
+        """The next key of the counter stream; in a static step, its two
+        words as an int64 device tensor [2] (prng.key_tensor's form)."""
         self._rng_counter += 1
+        if self.seed_slots is not None:
+            words = self.seed_slots.draw("key", self.rng_path + (self._rng_counter,))
+            return words.to(torch.int64) & _M32
         return prng.fold_in(self._key(), self._rng_counter)
 
     def var_id(self, name):
@@ -194,7 +286,38 @@ class LoweringContext:
         (paddle_tpu/ops/registry.py:240-252; prng.name_key); in a
         `layer_scan` body, the key of the current layer's name
         (scan_ops.py:45-85 there)."""
+        if self.seed_slots is not None:
+            raise RuntimeError(
+                f"rng_for({name!r}) would bake a host key into a static step: draw through "
+                "attention_seed, dropout_seed or next_rng")
         return prng.fold_in(self._key(), self.var_id(name))
+
+    def attention_seed(self, name, shift=0):
+        """The attention kernels' int32 dropout seed for output `name`
+        (prng.attention_seed of rng_for(name)) plus `shift`, mod 2**32: an
+        int, or in a static step a 0-dim int32 device tensor."""
+        if self.seed_slots is not None:
+            return self.seed_slots.draw("attn", self.rng_path + (self.var_id(name),), shift)
+        return (prng.attention_seed(self.rng_for(name)) + shift) & _M32
+
+    def dropout_seed(self, name):
+        """The dropout op's seed word for output `name` (prng.dropout_seed
+        of rng_for(name)): an int, or in a static step a 0-dim int64 device
+        tensor in [0, 2**32)."""
+        if self.seed_slots is not None:
+            words = self.seed_slots.draw("dropout", self.rng_path + (self.var_id(name),))
+            return words.to(torch.int64) & _M32
+        return prng.dropout_seed(self.rng_for(name))
+
+    def derived(self, data, program=None):
+        """A context on the key fold_in(this key, data), with this one's
+        device, generator and seed slots (the recompute step's optimizer
+        context)."""
+        sub = LoweringContext(program or self.program, self.device, self.generator,
+                              prng.fold_in(self.rng_key, data) if self.rng_key else None,
+                              self.is_test)
+        sub.seed_slots, sub.rng_path = self.seed_slots, self.rng_path + (data,)
+        return sub
 
     def amp_dtype_for(self, op):
         """The AMP compute dtype of this op, or None (fp32)."""
@@ -222,6 +345,7 @@ class LoweringContext:
         sub.crcs = self.crcs
         sub.batch_group, sub.batch_rank, sub.batch_ranks = (
             self.batch_group, self.batch_rank, self.batch_ranks)
+        sub.seed_slots, sub.rng_path = self.seed_slots, self.rng_path
         return sub
 
     def scan_body(self, crcs):

@@ -131,7 +131,14 @@ def _gather(ctx, op):
 
 
 def _op_generator(ctx, op):
-    """The op's own seed when it has one, else the run's generator."""
+    """The op's own seed when it has one, else the run's generator. A
+    static step (Executor.run_repeated) has no generator: its replays
+    could not redraw from one, so such an op raises there."""
+    if ctx.seed_slots is not None:
+        raise RuntimeError(
+            f"op {op.type!r} draws from a torch.Generator, which a static step "
+            "(Executor.run_repeated) cannot redraw at each replay: run this Program "
+            "with Executor.run")
     seed = op.attr("seed", 0)
     if seed:
         return torch.Generator(device=ctx.device).manual_seed(int(seed))

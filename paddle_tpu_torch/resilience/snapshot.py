@@ -58,6 +58,7 @@ import os
 import shutil
 import threading
 import time
+import weakref
 import zlib
 
 import numpy as np
@@ -81,6 +82,7 @@ __all__ = [
     "load_snapshot",
     "prune_snapshots",
     "AsyncSnapshotEngine",
+    "wait_for_copies",
 ]
 
 MANIFEST = "MANIFEST.json"
@@ -490,6 +492,22 @@ class _Copied:
         return self.start.elapsed_time(self.done)
 
 
+# every live engine: a static step (Executor.run_repeated) writes the
+# scope's state tensors in place, so it waits for their copies first
+_ENGINES = weakref.WeakSet()
+
+
+def wait_for_copies(device):
+    """Make `device`'s current stream wait until every engine's copies off
+    the card queued so far have read their sources (device-side: the host
+    does not wait)."""
+    current = torch.cuda.current_stream(device)
+    for engine in list(_ENGINES):
+        stream = engine._streams.get(torch.device(device))
+        if stream is not None:
+            current.wait_stream(stream)
+
+
 class AsyncSnapshotEngine:
     """Background-thread snapshot writer with a one-deep queue.
 
@@ -515,6 +533,7 @@ class AsyncSnapshotEngine:
         self._thread = None
         self._free = [_Slot(), _Slot()]
         self._streams = {}  # device -> the engine's copy stream
+        _ENGINES.add(self)
         self.submit_ms = []  # per submit: the time it held the caller
         self.copy_ms = []  # per flushed snapshot from the card: its copy's ms
 

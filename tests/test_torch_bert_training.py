@@ -3,7 +3,8 @@
 - Each lowering the BERT pretrain step adds, and its grad, through both
   packages' Executors: the same tiny Program built with each package's
   layers, the same numpy inputs, `gradients(out, inputs, cotangent)`.
-  This covers the lowerings of full pretraining too: transpose2, split
+  This covers the lowerings of full pretraining too, and square and
+  reduce_mean (over everything and over dims): transpose2, split
   (the parts' cotangents concatenated back), slice (zero-padded), tanh,
   sqrt, sign, elementwise_max, clip, clip_by_norm (clipped, kept and at
   a zero norm), squared_l2_norm, square_error_cost, fill_constant's
@@ -111,6 +112,16 @@ def _reduce_sum_all(fluid):
 def _reduce_sum_dim(fluid):
     x = _data(fluid, "x", [3, 4, 5])
     return _with_grads(fluid, fluid.layers.reduce_sum(x, dim=[1], keep_dim=True), [x])
+
+
+def _reduce_mean_all(fluid):
+    x = _data(fluid, "x", [3, 4, 5])
+    return _with_grads(fluid, fluid.layers.reduce_mean(x), [x])
+
+
+def _reduce_mean_dim(fluid):
+    x = _data(fluid, "x", [3, 4, 5])
+    return _with_grads(fluid, fluid.layers.reduce_mean(x, dim=[0, 2]), [x])
 
 
 def _cumsum(fluid):
@@ -330,6 +341,9 @@ OP_CASES = {
         scale=np.array([8.0], np.float32), good=np.zeros(1, np.int32),
         bad=np.zeros(1, np.int32),
         **{f"f{i}": np.array([f]) for i, f in enumerate(FOUND_SEQ)})),
+    "square": (_unary_op("square"), dict(g=G345)),
+    "reduce_mean_all": (_reduce_mean_all, dict(g=np.array([0.7], np.float32))),
+    "reduce_mean_dim": (_reduce_mean_dim, dict(g=RS.randn(4).astype(np.float32))),
 }
 
 

@@ -26,7 +26,11 @@ feeds; rank r feeds rows [8r, 8r + 8) of each 16-row batch. Cases:
   contract (tcp on 127.0.0.1), against one rank on the whole batch, in
   both packages;
 - attention dropout (the fused_multihead_attention op, whose kernels hash
-  a (batch, head) index) on 2 ranks against the port on the whole batch.
+  a (batch, head) index) on 2 ranks against the port on the whole batch;
+- `repeated`: the dropout case's program, `Executor.run_repeated` of the
+  CompiledProgram for 3 steps of one batch against the JAX batch-2 mesh's
+  `run_repeated`, and against 3 `run()` calls on the rank bit for bit
+  (asserted in tests/test_torch_run_repeated.py).
 """
 
 import fcntl
@@ -201,6 +205,36 @@ def _worker(rank, world, store, out, tcp_port):
         report[case] = rec
         np.savez(out / f"{case}_r{rank}.npz", losses=np.stack(losses), preds=np.stack(preds),
                  **{"state/" + k: v for k, v in state.items()})
+    # run_repeated over the mesh, against as many run() calls on the rank
+    main, startup, loss, pred = build(fluid, "dropout")
+    init = np.load(out / "repeated_init.npz")
+    xv, yv = feeds("dropout")[0]
+    feed = {"x": xv[rows], "y": yv[rows]}
+    arms = {}
+    for arm in ("runs", "repeated"):
+        exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()
+        exe.run(startup, scope=scope)
+        for n in init.files:
+            scope.set(n, init[n])
+        compiled = fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+        if arm == "runs":
+            fetched = [exe.run(compiled, feed=dict(feed), fetch_list=[loss, pred], scope=scope)
+                       for _ in range(STEPS)]
+            lv, pv = (np.stack(f) for f in zip(*fetched))
+        else:
+            lv, pv = exe.run_repeated(compiled, feed=dict(feed), fetch_list=[loss, pred],
+                                      steps=STEPS, scope=scope)
+        state = {v.name: to_numpy(scope.get(v.name)) for v in main.list_vars()
+                 if v.persistable and scope.has(v.name) and scope.get(v.name) is not None}
+        arms[arm] = (lv, pv, state, exe._seed_counter)
+    (rl, rp, rs_, rc), (ql, qp, qs, qc) = arms["runs"], arms["repeated"]
+    report["repeated"] = {
+        "mesh": dict(compiled._get_mesh().shape), "seed_counter": qc,
+        "bitwise_to_runs": bool(np.array_equal(rl, ql) and np.array_equal(rp, qp)
+                                and rc == qc and sorted(rs_) == sorted(qs)
+                                and all(np.array_equal(rs_[n], qs[n]) for n in qs))}
+    np.savez(out / f"repeated_r{rank}.npz", losses=ql, preds=qp,
+             **{"state/" + k: v for k, v in qs.items()})
     # dygraph DataParallel: the half batch a rank, scale_loss,
     # apply_collective_grads, in the process group prepare_context starts
     # from the PADDLE_* contract (a gloo group over tcp://127.0.0.1:port)
@@ -266,6 +300,29 @@ def _jax_case(case, out):
     return np.stack(losses), np.stack(preds), state
 
 
+def _jax_repeated(out):
+    """The dropout case's program from its JAX startup (written to disk),
+    run_repeated of STEPS steps of one batch on the JAX batch-2 mesh ->
+    (stacked losses, stacked preds, state)."""
+    import paddle_tpu as jfluid
+
+    main, startup, loss, pred = build(jfluid, "dropout")
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe.run(startup)
+        init = {v.name: np.asarray(scope.get(v.name)) for v in main.list_vars()
+                if v.persistable and scope.has(v.name) and scope.get(v.name) is not None}
+        np.savez(out / "repeated_init.npz", **init)
+        compiled = jfluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name,
+                                                                   places=WORLD)
+        xv, yv = feeds("dropout")[0]
+        lv, pv = exe.run_repeated(compiled, feed={"x": xv, "y": yv}, fetch_list=[loss, pred],
+                                  steps=STEPS)
+        state = {n: np.asarray(scope.get(n)) for n in init}
+    return np.asarray(lv), np.asarray(pv), state
+
+
 def _dygraph_refs(out):
     """Seeded MLP weights and a batch on disk; the whole batch's grads on
     one rank in each package."""
@@ -317,6 +374,7 @@ def _launch(out):
     old = jmesh.current_mesh()
     try:
         refs = {case: _jax_case(case, out) for case in CASES}
+        refs["repeated"] = _jax_repeated(out)
     finally:
         jmesh.set_current_mesh(old)
     refs["dygraph"] = _dygraph_refs(out)
@@ -349,6 +407,7 @@ def _launch(out):
         arrays = {case: dict(np.load(out / f"{case}_r{r}.npz")) for case in CASES}
         arrays["dygraph"] = dict(np.load(out / f"dygraph_r{r}.npz"))
         arrays["attn"] = np.load(out / f"attn_r{r}.npy")
+        arrays["repeated"] = dict(np.load(out / f"repeated_r{r}.npz"))
         ranks.append((rep, arrays))
     return refs, ranks
 

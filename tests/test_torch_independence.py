@@ -351,3 +351,39 @@ def test_parallel_and_compiler_load_neither_jax_nor_paddle_tpu():
     assert out.stdout.strip() == "[]"
     assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
             if _forbidden(m)] == []
+
+
+def test_static_step_loads_neither_jax_nor_paddle_tpu_nor_the_dygraph_jit():
+    """static_step.py (Executor.run_repeated's static step), the executor and
+    the seed slots import neither package, nor anything of
+    paddle_tpu_torch.dygraph (the JIT bridge's graph capture is its own);
+    a run_repeated on the CPU loads neither package."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = [pkg / "static_step.py", pkg / "executor.py", pkg / "ops" / "registry.py"]
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m) or m.startswith("paddle_tpu_torch.dygraph")] == []
+    # relative imports too: the static step's source names no dygraph module
+    assert "dygraph" not in (pkg / "static_step.py").read_text()
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import paddle_tpu_torch as fluid, paddle_tpu_torch.static_step\n"
+        "main, startup = fluid.Program(), fluid.Program()\n"
+        "with fluid.program_guard(main, startup), fluid.unique_name.guard():\n"
+        "    x = fluid.layers.data('x', [4, 3], append_batch_size=False)\n"
+        "    h = fluid.layers.dropout(fluid.layers.fc(x, 5), 0.5)\n"
+        "    loss = fluid.layers.mean(h)\n"
+        "    fluid.optimizer.SGD(0.1).minimize(loss)\n"
+        "exe, scope = fluid.Executor(fluid.CPUPlace()), fluid.Scope()\n"
+        "exe.run(startup, scope=scope)\n"
+        "(l,) = exe.run_repeated(main, feed={'x': np.ones((4, 3), 'float32')},\n"
+        "                        fetch_list=[loss], steps=3, scope=scope)\n"
+        "assert l.shape == (3, 1)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"

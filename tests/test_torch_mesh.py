@@ -289,8 +289,10 @@ def test_later_items_raise_and_knobs_match_jax():
     cp = tfluid.CompiledProgram(main)
     with pytest.raises(NotImplementedError, match="item 9c"):
         cp.with_pipeline(loss_name=loss.name, num_stages=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cp._run_repeated(None, {}, [], 2, None, True)
+    # item 12 is ported: run_repeated of a CompiledProgram checks its steps
+    # as the JAX one does (tests/test_torch_run_repeated.py runs it)
+    with pytest.raises(ValueError, match="steps must be >= 1"):
+        tfluid.Executor(tfluid.CPUPlace()).run_repeated(cp, fetch_list=[loss], steps=0)
     bs = tfluid.BuildStrategy()
     bs.auto_shard = False
     with pytest.raises(NotImplementedError, match="item 9b"):

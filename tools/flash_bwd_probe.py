@@ -37,7 +37,7 @@ SHAPES = [((2, 12, 2048, 2048, 64), True), ((2, 12, 1000, 1000, 64), False),
 BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_uint, ctypes.c_uint,
-                   ctypes.c_void_p])
+                   ctypes.c_void_p, ctypes.c_void_p])  # ..., seed, seed_ptr, stream
 LAUNCH_NAMES = ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
 
 
