@@ -44,7 +44,7 @@
             batch size, the loss falls, every step launches 12 short
             forward, 12 short backward and 26 LayerNorm backward kernels;
             step time, tokens/s, peak memory, one profiled step; then 2
-            layers at base width, 3 steps, card against CPU from one state
+            layers at base width and b 2, 3 steps, card against CPU from one state
 5c full    full pretraining at base width, b 8, s 128: the NSP head and the
             masked-LM head over every position, attn_layout "bhsd" (kernels
             #2 and #6), bf16 AMP with dynamic loss scaling around Lamb(1e-3,
@@ -98,7 +98,7 @@
             forward (the forward and each segment's recomputation), 12
             short backward and no LayerNorm backward; step time, tokens/s,
             peak memory beside 5b's at the same batch, one profiled step.
-            Then 2 layers at base width, 3 steps: card vs CPU, and the
+            Then 2 layers at base width and b 2, 3 steps: card vs CPU, and the
             recompute step vs the plain step on the card, at 5b's gates
 12. scan    PADDLE_TPU_FUSE_LAYER_SCAN=1 against the default passes, from
             one state, the arms interleaved under deterministic
@@ -152,7 +152,7 @@
             registry-less server's, with X-Model alt to alt's predictor.run
             and within 1e-3 of alt on the CPU; an unknown X-Model 404
             NoSuchModel. (b) 32 bulk clients on alt and 8 gold on main in two
-            processes, closed loops of 256 requests a class (a shed sent
+            processes, closed loops of 128 requests a class (a shed sent
             again after its Retry-After); a first round with all 40 clients
             connecting at once, reported (replies by code, p50, slowest);
             then each class's clients started over 1 s: every reply 200,
@@ -177,7 +177,7 @@
             subprocesses sharing the card, phase 16's two BERT-base bundles.
             (a) 2 replicas, no window, alt behind X-Model: 80 replies each
             bit-equal to predictor.run here, within 1e-3 of the CPU; (b)
-            closed loops of 32 clients (a process of their own), 512
+            closed loops of 32 clients (a process of their own), 128
             requests at a 10 ms window over 1, 2 and 4 replicas: requests/s,
             p50, p99, each replica's batch p50, each worker's memory from
             nvidia-smi; (c) a fleet.kill_replica fault SIGKILLs the worker
@@ -306,17 +306,45 @@
             of each of #6 / #7's two launches, 26 #8 for (a)); each arm's
             capture ms, the walk's step p50, the replay's per-step p50, host
             ms a step, idle share and the graph pool's memory
-23. result  a `{"kernels": [...]}` JSON line (each attention kernel with its
-            seed-pointer launches of phase 3), the nvidia-smi line, and last
-            `{"ok": true, "device": {...}}`
+23. collective  fleet collective and placement (collective_phase), under
+            deterministic algorithms, on phase 5's BERT-base cell (fp32, b 8,
+            s 128, dropout 0.1, Adam) on a one-rank NCCL group (a file://
+            store), 10 steps an arm from one state: (a) the fleet path
+            (PaddleCloudRoleMaker over a one-trainer PADDLE_* env,
+            fleet.init, fleet.distributed_optimizer(Adam,
+            DistributedStrategy()).minimize, plain Executor.run); (b) the
+            same with strategy.zero1 and PADDLE_TPU_AUTOSHARD=1, whose
+            pass-cache signature differs from (a)'s; (c) CompiledProgram
+            over a DistributedStrategy(tp=1) mesh: every loss, persistable
+            and the seed counter bit-equal to the plain walk, #1, #7 and #8
+            launched 12, 12 and 26 times a step and in a profiled fleet
+            step (torch.profiler), the step's all-reduces through the
+            group; each arm's step p50. (d) the autoshard planner in a
+            process of its own (no CUDA context): BERT-base planned for
+            H100 nodes at 8, 16 and 32 GPUs (mesh, state MB a device,
+            weighted collective bytes), its plan table read back by
+            TrainSupervisor(plan_table=). (e) tp=2: two processes sharing
+            the card over a gloo group (CUDA tensors, a DeviceMesh("cuda")
+            of batch 1 x model 2), 3 steps of the cell through
+            CompiledProgram from the startup state: the Megatron weights
+            Shard(d) on model, the replicated state bit-identical on both
+            ranks, the losses and the gathered persistables against the
+            one-device walk at 5b's card-vs-CPU gates, #1, #7 and #8
+            launched 12, 12 and 26 times a step on each rank (rank 1's
+            attention over heads 6-11 of 12); each rank's step p50
+24. result  a `{"kernels": [...]}` JSON line (each attention kernel with its
+            seed-pointer launches and its half-head launches of phase 3), the
+            nvidia-smi line, and last `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
-serve_registry, serve_fleet, dygraph, data, resilience, mesh, repeated) runs with every
+serve_registry, serve_fleet, dygraph, data, resilience, mesh, repeated,
+collective) runs with every
 launch count set to 0 just before it and read just after (serve_fleet: each
 worker's counts read from its /healthz before and after, the difference taken;
 data: each BERT arm's counts, summed; resilience: each step's counts in every
-arm and worker attempt, summed; mesh: the three mesh arms; repeated: the
+arm and worker attempt, summed; mesh: the three mesh arms; collective: its
+three arms and (e)'s two ranks, summed; repeated: the
 walks and each static step's discovery and capture, its replays read from
 torch.profiler); a kernel
 of the path that was not launched fails the run, and so does any launch
@@ -356,6 +384,8 @@ Run from the root of a checkout:
                                            # --only mesh); never prints ok
     python3 chip_smoke.py --phase 22       # phases 1 and 22 alone (also
                                            # --only repeated); never prints ok
+    python3 chip_smoke.py --phase 23       # phases 1 and 23 alone (also
+                                           # --only collective); never prints ok
 
 Imports torch, numpy, the standard library and paddle_tpu_torch only.
 """
@@ -397,12 +427,20 @@ KERNEL_DTYPES = ("float32", "bfloat16", "float16")  # #1-#8; #9-#10 take no fp16
 REQUESTS = 4  # BERT-base /predict requests in the serving path's run
 TRAIN_STEPS = 5  # BERT-base steps on one batch in the training path's run (and a A/B arm's)
 PARITY_STEPS = 3  # card vs CPU steps of the 2-layer BERT at base width
-# the batch of the card-vs-CPU references whose vocab-wide products bind
-# the CPU run: 5c's (the masked-LM head over every position), 5d's (fp16,
-# which an H100 host's CPU multiplies slowly: 3 steps of 1 layer at b 8
-# took 170 s there, the script's slowest part) and 9's (the Transformer's
-# output layer). Those products scale with the batch, not the depth
+# the batch of the card-vs-CPU references: 5b's and 11's (2 layers), and
+# those whose vocab-wide products bind the CPU run: 5c's (the masked-LM
+# head over every position), 5d's (fp16: 3 steps of 1 layer took 170 s at
+# b 8 and 39.6-48.3 s at b 2 on an H100 host while the port took fp16 CPU
+# products in torch's fp16 GEMM; ops/math_ops.py `_product` takes them in
+# fp32 now) and 9's (the Transformer's output layer). Those products scale
+# with the batch, not the depth. Two rows, so that a fault that mixes rows
+# or misplaces a row's bias or padding shows against the CPU
 CPU_REF_BATCH = 2
+# the requests of a timed closed loop: phase 14a's (a server, 4 a client),
+# 16 (b)'s (a QoS class) and 17 (b)'s (a replica count). 16's and 17's are
+# fewer than before the collective phase: the script's time limit, not the
+# gates, set them
+SERVE_REQUESTS, QOS_REQUESTS, FLEET_REQUESTS = 256, 128, 128
 LR = 1e-4
 FULL_LR = 1e-3  # Lamb's learning rate in the full-pretraining path (5c)
 # card vs CPU after PARITY_STEPS Adam steps: the losses within a relative
@@ -485,6 +523,20 @@ def kernel_tol(dtype, ref):
     top = ref.float().abs()
     top = float(top[top.isfinite()].max()) if bool(top.isfinite().any()) else 0.0
     return max(TOL["float32"], ulp(top, "float16"))
+
+
+def start_kernel_build():
+    """Every kernel built from csrc/ (one nvcc a source, all at once) by
+    `python paddle_tpu_torch/ops/kernels/_build.py` in a process of its own,
+    started before torch is imported so that the compile overlaps the
+    imports; its output goes to build/kernel_build.log -> (process, start
+    time)."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with open(ROOT / "build" / "kernel_build.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "paddle_tpu_torch" / "ops" / "kernels" / "_build.py")],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return proc, time.perf_counter()
 
 
 def card_peaks(name):
@@ -598,18 +650,21 @@ def main():
                     help="tiny sizes on the CPU through the plain versions; "
                     "never prints the ok line")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh", "repeated"],
+    ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh", "repeated",
+                                       "collective"],
                     help="run phase 1 and this one phase only (phase 18, dygraph; "
                     "phase 19, data; phase 20, resilience; phase 21, mesh; phase 22, "
-                    "repeated); never prints the ok line")
-    ap.add_argument("--phase", choices=["18", "19", "20", "21", "22"],
+                    "repeated; phase 23, collective); never prints the ok line")
+    ap.add_argument("--phase", choices=["18", "19", "20", "21", "22", "23"],
                     help="the same as --only, by the phase's number")
     # phase 20's supervised worker: the script re-invoked by the TrainSupervisor
     ap.add_argument("--resilience-worker", metavar="DIR", help=argparse.SUPPRESS)
+    # phase 23 (e)'s tensor-parallel ranks
+    ap.add_argument("--tp-worker", nargs=2, metavar=("DIR", "RANK"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.phase:
         args.only = {"18": "dygraph", "19": "data", "20": "resilience", "21": "mesh",
-                     "22": "repeated"}[args.phase]
+                     "22": "repeated", "23": "collective"}[args.phase]
     # whole lines as they come: a run cut by its time limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -622,12 +677,18 @@ def main():
     sys.path.insert(0, str(ROOT))
     if args.resilience_worker:
         return resilience_worker(args.resilience_worker, args.seed, args.cpu_rehearsal)
+    if args.tp_worker:
+        return tp_worker(args.tp_worker[0], int(args.tp_worker[1]), args.seed,
+                         args.cpu_rehearsal)
+    kernel_build = None if args.cpu_rehearsal else start_kernel_build()
     import numpy as np
     import torch
 
     rehearsal = args.cpu_rehearsal
     if not rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        if kernel_build is not None:
+            kernel_build[0].wait()
         return 1
 
     import paddle_tpu_torch as fluid
@@ -674,6 +735,12 @@ def main():
           f"{card}; count {torch.cuda.device_count() if not rehearsal else 0}; "
           f"peaks from the {peak_name} datasheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} TFLOP/s fp32, {peaks[2] / 1e12} TFLOP/s bf16")
+    if kernel_build is not None:
+        t0 = time.perf_counter()
+        rc = kernel_build[0].wait()
+        print(f"[build] the kernels' build, started before the imports, ended {rc} after "
+              f"{time.perf_counter() - kernel_build[1]:.1f} s; waited {time.perf_counter() - t0:.1f} "
+              f"s for it (phase 2 builds what it did not)")
 
     if args.only == "dygraph":
         launches, stats = dygraph_phase(args.seed, rehearsal, smi)
@@ -703,6 +770,12 @@ def main():
         print(f"[result] launches on the repeated path's run: {launches}")
         print("[result] repeated: " + json.dumps(stats, default=str))
         print(f"[result] phase 22 alone passed (no ok line); {smi}")
+        return 0
+    if args.only == "collective":
+        launches, stats = collective_phase(args.seed, rehearsal, smi)
+        print(f"[result] launches on the collective path's run: {launches}")
+        print("[result] collective: " + json.dumps(stats, default=str))
+        print(f"[result] phase 23 alone passed (no ok line); {smi}")
         return 0
 
     # ---- the passes: notes and the A/B of passes off against on ---------
@@ -989,8 +1062,8 @@ def main():
     if not rehearsal:
         t0 = time.perf_counter()
         libs = _build.build_all()
-        print(f"[build] {len(libs)} kernels built in "
-              f"{time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
+        print(f"[build] {len(libs)} kernels built ({time.perf_counter() - t0:.1f} s here, "
+              f"after the build phase 1 started) into {_build.build_dir()}")
         for line in (_build.build_dir() / "ptxas.log").read_text().splitlines():
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print(f"[build] {line.strip()}")
@@ -1302,6 +1375,63 @@ def main():
               f"dropout 0.1, the seed a device word: bit-equal to the by-value launch; max abs "
               f"err {max(errs):.3e} against the plain version (tol {max(tols):.3e})")
         del q, k, v, bias, ref, by_ptr, by_value
+
+    # a tensor-parallel rank's heads: each of #1-#7 launched over the second
+    # half of a 12-head problem (heads_global 12, head0 6, dropout 0.1), its
+    # out and lse (dQ, dK, dV with the sliced dO) bit-equal to the same heads'
+    # slice of the whole launch, and within its gate of the plain version
+    half_heads = {}
+    HH = 4 if rehearsal else 12
+    for name, which, shape, layout, dtype, causal in ptr_checks:
+        b_, _, sq_, sk_, d_ = shape
+        shape = (b_, HH, sq_, sk_, d_)
+        h0 = HH // 2
+        q, k, v, bias = attn_inputs(shape, layout, dtype, True)
+        kw = dict(causal=causal, dropout=0.1, seed=word, layout=layout)
+
+        def heads(t):
+            return (t[:, :, h0:] if layout == "bshd" else t[:, h0:]).contiguous()
+
+        fwd = kernel_fns[name][0] if name in kernel_fns else bwd_fns[name][0]
+        out, lse = fwd(q, k, v, bias=bias, **kw)
+        hq, hk, hv = heads(q), heads(k), heads(v)
+        sub = dict(kw, heads_global=HH, head0=h0)
+        before = kernels.launch_counts()[name]
+        if name in kernel_fns:
+            wrapper, plain = kernel_fns[name]
+            got = wrapper(hq, hk, hv, bias=bias, **sub)
+            want = (heads(out), lse[:, h0:])
+            ref = plain(hq, hk, hv, bias=bias, **sub)
+        else:
+            _, wrapper, plain = bwd_fns[name]
+            dout = (0.25 * torch.randn(q.shape, generator=gen, device=dev)).to(q.dtype)
+            delta = attention_delta(out, dout, layout)
+            want = tuple(heads(g) for g in wrapper(q, k, v, bias, dout, lse, delta, **kw))
+            before = kernels.launch_counts()[name]
+            args_ = (hq, hk, hv, bias, heads(dout), lse[:, h0:].contiguous(),
+                     delta[:, h0:].contiguous())
+            got = wrapper(*args_, **sub)
+            ref = plain(*args_, **sub)
+        if not rehearsal:
+            torch.cuda.synchronize()
+            require(kernels.launch_counts()[name] == before + 1,
+                    f"{name}: the half-head run did not launch the kernel")
+        bit = all(torch.equal(a, c) for a, c in zip(got, want))
+        errs = [float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref)]
+        tols = [kernel_tol(dtype, r) for r in ref]
+        require(bit and all(e <= tl for e, tl in zip(errs, tols)),
+                f"{name} {which} heads {h0}-{HH - 1} of {HH} {shape} {layout} {dtype}: "
+                f"bit-equal to the whole launch's slice {bit}; max abs errs {errs} against "
+                f"tols {tols}")
+        half_heads.setdefault(name, []).append(dict(
+            kernels=which, shape=list(shape), heads_global=HH, head0=h0, layout=layout,
+            dtype=dtype, launches=1, bit_equal_to_whole_slice=bit, max_abs_err=max(errs),
+            tol=max(tols)))
+        print(f"[kernels] {name} ({which}) heads {h0}-{HH - 1} of {HH}, b,h,sq,sk,d="
+              f"{(b_, HH - h0, sq_, sk_, d_)} {layout} {dtype} causal={causal} dropout 0.1: "
+              f"bit-equal to the whole launch's slice; max abs err {max(errs):.3e} against the "
+              f"plain version (tol {max(tols):.3e})")
+        del q, k, v, bias, got, want, ref
 
     for n, k in ln_checks:
         for dtype in KERNEL_DTYPES:
@@ -1802,9 +1932,10 @@ def main():
     path_launches["amp"] = launches
     print(f"[amp] launches over {TRAIN_STEPS} steps at each batch size: {launches}")
     cfg2_amp = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
-    feed_2 = bert_pretrain_feed(np, np.random.RandomState(args.seed), cfg2_amp, tb, ts, tp)
-    card_vs_cpu("amp", lambda: amp_pretrain(cfg2_amp, tb, mlm_only=True, max_preds=tp),
-                feed_2, LR)
+    feed_2 = bert_pretrain_feed(np, np.random.RandomState(args.seed), cfg2_amp, CPU_REF_BATCH,
+                                ts, tp)
+    card_vs_cpu("amp", lambda: amp_pretrain(cfg2_amp, CPU_REF_BATCH, mlm_only=True,
+                                            max_preds=tp), feed_2, LR)
 
     elapsed("phase 5c")
     # ---- 5c. full: pretraining with both heads, bhsd, Lamb, loss scaling ---
@@ -2498,11 +2629,12 @@ def main():
     # CPU, then against the plain step on the card, from one state
     cfg2_rc = recompute_cfg(BertConfig.tiny() if rehearsal else BertConfig(num_layers=2))
     cfg2_plain = BertConfig.tiny() if rehearsal else BertConfig(num_layers=2)
-    build_rc = lambda: amp_pretrain(cfg2_rc, tb, rc_opt, mlm_only=True,  # noqa: E731
-                                    max_preds=tp)
+    build_rc = lambda: amp_pretrain(cfg2_rc, CPU_REF_BATCH, rc_opt,  # noqa: E731
+                                    mlm_only=True, max_preds=tp)
     card_vs_cpu("recompute", build_rc, feed_2, LR)
     card_vs_cpu("recompute", build_rc, feed_2, LR, second=(
-        "the plain step", lambda: amp_pretrain(cfg2_plain, tb, mlm_only=True, max_preds=tp)))
+        "the plain step", lambda: amp_pretrain(cfg2_plain, CPU_REF_BATCH, mlm_only=True,
+                                               max_preds=tp)))
 
     elapsed("phase 12")
     # ---- 12. scan: fuse_layer_scan against the default passes --------------
@@ -2764,7 +2896,7 @@ def main():
 
     sv_cfg = BertConfig.tiny() if rehearsal else BertConfig.base()
     sv_s = 32 if rehearsal else 128
-    sv_clients, sv_total = (24, 64) if rehearsal else (64, 256)
+    sv_clients, sv_total = (24, 64) if rehearsal else (64, SERVE_REQUESTS)
     buckets = [1, 2, 4, 8, 16, 32, 64]
     sv_dir = ROOT / "build" / "chip_smoke" / "bert_batch"
     sv_name = export_bert_encoder(sv_cfg, sv_s, args.seed + 14, ab_place, [sv_dir])
@@ -3211,7 +3343,12 @@ def main():
     print("[result] repeated: " + json.dumps(repeated_stats, default=str))
 
     elapsed("phase 23")
-    # ---- 23. result ------------------------------------------------------
+    # ---- 23. collective: fleet, ZeRO-1 + autoshard, the model-axis mesh, the planner
+    path_launches["collective"], collective_stats = collective_phase(args.seed, rehearsal, smi)
+    print("[result] collective: " + json.dumps(collective_stats, default=str))
+
+    elapsed("phase 24")
+    # ---- 24. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -3263,6 +3400,7 @@ def main():
             "shape": list(main_row["shape"]), "dtype": dtype,
             "causal_launches": sum(c.get(name, 0) for c in causal_launches.values()),
             "seed_ptr": seed_ptr.get(name, []),
+            "half_heads": half_heads.get(name, []),
         })
     require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
             "the result line must list every kernel")
@@ -3510,7 +3648,7 @@ def registry_phase(seed, rehearsal, smi):
               f"card vs CPU max abs diff {alt_cpu:.3e} (tol 1e-3); X-Model ghost 404 NoSuchModel")
 
         # (b) the classes under contention: 32 bulk clients on alt, 8 gold on
-        # main, closed loops of 256 requests a class, run together, every
+        # main, closed loops of QOS_REQUESTS a class, run together, every
         # bucket they can fill dispatched once before (a first dispatch at a
         # new row count held the first replies ~1.6 s in a CPU rehearsal)
         for rows in (1, 2, 4, 8, 16, 32):
@@ -3529,7 +3667,7 @@ def registry_phase(seed, rehearsal, smi):
             go = time.time() + 10  # both loops start together, after the spawns
             with multiprocessing.get_context("spawn").Pool(len(classes)) as pool:
                 pending = {cls: pool.apply_async(class_loop, (
-                    reg.port, n, 256, bodies, headers, fetch, (1, s, cfg.hidden_size), go,
+                    reg.port, n, QOS_REQUESTS, bodies, headers, fetch, (1, s, cfg.hidden_size), go,
                     ramp_s)) for cls, (n, headers) in classes.items()}
                 return {cls: r.get(timeout=900) for cls, r in pending.items()}
 
@@ -3547,13 +3685,13 @@ def registry_phase(seed, rehearsal, smi):
         grants1 = registry.gate.snapshot()
         qos = {}
         for cls, (wall, lats, codes, sheds, whole) in loops.items():
-            require(codes == {200: 256} and whole == 256,
+            require(codes == {200: QOS_REQUESTS} and whole == QOS_REQUESTS,
                     f"[registry] (b) {cls}: replies {codes}, {whole} whole and finite")
-            qos[cls] = dict(requests_per_s=256 / wall, p50_ms=pctl(lats, 0.5),
+            qos[cls] = dict(requests_per_s=QOS_REQUESTS / wall, p50_ms=pctl(lats, 0.5),
                             p99_ms=pctl(lats, 0.99), max_ms=max(lats), sheds_retried=sheds,
                             grants=grants1[cls] - grants0[cls])
-            print(f"[registry] (b) {cls}: 256 requests from {classes[cls][0]} clients started over "
-                  f"1 s, in {wall:.2f} s: {256 / wall:.1f} requests/s, p50 "
+            print(f"[registry] (b) {cls}: {QOS_REQUESTS} requests from {classes[cls][0]} clients "
+                  f"started over 1 s, in {wall:.2f} s: {QOS_REQUESTS / wall:.1f} requests/s, p50 "
                   f"{qos[cls]['p50_ms']:.2f} ms, p99 {qos[cls]['p99_ms']:.2f} ms, slowest "
                   f"{qos[cls]['max_ms']:.2f} ms, {sheds} sheds retried, {qos[cls]['grants']} gate "
                   f"grants; card {smi}")
@@ -4037,7 +4175,7 @@ def fleet_phase(seed, rehearsal, smi):
         fleets.remove(fa)
 
         # (b) throughput by replica count: closed loops of 32 clients, 512
-        # requests (after 64 to warm each bucket), a 10 ms window, the clients
+        # FLEET_REQUESTS (after 32 to warm each bucket), a 10 ms window, the clients
         # in a process of their own
         tput = {}
         with multiprocessing.get_context("spawn").Pool(1) as pool:
@@ -4048,20 +4186,20 @@ def fleet_phase(seed, rehearsal, smi):
                 before = worker_views(fb)
                 runs = [pool.apply_async(class_loop, (
                     fb.router.port, 32, total, bodies, None, fetch, (1, s, cfg.hidden_size),
-                    time.time(), 0.0)).get(timeout=900) for total in (64, 512)]
+                    time.time(), 0.0)).get(timeout=900) for total in (32, FLEET_REQUESTS)]
                 after = worker_views(fb)
                 launches_since(before, after, f"(b) {n}", coalesced=True)
                 wall, lats, codes, sheds, whole = runs[1]
-                require(codes == {200: 512} and whole == 512,
+                require(codes == {200: FLEET_REQUESTS} and whole == FLEET_REQUESTS,
                         f"[fleet] (b) {n}: replies {codes}, {whole} whole and finite")
-                tput[n] = dict(requests_per_s=512 / wall, p50_ms=pctl(lats, 0.5),
+                tput[n] = dict(requests_per_s=FLEET_REQUESTS / wall, p50_ms=pctl(lats, 0.5),
                                p99_ms=pctl(lats, 0.99), sheds_retried=sheds,
                                batch_p50={i: c.get("serve_batch_size_p50")
                                           for i, (_, c) in after.items()},
                                pids=[r.pid for r in fb.supervisor.replicas])
                 tput[n]["gpu_apps"], tput[n]["memory_used"] = gpu_memory()
-                print(f"[fleet] (b) {n} replica(s): 512 requests from 32 clients in {wall:.2f} s: "
-                      f"{512 / wall:.1f} requests/s, p50 {tput[n]['p50_ms']:.2f} ms, p99 "
+                print(f"[fleet] (b) {n} replica(s): {FLEET_REQUESTS} requests from 32 clients in "
+                      f"{wall:.2f} s: {FLEET_REQUESTS / wall:.1f} requests/s, p50 {tput[n]['p50_ms']:.2f} ms, p99 "
                       f"{tput[n]['p99_ms']:.2f} ms, {sheds} sheds retried; each replica's "
                       f"serve_batch_size_p50 {tput[n]['batch_p50']}; workers {tput[n]['pids']}, "
                       f"nvidia-smi compute apps (pid, used_memory): {tput[n]['gpu_apps']}, "
@@ -5964,6 +6102,527 @@ def _mesh_phase(seed, rehearsal, smi):
     require(not failed, f"[mesh] gates failed: {failed}")
     stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
     print(f"[time] phase 21 took {stats['wall_s']} s; launches over the mesh path: "
+          f"{path_launches}")
+    return path_launches, stats
+
+
+COLLECTIVE_STEPS = 10  # BERT-base steps an arm in phase 23 (the p50 over the last 9)
+COLLECTIVE_WORLDS = (8, 16, 32)  # phase 23 (d): the planner's H100 worlds
+TP_STEPS = 3  # phase 23 (e): tp=2 steps on two processes sharing the card
+
+
+def collective_phase(seed, rehearsal, smi):
+    """Phase 23: fleet collective and placement on the card -> (launch
+    counts of the collective path, the phase's result dict). On phase 5's
+    BERT-base cell (fp32, b 8, s 128, dropout 0.1, Adam), COLLECTIVE_STEPS
+    steps from one state, the arms' steps interleaved, under a one-rank
+    NCCL process group (a file:// store, as phase 21): (a) the fleet path:
+    PaddleCloudRoleMaker over a one-trainer PADDLE_* env, fleet.init,
+    fleet.distributed_optimizer(Adam, DistributedStrategy()).minimize, then
+    plain Executor.run calls, which go through the strategy's mesh; (b) the
+    same with strategy.zero1 and PADDLE_TPU_AUTOSHARD=1 (the
+    shard_propagation pass in the pass set: another pass-cache signature);
+    (c) CompiledProgram over a DistributedStrategy(tp=1) mesh, built by the
+    model-axis code. Every loss, persistable and the seed counter bit-equal
+    to the plain walk; #1, #7 and #8 launched 12, 12 and 26 times a step,
+    and on the device in a profiled step. (d) the planner, device-free: the
+    Program planned for H100 nodes at COLLECTIVE_WORLDS devices in a
+    subprocess that creates no CUDA context, its plan table read back by
+    TrainSupervisor(plan_table=). (e) tp=2 on two processes sharing the
+    card over a gloo group (tp_worker), after (a)-(c): the losses and the
+    gathered persistables within 5b's card-vs-CPU gates of the one-device
+    walk, the replicated state bit-identical across the ranks, #1, #7 and
+    #8 launched 12, 12 and 26 times a step on each rank. Under
+    deterministic algorithms (warn_only), as phase 21."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(not rehearsal or deterministic, warn_only=True)
+    try:
+        return _collective_phase(seed, rehearsal, smi)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+
+
+# phase 23 (d)'s planner process: plans the BERT-base Program (or BERT-tiny
+# in a rehearsal) for H100 nodes at each world, writes the plan table, and
+# reports whether torch.cuda was ever initialized
+_PLANNER_CODE = """
+import json, sys, time
+import torch
+from paddle_tpu_torch.autoshard import Topology
+from paddle_tpu_torch.autoshard.__main__ import build_program, plan_table
+name, out, worlds = sys.argv[1], sys.argv[2], [int(w) for w in sys.argv[3].split(",")]
+t0 = time.perf_counter()
+program, feeds = build_program(name)
+t1 = time.perf_counter()
+table = plan_table(program, feeds, Topology(chips=max(worlds)), worlds, name)
+t2 = time.perf_counter()
+with open(out, "w") as f:
+    json.dump(table, f, indent=2)
+print(json.dumps({"build_s": round(t1 - t0, 3), "plan_s": round(t2 - t1, 3),
+                  "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def collective_cell(rehearsal):
+    """Phase 23's cell: (BertConfig, b, s, max_preds) of phase 5's BERT-base
+    (BERT-tiny in a rehearsal)."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    b, s, p = (2, 32, 5) if rehearsal else (8, 128, 20)
+    return (BertConfig.tiny() if rehearsal else BertConfig.base()), b, s, p
+
+
+def collective_program(fluid, cfg, b, s, p, seed, minimize_with=None):
+    """Phase 5's Program (main, startup, loss); `minimize_with` wraps the
+    Adam optimizer (fleet.distributed_optimizer with a strategy)."""
+    from paddle_tpu_torch.models.bert import build_bert_pretrain
+
+    main_p, startup_p = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup_p.random_seed = seed + 2
+    with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+        loss = build_bert_pretrain(cfg, b, s, mlm_only=True, max_preds=p)["loss"]
+        opt = fluid.optimizer.Adam(LR)
+        if minimize_with is not None:
+            opt = minimize_with(opt)
+        opt.minimize(loss)
+    return main_p, startup_p, loss
+
+
+def tp_worker(work, rank, seed, rehearsal):
+    """Phase 23 (e)'s rank `rank` of 2 (`chip_smoke.py --tp-worker DIR
+    RANK`), one of two processes sharing the card: joins a gloo group of 2
+    (a file:// store in DIR), waits for DIR/tp_go, runs phase 5's startup
+    on the card, then TP_STEPS steps of the cell through CompiledProgram
+    over a batch 1 x model 2 mesh (a DeviceMesh("cuda") over the gloo
+    group: the collectives take CUDA tensors), the whole batch fed to both
+    ranks. Gathers every persistable, hashes the replicated ones, and on
+    rank 0 runs the one-device walk from the same startup state. Writes
+    DIR/tp_r{RANK}.json."""
+    import datetime
+    import faulthandler
+    import hashlib
+
+    faulthandler.enable()  # a crash in a collective leaves its stack in the rank's log
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def say(what):
+        print(f"[tp rank {rank}] {time.perf_counter() - t_enter:.1f} s: {what}", flush=True)
+
+    t_enter = time.perf_counter()
+    import numpy as np
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.scope import full_value
+
+    work = Path(work)
+    cfg, b, s, p = collective_cell(rehearsal)
+    main_p, startup_p, loss = collective_program(fluid, cfg, b, s, p, seed)
+    rs = np.random.RandomState(seed)
+    feeds = [bert_pretrain_feed(np, rs, cfg, b, s, p) for _ in range(TP_STEPS)]
+    dist.init_process_group("gloo", init_method=f"file://{work / 'tp_store'}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    say("the gloo group is up; waiting for the go file")
+    t_wait = time.perf_counter()
+    while not (work / "tp_go").exists():
+        require(time.perf_counter() - t_wait < 600, "[tp worker] no go file in 600 s")
+        time.sleep(0.05)
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    if not rehearsal:
+        torch.cuda.set_device(0)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup_p, scope=scope)
+    say("startup ran")
+    names = sorted(v.name for v in main_p.list_vars() if v.persistable and scope.has(v.name))
+    state0 = {n: scope.get(n).detach().clone() for n in names} if rank == 0 else None
+    counter0 = exe._seed_counter
+    mesh = mesh_mod.build_mesh(batch=1, model=2, device_type="cpu" if rehearsal else "cuda")
+    compiled = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name)
+    compiled._mesh = mesh
+    say(f"mesh {dict(mesh.shape)} on {mesh.device_type}")
+
+    def run(exe_, prog, scope_):
+        losses, ms, per_step = [], [], []
+        for f in feeds:
+            before = kernels.launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            (lv,) = exe_.run(prog, feed=dict(f), fetch_list=[loss], scope=scope_,
+                             return_numpy=False)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(lv.detach().clone())
+            per_step.append({k: c - before[k] for k, c in kernels.launch_counts().items()})
+            say(f"step {len(ms)}: {ms[-1]:.1f} ms")
+        return losses, ms, per_step
+
+    kernels.reset_launch_counts()  # (e)'s run: the tp steps of this rank
+    losses, ms, per_step = run(exe, compiled, scope)
+    launches = kernels.launch_counts()
+    values = {n: scope.get(n) for n in names}
+    sharded = {n: [repr(pl) for pl in v.placements] + [list(v.to_local().shape)]
+               for n, v in values.items() if hasattr(v, "placements")}
+    # the replicated state's bytes, hashed: bit-identical across the group
+    hashes = {n: hashlib.sha256(v.detach().reshape(-1).cpu().view(torch.uint8).numpy()
+                                ).hexdigest()
+              for n, v in values.items() if n not in sharded}
+    gathered = {n: full_value(v) for n, v in values.items()}  # collectives for the shards
+    dist.barrier()
+    say("the state gathered")
+    report = dict(rank=rank, mesh=dict(mesh.shape), model_rank=mesh.local_rank("model"),
+                  device_type=mesh.device_type,
+                  losses=[float(x.reshape(-1)[0]) for x in losses], ms=ms, per_step=per_step,
+                  launches=launches, sharded=sharded, hashes=hashes,
+                  seed_counter=exe._seed_counter,
+                  placed_on=str(next(iter(gathered.values())).device))
+    dist.destroy_process_group()
+    if rank == 0:
+        # the one-device walk from the same startup state
+        exe0, scope0 = fluid.Executor(place), fluid.Scope()
+        exe0._seed_counter = counter0
+        for n, t in state0.items():
+            scope0.set(n, t)
+        plain, plain_ms, _ = run(exe0, main_p, scope0)
+        worst, worst_name, close, total = 0.0, None, 0, 0
+        for n in names:
+            d = (gathered[n].float() - scope0.get(n).float()).abs()
+            require(gathered[n].shape == scope0.get(n).shape, f"[tp worker] {n}: shape")
+            if float(d.max()) > worst:
+                worst, worst_name = float(d.max()), n
+            close += int((d <= CLOSE_ATOL).sum())
+            total += d.numel()
+        report.update(plain_losses=[float(x.reshape(-1)[0]) for x in plain], plain_ms=plain_ms,
+                      loss_rel=max(float((x - y).abs().max() / y.abs().max())
+                                   for x, y in zip(losses, plain)),
+                      worst_abs=worst, worst_name=worst_name,
+                      far_frac=1 - close / total, plain_seed_counter=exe0._seed_counter)
+    (work / f"tp_r{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def _collective_phase(seed, rehearsal, smi):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import passes
+    from paddle_tpu_torch.incubate.fleet.base.role_maker import PaddleCloudRoleMaker
+    from paddle_tpu_torch.incubate.fleet.collective import DistributedStrategy, fleet
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.parallel.api import DistributedStrategy as MeshStrategy
+    from paddle_tpu_torch.resilience.trainer_fleet import TrainSupervisor
+    from paddle_tpu_torch.scope import full_value
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "collective"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    # (d) starts first: its process imports torch and the port while the
+    # arms run here
+    table_path = work / "plans.json"
+    planner = subprocess.Popen(
+        [sys.executable, "-c", _PLANNER_CODE, "bert" if rehearsal else "bert-base",
+         str(table_path), ",".join(map(str, COLLECTIVE_WORLDS))],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    # (e)'s two ranks start too: they import, build the Program and join
+    # their gloo group, then wait for the go file, written after (a)-(c)
+    tp_procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-worker", str(work), str(r),
+         "--seed", str(seed)] + (["--cpu-rehearsal"] if rehearsal else []),
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=open(work / f"tp_r{r}.log", "w"), stderr=subprocess.STDOUT) for r in range(2)]
+    cfg, b, s, p = collective_cell(rehearsal)
+
+    def program(strategy=None):
+        """Phase 5's Program; minimized through the fleet with `strategy`."""
+        return collective_program(
+            fluid, cfg, b, s, p, seed,
+            None if strategy is None else lambda opt: fleet.distributed_optimizer(opt, strategy))
+
+    main_p, startup_p, loss = program()
+    rs = np.random.RandomState(seed)
+    feeds = [bert_pretrain_feed(np, rs, cfg, b, s, p) for _ in range(COLLECTIVE_STEPS)]
+    exe0, scope0 = fluid.Executor(place), fluid.Scope()
+    exe0.run(startup_p, scope=scope0)
+    names = sorted(v.name for v in main_p.list_vars() if v.persistable and scope0.has(v.name))
+    state0 = {n: scope0.get(n).detach().clone() for n in names}
+    counter0 = exe0._seed_counter
+    del scope0, exe0
+    zero = {n: 0 for n in kernels.LAUNCHES}
+    want = dict(zero, mha_short_fwd=cfg.num_layers, mha_short_bwd=cfg.num_layers,
+                layer_norm_bwd=2 * cfg.num_layers + 2)
+    stats = {"card": smi, "cell": f"BERT-base fp32 b {b} s {s} max_preds {p}, Adam({LR}), "
+             f"dropout {cfg.hidden_dropout}"}
+    gates = {}
+    env_keys = ("PADDLE_TRAINER_ID", "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ENDPOINTS",
+                "TRAINING_ROLE", "PADDLE_TPU_AUTOSHARD")
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    backend = "gloo" if rehearsal else "nccl"
+    try:
+        os.environ.update(PADDLE_TRAINER_ID="0", PADDLE_TRAINERS_NUM="1",
+                          PADDLE_TRAINER_ENDPOINTS="127.0.0.1:6170", TRAINING_ROLE="TRAINER")
+        os.environ.pop("PADDLE_TPU_AUTOSHARD", None)
+        role = PaddleCloudRoleMaker()
+        fleet.init(role)
+        gates["(a) the role maker reads the one-trainer env"] = (
+            role.worker_num() == 1 and role.worker_index() == 0 and fleet.is_first_worker())
+        strat_a = DistributedStrategy()
+        strat_b = DistributedStrategy()
+        strat_b.zero1 = True
+        prog_a = program(strat_a)[0]
+        prog_b = program(strat_b)[0]
+        gates["(a) minimize recorded the strategy"] = (prog_a._fleet_strategy is strat_a
+                                                       and prog_b._fleet_strategy is strat_b)
+        t0 = time.perf_counter()
+        dist.init_process_group(backend, init_method=f"file://{work / 'store'}", world_size=1,
+                                rank=0)
+        stats["group_init_ms"] = round((time.perf_counter() - t0) * 1e3, 1)
+        tp1 = MeshStrategy()
+        tp1.tp = 1
+        prog_c = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name)
+        prog_c._mesh = tp1.build_mesh()
+
+        def arm(prog, autoshard=False):
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe._seed_counter = counter0
+            for n, t in state0.items():
+                scope.set(n, t.clone())
+            return dict(exe=exe, scope=scope, prog=prog, autoshard=autoshard, fetched=[],
+                        ms=[], per_step=[])
+
+        def step(a, f):
+            if a["autoshard"]:
+                os.environ["PADDLE_TPU_AUTOSHARD"] = "1"
+            try:
+                before = kernels.launch_counts()
+                sync()
+                t0 = time.perf_counter()
+                (lv,) = a["exe"].run(a["prog"], feed=dict(f), fetch_list=[loss],
+                                     scope=a["scope"], return_numpy=False)
+                sync()
+                a["ms"].append((time.perf_counter() - t0) * 1e3)
+            finally:
+                os.environ.pop("PADDLE_TPU_AUTOSHARD", None)
+            a["fetched"].append(lv.detach().clone())
+            a["per_step"].append({k: c - before[k] for k, c in kernels.launch_counts().items()})
+
+        labels = {"plain": "Executor.run", "a": "the fleet path",
+                  "b": "the fleet path, zero1 and PADDLE_TPU_AUTOSHARD=1",
+                  "c": "CompiledProgram over DistributedStrategy(tp=1)"}
+        arms = {"plain": arm(main_p), "a": arm(prog_a), "b": arm(prog_b, autoshard=True),
+                "c": arm(prog_c)}
+        kernels.reset_launch_counts()  # the collective path's run: arms (a)-(c)
+        for f in feeds:
+            for a in arms.values():
+                step(a, f)
+        path_launches = {k: sum(d[k] for tag in ("a", "b", "c") for d in arms[tag]["per_step"])
+                         for k in zero}
+        for tag, a in arms.items():
+            a["p50"] = statistics.median(a["ms"][1:])
+            print(f"[collective] {labels[tag]}: losses "
+                  f"{[float(x.reshape(-1)[0]) for x in a['fetched']]}; step p50 "
+                  f"{a['p50']:.2f} ms over steps 2-{COLLECTIVE_STEPS} (first {a['ms'][0]:.2f} "
+                  f"ms, the passes' run); card {smi}")
+        fleet_cp = prog_a.__dict__.get("_fleet_compiled", (None,))[-1]
+        gates["(a) Executor.run went through the fleet's CompiledProgram over a DeviceMesh"] = (
+            fleet_cp is not None and fleet_cp._get_mesh().device_mesh is not None
+            and dict(fleet_cp._get_mesh().shape) == {"batch": 1, "model": 1, "pipe": 1})
+        gates["(c) the tp=1 mesh is 1x1x1 over the group"] = (
+            prog_c._get_mesh().device_mesh is not None
+            and dict(prog_c._get_mesh().shape) == {"batch": 1, "model": 1, "pipe": 1})
+        ref = arms["plain"]
+        for tag in ("a", "b", "c"):
+            a = arms[tag]
+            gates[f"({tag}) every loss, persistable and the seed counter bit-equal to "
+                  f"Executor.run"] = (
+                all(torch.equal(x, y) for x, y in zip(a["fetched"], ref["fetched"]))
+                and all(torch.equal(full_value(a["scope"].get(n)), ref["scope"].get(n))
+                        for n in names)
+                and a["exe"]._seed_counter == ref["exe"]._seed_counter)
+        os.environ["PADDLE_TPU_AUTOSHARD"] = "1"
+        sig_b = passes.cache_signature(strat_b.build_strategy)
+        os.environ.pop("PADDLE_TPU_AUTOSHARD")
+        sig_a = passes.cache_signature(strat_a.build_strategy)
+        gates["(b) the pass-cache signature differs from (a)'s"] = (
+            sig_a != sig_b and "shard_propagation" in sig_b)
+        stats["signatures"] = {"a": sig_a, "b": sig_b}
+        if not rehearsal:
+            gates["(a)-(c) #1, #7 and #8 launched 12, 12 and 26 times every step"] = all(
+                c == want for tag in ("a", "b", "c") for c in arms[tag]["per_step"])
+        stats["arms"] = {tag: dict(p50_ms=round(a["p50"], 3), ms=[round(x, 3) for x in a["ms"]])
+                         for tag, a in arms.items()}
+        print(f"[collective] step p50: Executor.run {arms['plain']['p50']:.2f} ms, the fleet "
+              f"path {arms['a']['p50']:.2f} ms, zero1 + autoshard {arms['b']['p50']:.2f} ms, "
+              f"tp=1 mesh {arms['c']['p50']:.2f} ms; card {smi}")
+
+        # a profiled fleet step: its device kernels and its collectives
+        a = arms["a"]
+
+        def fleet_step():
+            a["exe"].run(prog_a, feed=dict(feeds[0]), fetch_list=[loss], scope=a["scope"],
+                         return_numpy=False)
+
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fleet_step()
+            sync()
+        collectives = {e.key: e.count for e in prof.key_averages()
+                       if "all_reduce" in e.key or "allreduce" in e.key}
+        gates[f"(a) the fleet step's all-reduces ran through the {backend} group"] = any(
+            backend in k.lower() for k in collectives)
+        stats["collectives"] = collectives
+        print(f"[collective] one fleet step's collectives (torch.profiler host events): "
+              f"{collectives}")
+        if not rehearsal:
+            per_call, sessions = kernels.device_kernels(fleet_step, calls=1)
+            ours = {k: sum(c for n, c in per_call.items() if k in n)
+                    for k in ("mha_short_fwd_kernel", "short_bwd_dkv_kernel",
+                              "short_bwd_dq_kernel", "layer_norm_bwd_")}
+            gates["(a) a profiled fleet step: 12 #1, 12 of each of #7's launches, 26 #8"] = (
+                ours == {"mha_short_fwd_kernel": cfg.num_layers,
+                         "short_bwd_dkv_kernel": cfg.num_layers,
+                         "short_bwd_dq_kernel": cfg.num_layers,
+                         "layer_norm_bwd_": 2 * cfg.num_layers + 2})
+            stats["device_kernels"] = dict(ours=ours, sessions=sessions)
+            print(f"[collective] one fleet step's kernels (torch.profiler, {sessions} "
+                  f"sessions): {ours}")
+        del arms, a
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        (work / "tp_go").write_text("go")
+        t_tp = time.perf_counter()
+        for proc in tp_procs:
+            proc.wait(timeout=600)
+        stats["tp_wall_s"] = round(time.perf_counter() - t_tp, 1)
+    finally:
+        for proc in tp_procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        mesh_mod.set_current_mesh(None)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # ---- (e) tp=2: two processes sharing the card over a gloo group ----
+    logs = [(work / f"tp_r{r}.log").read_text() for r in range(2)]
+    require(all(proc.returncode == 0 for proc in tp_procs),
+            "[collective] (e) a tp rank failed: "
+            + " | ".join(f"rank {r} exit {proc.returncode}: {logs[r][-3000:]}"
+                         for r, proc in enumerate(tp_procs)))
+    tp = [json.loads((work / f"tp_r{r}.json").read_text()) for r in range(2)]
+    r0 = tp[0]
+    want_tp = dict(zero, mha_short_fwd=cfg.num_layers, mha_short_bwd=cfg.num_layers,
+                   layer_norm_bwd=2 * cfg.num_layers + 2)
+    gates["(e) a batch 1 x model 2 mesh, rank r at model coordinate r, the state on the "
+          "card"] = all(
+        t["mesh"] == {"batch": 1, "model": 2, "pipe": 1} and t["model_rank"] == t["rank"]
+        and (rehearsal or (t["device_type"] == "cuda" and t["placed_on"].startswith("cuda")))
+        for t in tp)
+    gates["(e) the Megatron weights and their moments are Shard(d) on model, the same on "
+          "both ranks"] = (len(r0["sharded"]) >= 6 * cfg.num_layers
+                           and sorted(r0["sharded"]) == sorted(tp[1]["sharded"]))
+    gates["(e) the replicated state bit-identical across the model group"] = (
+        len(r0["hashes"]) > 0 and r0["hashes"] == tp[1]["hashes"])
+    gates["(e) both ranks fetched the same losses"] = r0["losses"] == tp[1]["losses"]
+    gates[f"(e) the losses within {LOSS_RTOL} of the one-device walk, every persistable "
+          f"within {2 * LR * TP_STEPS}, all but {CLOSE_FRAC} of the elements within "
+          f"{CLOSE_ATOL}"] = (r0["loss_rel"] <= LOSS_RTOL and r0["worst_abs"] <= 2 * LR * TP_STEPS
+                              and r0["far_frac"] <= CLOSE_FRAC)
+    gates["(e) the seed counter as the one-device walk's"] = (
+        r0["seed_counter"] == r0["plain_seed_counter"] == tp[1]["seed_counter"])
+    if not rehearsal:
+        gates["(e) #1, #7 and #8 launched 12, 12 and 26 times every step on each rank"] = all(
+            c == want_tp for t in tp for c in t["per_step"])
+    for k in zero:
+        path_launches[k] += sum(t["launches"][k] for t in tp)
+    tp_p50 = [statistics.median(t["ms"][1:]) for t in tp]
+    plain_p50 = statistics.median(r0["plain_ms"][1:])
+    stats["e"] = dict(losses=r0["losses"], plain_losses=r0["plain_losses"],
+                      loss_rel=r0["loss_rel"], worst_abs=r0["worst_abs"],
+                      worst_name=r0["worst_name"], far_frac=r0["far_frac"],
+                      sharded_vars=len(r0["sharded"]), replicated_vars=len(r0["hashes"]),
+                      launches=[t["launches"] for t in tp],
+                      ms=[[round(x, 3) for x in t["ms"]] for t in tp],
+                      plain_ms=[round(x, 3) for x in r0["plain_ms"]],
+                      p50_ms=[round(x, 3) for x in tp_p50], plain_p50_ms=round(plain_p50, 3))
+    print(f"[collective] (e) tp=2 on two processes sharing the card over gloo ({TP_STEPS} "
+          f"steps): losses {r0['losses']} against the one-device walk's {r0['plain_losses']} "
+          f"(max rel {r0['loss_rel']:.3e}); persistables max abs diff {r0['worst_abs']:.3e} "
+          f"({r0['worst_name']}), {r0['far_frac']:.3e} of the elements beyond {CLOSE_ATOL}; "
+          f"{len(r0['sharded'])} state vars sharded on model, {len(r0['hashes'])} replicated "
+          f"and bit-identical on both ranks; launches {[t['launches'] for t in tp]}")
+    print(f"[collective] (e) step p50 over steps 2-{TP_STEPS}: rank 0 {tp_p50[0]:.2f} ms, rank "
+          f"1 {tp_p50[1]:.2f} ms (both ranks on one card, the collectives staged through the "
+          f"host by gloo); the one-device walk {plain_p50:.2f} ms; {stats['tp_wall_s']} s from "
+          f"go to both exits; card {smi}")
+
+    # ---- (d) the planner, device-free, and the supervisor reading its table ----
+    try:
+        out, err = planner.communicate(timeout=300)
+    finally:
+        if planner.poll() is None:
+            planner.kill()
+            planner.wait()
+    require(planner.returncode == 0, f"[collective] (d) the planner failed: {err[-3000:]}")
+    report = json.loads(out.strip().splitlines()[-1])
+    table = json.loads(table_path.read_text())
+    gates["(d) the planner created no CUDA context"] = report["cuda_initialized"] is False
+    plans = {int(w): pl for w, pl in table["plans"].items()}
+    gates["(d) a plan a world"] = sorted(plans) == sorted(COLLECTIVE_WORLDS)
+    for w, pl in sorted(plans.items()):
+        c = pl["cost"]
+        print(f"[collective] (d) world {w} on H100 nodes ({table['topology']}): mesh "
+              f"{pl['mesh']} ({pl['config']}), state {c['hbm_state_mb_per_device']} MB a "
+              f"device of {c['hbm_state_mb_replicated']} MB, weighted collective bytes "
+              f"{c['collective_bytes_estimate']}, feasible {c['feasible']}")
+    sup = TrainSupervisor(["true"], nproc_per_node=1, elastic_world=max(COLLECTIVE_WORLDS),
+                          allow_shrink=True, plan_table=str(table_path))
+    try:
+        w, chosen = sup._next_world()
+    finally:
+        sup.close()
+    gates["(d) TrainSupervisor read the table back"] = (
+        chosen is not None and w in plans and chosen["config"] == plans[w]["config"])
+    stats["d"] = dict(report, worlds={w: dict(mesh=pl["mesh"], config=pl["config"],
+                                              **pl["cost"]) for w, pl in plans.items()},
+                      supervisor_pick=w)
+    print(f"[collective] (d) planner process: build {report['build_s']} s, plan "
+          f"{report['plan_s']} s, CUDA initialized {report['cuda_initialized']}; "
+          f"TrainSupervisor's shrink pick from the table: world {w} ({chosen['config']})")
+    shutil.rmtree(work, ignore_errors=True)
+    stats["gates"] = gates
+    failed = [g for g, ok in gates.items() if not ok]
+    print(f"[collective] gates: {gates}")
+    require(not failed, f"[collective] gates failed: {failed}")
+    stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[time] phase 23 took {stats['wall_s']} s; launches over the collective path: "
           f"{path_launches}")
     return path_launches, stats
 

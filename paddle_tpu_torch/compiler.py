@@ -25,15 +25,25 @@ With `zero1=True` and a batch axis larger than 1, the accumulators that
 sgd, momentum, adam, adamw, fused or not; Lamb's stay replicated) live in
 the scope as DTensors sharded on `batch`; their update reduce-scatters
 the grad's rows, updates the rank's slice and all-gathers the
-parameter's new rows.
+parameter's new rows. With `BuildStrategy.auto_shard` (or
+PADDLE_TPU_AUTOSHARD=1) the shard_propagation pass's planned assignment
+is merged over that flag's.
+
+A `model` axis larger than 1 (a mesh built by
+`DistributedStrategy(tp=m).build_mesh()` or `make_mesh({"tp": m})`)
+runs the Program's `shard_parameter` annotations as Megatron tensor
+parallelism (parallel/tensor_parallel.py): the ranks of one model group
+hold shards of the annotated parameters, walk the same feed rows, and
+the plan adds the model group's collectives. The feeds are split over
+`batch` alone.
 
 Without a process group, with `places` None or 1, the mesh is the 1x1x1
 mesh without one, and a run is the plain `Executor.run` walk, bit for
 bit. `Executor.run_repeated` of a CompiledProgram (`_run_repeated`) runs
 the mesh step's static step: on the card one captured CUDA graph, the
-plan's collectives inside it, replayed N times. A `model` or `pipe` axis
-larger than 1, `with_pipeline` and `auto_shard` raise
-NotImplementedError naming the ROADMAP Queue 1 item that brings them.
+plan's collectives inside it, replayed N times. A `pipe` axis larger
+than 1 and `with_pipeline` raise NotImplementedError naming ROADMAP
+Queue 1 item 9c.
 """
 
 from __future__ import annotations
@@ -66,9 +76,11 @@ class BuildStrategy:
     CoeffNumDevice), fuse_elewise_add_act_ops, fuse_all_reduce_ops (the
     mesh step buckets its all-reduces by dtype), num_trainers /
     trainer_id (the process group describes the job) and sync_batch_norm
-    (the mesh step's batch norms sum over the batch group). `auto_shard`
-    is False; True raises (the autoshard planner is ROADMAP Queue 1 item
-    9b)."""
+    (the mesh step's batch norms sum over the batch group).
+
+      * auto_shard (default False, opt-in; also PADDLE_TPU_AUTOSHARD=1,
+        which wins): passes/shard_propagation.py, on a CompiledProgram's
+        mesh run over more than one device"""
 
     class ReduceStrategy:
         AllReduce = 0
@@ -96,17 +108,7 @@ class BuildStrategy:
         self.num_trainers = 1
         self.trainer_id = 0
         self.sync_batch_norm = False
-
-    @property
-    def auto_shard(self):
-        return False
-
-    @auto_shard.setter
-    def auto_shard(self, value):
-        if value:
-            raise NotImplementedError(
-                "BuildStrategy.auto_shard: the shard_propagation pass and the "
-                "autoshard planner are not ported yet (ROADMAP Queue 1 item 9b)")
+        self.auto_shard = False
 
 
 class ExecutionStrategy:
@@ -206,10 +208,11 @@ class CompiledProgram:
         """The post-pass Program and its mesh plan for this feed / fetch
         set, from the Executor's pass cache (its key carries the mesh's
         signature and the zero1 flag, as the JAX key does)."""
+        from .executor import feed_signature
         from .framework import Variable
 
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in (fetch_list or [])]
-        return executor._prepare_mesh(self._program, self._get_mesh(), list(feed or {}),
-                                      fetch_names, scope, build_strategy=self._build_strategy,
-                                      zero1=self._zero1)
+        return executor._prepare_mesh(self._program, self._get_mesh(),
+                                      feed_signature(self._program, feed), fetch_names, scope,
+                                      build_strategy=self._build_strategy, zero1=self._zero1)

@@ -62,7 +62,20 @@ PADDLE_TPU_PROGRESS_FILE is set) and calls the attached CheckpointManager's
 A `compiler.CompiledProgram` goes to its `_run`, which walks the Program
 through the same `_run_walk` with a `parallel.step.MeshPlan`: the grad
 averaging over the mesh's batch group, the fetch rule, the ZeRO-1
-shards, and the batch group that batch_norm and dropout read.
+shards, the batch group that batch_norm and dropout read, and on a mesh
+whose model axis is larger than 1 the tensor-parallel layout plan
+(parallel/tensor_parallel.py). Each rank feeds its own rows: the ranks of
+one model group (one batch coordinate) feed the same rows, the batch
+group's shard. A Program minimized through
+`incubate.fleet.collective.fleet.distributed_optimizer` carries its
+DistributedStrategy, and `run` sends it through a cached
+CompiledProgram over the strategy's mesh whenever a torch.distributed
+process group is up (the JAX executor's fleet path, executor.py:866-876
+there); without one it is the plain walk. The mesh run sets the gauges
+`sharding_recompiles` (a Program planned again under another mesh shape
+or spec assignment) and `collective_bytes_estimate` (each state var's
+bytes once for the batch group's grad all-reduce of a training run, and
+once more when it is sharded: an estimate, not a measurement).
 
 `run_repeated` runs N steps of one feed as a static step
 (static_step.py): on the card one captured CUDA graph replayed N times,
@@ -93,6 +106,7 @@ from .framework import (
     Parameter,
     Program,
     Variable,
+    convert_dtype,
     core_op_role,
     default_main_program,
     op_reads,
@@ -173,8 +187,8 @@ def _run_training(ctx, block, plan=None):
     parameters and float feeds (those whose grads `__auto_grad__` pulls
     through the graph; the others record none); Backward / Optimize ops run
     under no_grad. Under a mesh `plan` the param grads are averaged over
-    the batch group where the plan puts it, and optimizer ops go through
-    its ZeRO-1 rows."""
+    the batch group where the plan puts it, every op runs under its
+    tensor-parallel rule, and optimizer ops go through its ZeRO-1 rows."""
     for name, t in list(ctx.values.items()):
         v = block._find_var_recursive(name)
         if v is not None and t.is_floating_point() and (
@@ -190,6 +204,8 @@ def _run_training(ctx, block, plan=None):
                     plan.lower_optimizer(ctx, op, lower_op)
                 else:
                     lower_op(ctx, op)
+        elif plan is not None:
+            plan.lower_forward(ctx, op, users)
         else:
             lower_forward_op(ctx, op, users)
     if plan is not None:
@@ -331,13 +347,20 @@ def _lower_step(ctx, program, block, feed_names, fetch_names, plan, training):
     Leaves the new values in `ctx.values` and returns the fetches,
     detached, before a mesh plan's fetch rule."""
     if training and getattr(program, "_recompute_loss", None):
+        if plan is not None and plan.tp is not None:
+            raise NotImplementedError(
+                "RecomputeOptimizer over a model axis larger than 1 is not ported yet "
+                "(ROADMAP Queue 1 item 9c)")
         return _run_recompute(ctx, program, block, list(feed_names), fetch_names, plan)
     if training:
         _run_training(ctx, block, plan)
     else:
         with torch.inference_mode():
             for op in block.ops:
-                lower_op(ctx, op)
+                if plan is not None:
+                    plan.lower_plain(ctx, op)
+                else:
+                    lower_op(ctx, op)
     return [ctx.get(n).detach() for n in fetch_names]
 
 
@@ -350,6 +373,50 @@ def _state_written(block):
             if v is not None and v.persistable:
                 written.setdefault(n, None)
     return list(written)
+
+
+def feed_signature(program, feed):
+    """(name, shape, dtype) of each fed value, by name; the dtype is the
+    Program's declared one where it declares the name."""
+    block = program.global_block()
+    out = []
+    for name in sorted(feed or {}):
+        value = feed[name]
+        v = block._find_var_recursive(name)
+        dtype = v.dtype if v is not None and v.dtype is not None else (
+            getattr(value, "dtype", None) or np.asarray(value).dtype)
+        shape = tuple(value.shape) if hasattr(value, "shape") else np.shape(value)
+        out.append((name, tuple(int(d) for d in shape), convert_dtype(dtype)))
+    return tuple(out)
+
+
+def _fleet_compiled(program):
+    """The cached CompiledProgram a fleet-minimized Program runs through
+    when a process group is up (None otherwise): data parallel over
+    `strategy.build_mesh()`, ZeRO-1 as `strategy.zero1` says, the
+    strategy's build_strategy; rebuilt when the strategy's axes or zero1
+    flag or the default process group change."""
+    strategy = getattr(program, "_fleet_strategy", None)
+    if strategy is None:
+        return None
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from .compiler import CompiledProgram
+
+    # the group itself, compared by identity: the entry holds it, so a new
+    # group after destroy_process_group never passes for the old one
+    group = dist.group.WORLD
+    key = (bool(getattr(strategy, "zero1", False)), strategy.dp, strategy.tp, strategy.sp,
+           strategy.pp)
+    cached = program.__dict__.get("_fleet_compiled")
+    if cached is None or cached[0] is not group or cached[1] != key:
+        cp = CompiledProgram(program, getattr(strategy, "build_strategy", None))
+        cp.with_data_parallel(zero1=key[0])
+        cp._mesh = strategy.build_mesh()
+        cached = program._fleet_compiled = (group, key, cp)
+    return cached[2]
 
 
 class Executor:
@@ -381,18 +448,24 @@ class Executor:
         # scope ref, StaticStep), in order of use
         self._static_steps = OrderedDict()
         self.last_static_step = None
+        # the mesh signature each Program was last planned under
+        # (sharding_recompiles)
+        self._sharding_sigs = {}
 
     def _passed_program(self, program, feed_names, fetch_names, scope,
-                        build_strategy=None, mesh_key=(), use_cache=True):
+                        build_strategy=None, mesh_key=(), use_cache=True, mesh=None,
+                        feed_sig=None):
         """The program after the enabled passes, from the cache when this
-        Program, feed / fetch names, scope, pass set and `mesh_key` (a
-        CompiledProgram's mesh signature and zero1 flag) were seen and the
-        scope still holds the values the passes read. `use_cache=False`
-        runs the passes and keeps nothing."""
+        Program, feed / fetch names, scope, pass set, feed signature and
+        `mesh_key` (a CompiledProgram's mesh signature and zero1 flag) were
+        seen and the scope still holds the values the passes read.
+        `use_cache=False` runs the passes and keeps nothing. `mesh` and
+        `feed_sig` ((name, global shape, dtype) triples) go to the passes,
+        for shard_propagation's planner."""
         key = (id(program), program._version, len(program.global_block().ops),
                tuple(sorted(feed_names)), tuple(fetch_names), id(scope),
                getattr(program, "_amp_dtype", None), cache_signature(build_strategy),
-               mesh_key)
+               feed_sig, mesh_key)
         hit = self._pass_cache.pop(key, None) if use_cache else None
         # the entry holds weak references: an id is only reused by a new
         # object after the old one died
@@ -405,7 +478,7 @@ class Executor:
         t0 = time.perf_counter()
         passed, _, stats = apply_program_passes(
             program, tuple(sorted(feed_names)), tuple(fetch_names),
-            build_strategy=build_strategy, scope=scope)
+            build_strategy=build_strategy, scope=scope, mesh=mesh, feed_sig=feed_sig)
         if stats is not None:
             stats["ms"] = (time.perf_counter() - t0) * 1e3
         self.last_pass_stats = stats
@@ -416,24 +489,70 @@ class Executor:
                 self._pass_cache.popitem(last=False)
         return passed
 
-    def _prepare_mesh(self, program, mesh, feed_names, fetch_names, scope,
+    def _prepare_mesh(self, program, mesh, feed_sig, fetch_names, scope,
                       build_strategy=None, zero1=False):
         """A CompiledProgram's post-pass Program and its MeshPlan
         (parallel/step.py), the plan kept on the post-pass Program per
-        mesh signature, zero1 flag and fetch names."""
+        mesh signature, zero1 flag and fetch names. `feed_sig`: this rank's
+        (name, shape, dtype) feed triples; the passes see the global batch
+        (dim 0 times the batch axis), as the JAX executor's do
+        (executor.py:657 there). The shard_propagation pass's planned specs
+        (`_autoshard_specs`, autoshard on) are merged over the zero1 flag's
+        assignment (executor.py:733-743 in the JAX package)."""
         from .parallel.mesh import mesh_signature
         from .parallel.step import MeshPlan
 
+        batch = int(dict(mesh.shape).get("batch", 1))
+        feed_sig = tuple(sorted(
+            (n, (tuple(shape[:1]) and (shape[0] * batch,)) + tuple(shape[1:]), dt)
+            for n, shape, dt in feed_sig))
         sig = (mesh_signature(mesh, program._sharding_specs), bool(zero1))
-        passed = self._passed_program(program, feed_names, fetch_names, scope,
-                                      build_strategy, mesh_key=sig)
+        passed = self._passed_program(program, [n for n, _, _ in feed_sig], fetch_names,
+                                      scope, build_strategy, mesh_key=sig, mesh=mesh,
+                                      feed_sig=feed_sig)
         plans = passed.__dict__.setdefault("_mesh_plans", {})
         key = (sig, id(mesh.device_mesh), passed._version, len(passed.global_block().ops),
                tuple(fetch_names))
         plan = plans.get(key)
         if plan is None:
-            plan = plans[key] = MeshPlan(mesh, passed, fetch_names, zero1)
+            auto = dict(getattr(passed, "_autoshard_specs", None) or {})
+            plan = plans[key] = MeshPlan(mesh, passed, fetch_names, zero1, specs=auto)
+            self._mesh_gauges(program, mesh, plan, auto, scope)
         return plan
+
+    def _mesh_gauges(self, program, mesh, plan, auto_specs, scope):
+        """`sharding_recompiles`: bumped when a Program is planned under
+        another (mesh shape, spec assignment) than the last time;
+        `collective_bytes_estimate`: each state var's bytes once for the
+        batch group's grad all-reduce of a training step, once more when
+        it is sharded (an estimate for dashboards, not a measurement)."""
+        from . import profiler
+        from .parallel.mesh import P, mesh_signature
+
+        specs = dict(program._sharding_specs or {})
+        specs.update(auto_specs)
+        specs.update({n: P("batch") for n in plan.zero1})
+        sig = mesh_signature(mesh, specs)
+        prev = self._sharding_sigs.get(id(program))
+        if prev is not None and prev != sig:
+            profiler.bump_counter("sharding_recompiles")
+        self._sharding_sigs[id(program)] = sig
+        block = plan.program.global_block()
+        training = not _is_inference_program(plan.program)
+        est = 0
+        for n in sorted(set(_state_written(block)) | self._state_read(block, ())):
+            live = scope.get(n) if scope.has(n) else None
+            v = block._find_var_recursive(n)
+            numel = (live.numel() if isinstance(live, torch.Tensor) else
+                     int(np.prod(v.shape)) if v is not None and v.shape
+                     and all(isinstance(d, int) and d > 0 for d in v.shape) else 0)
+            item = TORCH_DTYPE(v.dtype).itemsize if v is not None else 4
+            nbytes = numel * item
+            if mesh.shape["batch"] > 1 and training:
+                est += nbytes
+            if plan.is_sharded(n):
+                est += nbytes
+        profiler.set_counter("collective_bytes_estimate", est)
 
     @staticmethod
     def _state_read(block, feed_names):
@@ -468,6 +587,9 @@ class Executor:
         if isinstance(program, CompiledProgram):
             return program._run(self, feed, fetch_list, scope, return_numpy)
         program = program or default_main_program()
+        fleet = _fleet_compiled(program)
+        if fleet is not None:
+            return fleet._run(self, feed, fetch_list, scope, return_numpy)
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
@@ -517,7 +639,7 @@ class Executor:
             # a DTensor (a ZeRO-1 shard of a mesh run) as this step lays it
             # out: its rows under a ZeRO-1 plan, else whole; the write-back
             # stores a ZeRO-1 accumulator as a DTensor again
-            sharded = plan is not None and n in plan.zero1
+            sharded = plan is not None and plan.is_sharded(n)
             val = plan.local_state(n, val) if plan is not None else full_value(val)
             if not isinstance(val, torch.Tensor) or val.device != self.device:
                 val = as_tensor(val, block.var(n).dtype, self.device)
@@ -596,8 +718,9 @@ class Executor:
         Raises ValueError for `steps` < 1, RuntimeError under
         PADDLE_TPU_CHECK_NAN_INF=1, for a persistable without a value
         (run the startup program first), for a Program that draws from a
-        torch.Generator, and on the card for a step the capture refuses.
-        A CompiledProgram runs over its mesh (`_run_repeated`)."""
+        torch.Generator, and on the card for a step the capture refuses;
+        TypeError for a Program minimized through the fleet (as the JAX
+        one). A CompiledProgram runs over its mesh (`_run_repeated`)."""
         from .compiler import CompiledProgram
 
         if steps < 1:
@@ -609,6 +732,9 @@ class Executor:
         program = program or default_main_program()
         if isinstance(program, CompiledProgram):
             return program._run_repeated(self, feed, fetch_list, steps, scope, return_numpy)
+        if getattr(program, "_fleet_strategy", None) is not None:
+            raise TypeError("run_repeated does not route the fleet-collective mesh path; "
+                            "run() dispatches fleet programs over the strategy mesh")
         fetch_names = [
             v.name if isinstance(v, Variable) else str(v) for v in (fetch_list or [])
         ]
@@ -626,6 +752,10 @@ class Executor:
         feed = feed or {}
         user_program = program
         if plan is not None:
+            if plan.tp is not None:
+                raise NotImplementedError(
+                    "run_repeated over a model axis larger than 1 is not ported yet "
+                    "(ROADMAP Queue 1 item 9c): use run()")
             program = plan.program
         else:
             program = self._passed_program(program, feed, fetch_names, scope,

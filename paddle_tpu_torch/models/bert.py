@@ -16,8 +16,9 @@ encoder layer in a `recompute_scope(i)`, for optimizer.RecomputeOptimizer;
 pipeline stages raise (ROADMAP Queue 1, item 9).
 
 The tensor-parallel PartitionSpec annotations of the JAX model are
-recorded on the Program (`_sharding_specs`, as tuples of axis names) and
-read by nothing yet: sharding is a later slice."""
+recorded on the Program (`_sharding_specs`, as tuples of axis names): on a
+mesh whose `model` axis is larger than 1 they run as Megatron tensor
+parallelism (parallel/tensor_parallel.py)."""
 
 from __future__ import annotations
 

@@ -14,10 +14,14 @@ from the threefry key of the op's output name, as the JAX op does
 drop the same pairs. In a static step (Executor.run_repeated) the seed
 is a device word of the step's seed table (`LoweringContext.
 attention_seed`), which the kernels read through a pointer, so each
-replay of the captured step draws its own mask. On a mesh, rank r's
-batch rows are rows of the global batch: the kernels hash
-(b * heads + h) * 0xC2B2AE35 + seed in uint32, so shifting the seed by
-r * (local batch * heads) * 0xC2B2AE35 draws the global mask's rows.
+replay of the captured step draws its own mask. On a mesh the kernels
+hash global (batch, head) indices, (b * H + h) * 0xC2B2AE35 + seed in
+uint32, H the global head count: rank r of the batch group holds rows of
+the global batch, so the seed shifts by r * (local batch * H) *
+0xC2B2AE35; a rank of a model group holds heads [h0, h0 + local heads)
+of H (`LoweringContext.head_shard`), which the kernels take as
+`heads_global` / `head0`, since the offset of a local (batch, head)
+index from its global one depends on the batch row.
 """
 
 from __future__ import annotations
@@ -35,22 +39,24 @@ def _kernel_pair_fn(fwd, bwd, name):
 
     class _Attention(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
+        def forward(ctx, q, k, v, bias, causal, sm_scale, dropout, seed, layout,
+                    heads_global=None, head0=0):
             out, lse = fwd(q, k, v, bias=bias, causal=causal, sm_scale=sm_scale,
-                           dropout=dropout, seed=seed, layout=layout)
+                           dropout=dropout, seed=seed, layout=layout,
+                           heads_global=heads_global, head0=head0)
             ctx.save_for_backward(q, k, v, bias, out, lse)
-            ctx.args = (causal, sm_scale, dropout, seed, layout)
+            ctx.args = (causal, sm_scale, dropout, seed, layout, heads_global, head0)
             return out
 
         @staticmethod
         def backward(ctx, dout):
             q, k, v, bias, out, lse = ctx.saved_tensors
-            causal, sm_scale, dropout, seed, layout = ctx.args
+            causal, sm_scale, dropout, seed, layout, heads_global, head0 = ctx.args
             delta = attention_delta(out, dout, layout)
             dq, dk, dv = bwd(q, k, v, bias, dout, lse, delta, causal=causal,
                              sm_scale=sm_scale, dropout=dropout, seed=seed,
-                             layout=layout)
-            return dq, dk, dv, None, None, None, None, None, None
+                             layout=layout, heads_global=heads_global, head0=head0)
+            return dq, dk, dv, None, None, None, None, None, None, None, None
 
     _Attention.__name__ = _Attention.__qualname__ = name
     return _Attention
@@ -73,8 +79,9 @@ def _fused_mha(ctx, op):
     sm_scale = op.attr("sm_scale", 0.0) or None
     layout = op.attr("layout", "bhsd") or "bhsd"
     seed = 0
+    head_dim = 2 if layout == "bshd" else 1
+    heads, head0 = ctx.head_shard(op.input("Q")[0], q.shape[head_dim], head_dim)
     if dropout > 0.0:
-        heads = q.shape[2] if layout == "bshd" else q.shape[1]
         seed = ctx.attention_seed(op.output("Out")[0],
                                   ctx.batch_rank * q.shape[0] * heads * 0xC2B2AE35)
     if bias is not None:
@@ -82,4 +89,5 @@ def _fused_mha(ctx, op):
     seq_axis = 1 if layout == "bshd" else 2
     fn = (ShortAttention if short_attention_viable(q.shape[seq_axis], k.shape[seq_axis])
           else FlashAttention)
-    ctx.out(op, "Out", fn.apply(q, k, v, bias, causal, sm_scale, dropout, seed, layout))
+    ctx.out(op, "Out", fn.apply(q, k, v, bias, causal, sm_scale, dropout, seed, layout,
+                                heads, head0))

@@ -106,3 +106,9 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all()[name]))
             _libs[name] = lib
         return lib
+
+
+if __name__ == "__main__":
+    # `python .../_build.py` builds every library, importing nothing of the
+    # package (and so not torch)
+    build_all()

@@ -58,7 +58,8 @@ __device__ __forceinline__ float attn_round_like(float x) {
 // Dropout keep-mask: the murmur-style hash of the global (batch*head,
 // query, key) coordinates and the seed, bit for bit the hash of
 // flash_attention._dropout_keep and mha_short._keep3. Keep iff
-// h >= thresh, thresh = min(int(p * 2^32), 2^32 - 1).
+// h >= thresh, thresh = min(int(p * 2^32), 2^32 - 1). `bh` is the global
+// (batch, head) index, AttnSeed::global_bh.
 __device__ __forceinline__ bool attn_dropout_keep(uint32_t seed, uint32_t bh,
                                                   uint32_t qi, uint32_t ki,
                                                   uint32_t thresh) {
@@ -74,12 +75,27 @@ __device__ __forceinline__ bool attn_dropout_keep(uint32_t seed, uint32_t bh,
 // The dropout seed of a launch: the word `value`, or, when `ptr` is not
 // NULL, the word at `ptr` in device memory, which each kernel reads once
 // (the TPU kernels' seed_ref). A CUDA graph holds the pointer, so each
-// replay draws the word written there before it.
+// replay draws the word written there before it. A launch over heads
+// [head0, head0 + H) of `heads_global` (a tensor-parallel rank's chunk)
+// hashes the global (batch, head) index of its local (bi, hi):
+// bi * heads_global + head0 + hi, which is (bh / H) * heads_global + head0
+// + bh % H of the local bh = bi * H + hi; with head0 = 0 and
+// heads_global = H it is bh.
 struct AttnSeed {
   uint32_t value;
   const uint32_t* ptr;
+  int heads_global;
+  int head0;
   __device__ __forceinline__ uint32_t get() const { return ptr != nullptr ? __ldg(ptr) : value; }
+  __device__ __forceinline__ uint32_t global_bh(int bi, int hi) const {
+    return (uint32_t)(bi * heads_global + head0 + hi);
+  }
 };
+
+// Whether a launch's head chunk lies inside its global heads.
+static inline bool attn_heads_ok(int H, int heads_global, int head0) {
+  return head0 >= 0 && heads_global >= H && head0 + H <= heads_global;
+}
 
 static inline AttnStrides attn_strides_from(const long long* s) {
   AttnStrides st;

@@ -196,6 +196,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wk = kg * 16, wq = qh * BQH;  // this warp's keys and query rows
   const int offset = sk - sq;              // bottom-right aligned causal mask
   const uint32_t bh = (uint32_t)(bi * H + hi);
+  const uint32_t gbh = seed_in.global_bh(bi, hi);
   const long long row0 = (long long)bh * sq;
   const long long qbase = bi * st.qb + hi * st.qh, obase = bi * st.ob + hi * st.oh;
 
@@ -305,7 +306,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (edge && (qi >= sq || ki >= sk)) p = 0.f;
         float dp = p_acc[j][e], pd = p;
         if (dropout_on) {
-          const bool keep = attn_dropout_keep(seed, bh, (uint32_t)qi, (uint32_t)ki, thresh);
+          const bool keep = attn_dropout_keep(seed, gbh, (uint32_t)qi, (uint32_t)ki, thresh);
           pd = keep ? p / drop_div : 0.f;
           dp = keep ? dp / drop_div : 0.f;
         }
@@ -388,6 +389,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wq = rg * 16, wk = kh * BKH;  // this warp's rows and keys
   const int offset = sk - sq;
   const uint32_t bh = (uint32_t)(bi * H + hi);
+  const uint32_t gbh = seed_in.global_bh(bi, hi);
   const long long row0 = (long long)bh * sq;
   const long long kbase = bi * st.kb + hi * st.kh, vbase = bi * st.vb + hi * st.vh;
   const float* brow = bias != nullptr ? bias + (long long)bi * sk : nullptr;
@@ -481,7 +483,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (edge && ki >= sk) p = 0.f;
         float dp = p_acc[j][e];
         if (dropout_on)
-          dp = attn_dropout_keep(seed, bh, (uint32_t)qi, (uint32_t)ki, thresh) ? dp / drop_div
+          dp = attn_dropout_keep(seed, gbh, (uint32_t)qi, (uint32_t)ki, thresh) ? dp / drop_div
                                                                                  : 0.f;
         s_acc[j][e] = p * (dp - dl[h2]) * sm_scale;
       }
@@ -571,15 +573,19 @@ static int flash_bwd_dispatch_d(const void* q, const void* k, const void* v,
 // delta: [B, H, sq] float32. drop_div = 1 - rate. Returns the cudaError_t of
 // the launches (0 = success).
 // The dropout seed: seed_val, or the word at seed_ptr in device memory when
-// seed_ptr is not NULL (AttnSeed).
+// seed_ptr is not NULL (AttnSeed). heads_global / head0: the launch's H heads
+// are heads [head0, head0 + H) of heads_global, whose global (batch, head)
+// index the dropout hash takes (H and 0 for a whole launch).
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const float* bias,
                          const void* dout, const float* lse, const float* delta, void* dq,
                          void* dk, void* dv, int dtype, int B, int H, int sq, int sk,
                          int d, const long long* strides, float sm_scale, int causal,
                          int dropout_on, float drop_div, unsigned int thresh,
-                         unsigned int seed_val, const unsigned int* seed_ptr,
+                         int heads_global, int head0, unsigned int seed_val,
+                         const unsigned int* seed_ptr,
                          void* stream) {
-  const AttnSeed seed{seed_val, seed_ptr};
+  const AttnSeed seed{seed_val, seed_ptr, heads_global, head0};
+  if (!attn_heads_ok(H, heads_global, head0)) return (int)cudaErrorInvalidValue;
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || (sq + 31) / 32 > 65535 ||
       (sk + 31) / 32 > 65535)
     return (int)cudaErrorInvalidValue;

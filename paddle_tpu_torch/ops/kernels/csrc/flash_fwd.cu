@@ -112,6 +112,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int wq = (threadIdx.x >> 5) * 16;  // this warp's rows in the tile
   const int offset = sk - sq;              // bottom-right aligned causal mask
   const uint32_t bh = (uint32_t)(bi * H + hi);
+  const uint32_t gbh = seed_in.global_bh(bi, hi);
   const long long kbase = bi * st.kb + hi * st.kh, vbase = bi * st.vb + hi * st.vh;
   const float* brow = bias != nullptr ? bias + (long long)bi * sk : nullptr;
 
@@ -228,7 +229,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         if (dropout_on) {
           const uint32_t qi = (uint32_t)(q0 + wq + g + 8 * h2);
           const uint32_t ki = (uint32_t)(k0 + 8 * j + 2 * t + (e & 1));
-          p = attn_dropout_keep(seed, bh, qi, ki, thresh) ? p / drop_div : 0.f;
+          p = attn_dropout_keep(seed, gbh, qi, ki, thresh) ? p / drop_div : 0.f;
         }
         s_acc[j][e] = p;
       }
@@ -315,14 +316,18 @@ static int flash_fwd_dispatch_d(const void* q, const void* k, const void* v,
 // q, k, v, out. bias: [B, sk] float32 or NULL. lse: [B, H, sq] float32. Returns
 // the cudaError_t of the launch (0 = success).
 // The dropout seed: seed_val, or the word at seed_ptr in device memory when
-// seed_ptr is not NULL (AttnSeed).
+// seed_ptr is not NULL (AttnSeed). heads_global / head0: the launch's H heads
+// are heads [head0, head0 + H) of heads_global, whose global (batch, head)
+// index the dropout hash takes (H and 0 for a whole launch).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const float* bias,
                          void* out, float* lse, int dtype, int B, int H, int sq,
                          int sk, int d, const long long* strides, float sm_scale,
                          int causal, int dropout_on, float drop_div, unsigned int thresh,
-                         unsigned int seed_val, const unsigned int* seed_ptr,
+                         int heads_global, int head0, unsigned int seed_val,
+                         const unsigned int* seed_ptr,
                          void* stream) {
-  const AttnSeed seed{seed_val, seed_ptr};
+  const AttnSeed seed{seed_val, seed_ptr, heads_global, head0};
+  if (!attn_heads_ok(H, heads_global, head0)) return (int)cudaErrorInvalidValue;
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || (sq + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
   const AttnStrides st = attn_strides_from(strides);

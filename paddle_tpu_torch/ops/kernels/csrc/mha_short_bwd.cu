@@ -126,6 +126,7 @@ short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int wq = qh * BQH;  // and query rows
   const int offset = sk - sq;
   const uint32_t bh = (uint32_t)(bi * H + hi);
+  const uint32_t gbh = seed_in.global_bh(bi, hi);
   const long long row0 = (long long)bh * sq;
   const long long qbase = bi * st.qb + hi * st.qh, obase = bi * st.ob + hi * st.oh;
 
@@ -201,7 +202,7 @@ short_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float dp = p_acc[j][e];
           float p_drop = p;
           if (dropout_on) {
-            const bool keep = attn_dropout_keep(seed, bh, (uint32_t)qi, (uint32_t)ki, thresh);
+            const bool keep = attn_dropout_keep(seed, gbh, (uint32_t)qi, (uint32_t)ki, thresh);
             p_drop = keep ? p * drop_scale : 0.f;
             dp = keep ? dp * drop_scale : 0.f;
           }
@@ -415,15 +416,19 @@ static int short_bwd_dispatch_d(int d, const void* q, const void* k, const void*
 // rounded up to a multiple of 8, written by launch 1 and read by launch 2.
 // Returns the cudaError_t of the launches (0 = success).
 // The dropout seed: seed_val, or the word at seed_ptr in device memory when
-// seed_ptr is not NULL (AttnSeed).
+// seed_ptr is not NULL (AttnSeed). heads_global / head0: the launch's H heads
+// are heads [head0, head0 + H) of heads_global, whose global (batch, head)
+// index the dropout hash takes (H and 0 for a whole launch).
 extern "C" int mha_short_bwd(const void* q, const void* k, const void* v, const float* bias,
                              const void* dout, const float* lse, const float* delta,
                              void* dq, void* dk, void* dv, void* ds, int dtype, int B,
                              int H, int sq, int sk, int d, const long long* strides,
                              float sm_scale, int causal, int dropout_on, float drop_mul,
-                             unsigned int thresh, unsigned int seed_val,
-                             const unsigned int* seed_ptr, void* stream) {
-  const AttnSeed seed{seed_val, seed_ptr};
+                             unsigned int thresh, int heads_global, int head0,
+                             unsigned int seed_val, const unsigned int* seed_ptr,
+                             void* stream) {
+  const AttnSeed seed{seed_val, seed_ptr, heads_global, head0};
+  if (!attn_heads_ok(H, heads_global, head0)) return (int)cudaErrorInvalidValue;
   if (d < 1 || d > ATTN_MAX_D || sq < 1 || sk < 1 || sq > 512 || sk > 512)
     return (int)cudaErrorInvalidValue;
   const AttnBwdStrides st = attn_bwd_strides_from(strides);

@@ -10,7 +10,12 @@ aligned causal mask (offset sk - sq), and dropout from the murmur hash of
 the global (batch*head, query, key) coordinates and an int32 seed — the
 same mask, bit for bit, as the Pallas kernels draw. The seed is an int,
 passed by value, or a 0-dim int32 tensor on the card, whose word the
-kernels read through a pointer (the Pallas kernels' `seed_ref`). Every forward
+kernels read through a pointer (the Pallas kernels' `seed_ref`). Every
+function takes `heads_global` / `head0`: its h heads are heads [head0,
+head0 + h) of `heads_global` (a tensor-parallel rank's chunk), and the
+hash takes the global (batch, head) index b * heads_global + head0 + h;
+by default (None, 0) the heads are all of them, and the mask is the
+whole launch's. Every forward
 returns (out, lse): out in q's layout and dtype, lse [b, h, sq] float32.
 Every backward takes the forward's lse and delta = rowsum(dO * O)
 [b, h, sq] float32 and returns (dq, dk, dv) in the layout and dtypes of
@@ -40,6 +45,7 @@ __all__ = [
     "seed_word",
     "dropout_keep_mask",
     "seed_args",
+    "head_args",
     "attention_plain",
     "flash_attention_plain",
     "flash_attention_fwd_mirror",
@@ -81,12 +87,14 @@ def seed_word(seed):
     return int(seed) & _M32
 
 
-def dropout_keep_mask(seed, b, h, sq, sk, rate, device):
+def dropout_keep_mask(seed, b, h, sq, sk, rate, device, heads_global=None, head0=0):
     """[b, h, sq, sk] keep mask: the hash of flash_attention._dropout_keep /
     mha_short._keep3 (and csrc/attn_common.cuh) in int64 arithmetic. `seed`:
-    an int or a 0-dim int32 tensor on `device` (`seed_word`)."""
+    an int or a 0-dim int32 tensor on `device` (`seed_word`). The h heads
+    are heads [head0, head0 + h) of `heads_global` (default: all h)."""
     ar = lambda n: torch.arange(n, dtype=torch.int64, device=device)  # noqa: E731
-    bh = ar(b * h).view(b, h, 1, 1)
+    hg = h if heads_global is None else int(heads_global)
+    bh = (ar(b) * hg + int(head0)).view(b, 1, 1, 1) + ar(h).view(1, h, 1, 1)
     qi = ar(sq).view(1, 1, sq, 1)
     ki = ar(sk).view(1, 1, 1, sk)
     x = (mul32(qi, 0x9E3779B1) ^ mul32(ki, 0x85EBCA6B)
@@ -111,7 +119,7 @@ def _dims(q, k, layout):
 
 
 def attention_plain(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0,
-                    seed=0, layout="bhsd", clamp_max=False):
+                    seed=0, layout="bhsd", clamp_max=False, heads_global=None, head0=0):
     """The plain PyTorch forward both kernels are held against. The math runs
     in float64, so the reference's own rounding stays far below the fp32
     tolerances whatever algorithm the backend's matmul picks (fp32 matmuls
@@ -137,7 +145,7 @@ def attention_plain(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     if dropout > 0.0:
-        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device)
+        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device, heads_global, head0)
         kept = p * (1.0 / (1.0 - dropout)) if clamp_max else p / (1.0 - dropout)
         p = torch.where(keep, kept, torch.zeros((), device=p.device))
     acc = torch.matmul(p.to(v.dtype).double(), v.double())
@@ -150,7 +158,8 @@ def attention_plain(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0
 
 
 def attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=None,
-                        dropout=0.0, seed=0, layout="bhsd", div=True):
+                        dropout=0.0, seed=0, layout="bhsd", div=True, heads_global=None,
+                        head0=0):
     """The plain PyTorch backward both backward kernels are held against,
     in float64 inside: p = exp(s - lse), dp = dO V^T, dropout on both with
     the forward's mask, dV = (p_drop as dO's dtype)^T dO,
@@ -176,7 +185,7 @@ def attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
     dp = torch.matmul(dout.double(), v.double().transpose(-1, -2))
     p_drop = p
     if dropout > 0.0:
-        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device)
+        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device, heads_global, head0)
         zero = torch.zeros((), dtype=p.dtype, device=p.device)
         scaled = (lambda x: x / (1.0 - dropout)) if div else (
             lambda x: x * (1.0 / (1.0 - dropout)))
@@ -200,11 +209,11 @@ def attention_delta(out, dout, layout):
 
 
 def flash_attention_plain(q, k, v, bias=None, causal=False, sm_scale=None,
-                          dropout=0.0, seed=0, layout="bhsd"):
+                          dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """Plain version of csrc/flash_fwd.cu (the JAX package's
     _attention_unfused semantics, plus lse)."""
     return attention_plain(q, k, v, bias, causal, sm_scale, dropout, seed,
-                           layout, clamp_max=False)
+                           layout, clamp_max=False, heads_global=heads_global, head0=head0)
 
 
 def tf32_round(x):
@@ -236,7 +245,7 @@ FLASH_TILE = 64
 
 
 def flash_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
-                               dropout=0.0, seed=0, layout="bhsd"):
+                               dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """The block math of csrc/flash_fwd.cu on the CPU -> (out, lse): 64-row
     query tiles, each walking its 64-key tiles in order and skipping those
     past the causal diagonal, except in a query tile that holds a row with
@@ -249,7 +258,8 @@ def flash_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
     if layout == "bshd":
         q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     offset, T = sk - sq, FLASH_TILE
-    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device, heads_global,
+                             head0) if dropout > 0.0 else None
     out = torch.empty(b, h, sq, d, dtype=q.dtype)
     lse = torch.empty(b, h, sq, dtype=torch.float32)
     for q0 in range(0, sq, T):
@@ -286,7 +296,8 @@ def flash_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
 
 
 def flash_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,
-                               sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+                               sm_scale=None, dropout=0.0, seed=0, layout="bhsd",
+                               heads_global=None, head0=0):
     """The block math of csrc/flash_bwd.cu on the CPU -> (dq, dk, dv).
     Launch 1: 32-key tiles, each walking its query tiles (64 rows, 32 at
     d > 64) in order, from the first that sees any of its keys, and every
@@ -302,7 +313,8 @@ def flash_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,
     if layout == "bshd":
         q, k, v, dout = (t.permute(0, 2, 1, 3) for t in (q, k, v, dout))
     offset, T, T2 = sk - sq, FLASH_TILE, FLASH_TILE // 2
-    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device, heads_global,
+                             head0) if dropout > 0.0 else None
     lse, delta = lse.float()[..., None], delta.float()[..., None]
 
     def tile(q0, q1, k0, k1):
@@ -364,7 +376,8 @@ def _kernel_fn(name):
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+                      ctypes.c_void_p])
     return fn
 
 
@@ -400,6 +413,17 @@ def _drop_scale(name, dropout):
     return 1.0 / (1.0 - dropout) if name.startswith("mha_short") else 1.0 - dropout
 
 
+def head_args(name, h, heads_global, head0):
+    """The C entry points' (heads_global, head0) of a launch over h heads:
+    (h, 0) by default; raises unless the h heads lie inside
+    heads_global."""
+    hg = h if heads_global is None else int(heads_global)
+    if not (head0 >= 0 and hg >= h and head0 + h <= hg):
+        raise ValueError(f"{name}: heads [{head0}, {head0 + h}) are not inside "
+                         f"{hg} global heads")
+    return hg, int(head0)
+
+
 def seed_args(name, seed, q):
     """The C entry points' (seed_val, seed_ptr) of a dropout seed: an int by
     value; a 0-dim int32 tensor on q's device (a seed slot of a static step,
@@ -413,7 +437,8 @@ def seed_args(name, seed, q):
     return 0, seed.data_ptr()
 
 
-def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
+def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layout,
+                     heads_global=None, head0=0):
     """Check the inputs, allocate out / lse and launch the CUDA kernel
     `name` (mha_short_fwd or flash_fwd) on the current stream. Raises on
     what the kernel does not take and on a failed launch."""
@@ -433,7 +458,8 @@ def launch_attention(name, q, k, v, bias, causal, sm_scale, dropout, seed, layou
                 b, h, sq, sk, d, strides, float(sm_scale), int(bool(causal)),
                 int(dropout > 0.0), float(_drop_scale(name, dropout)),
                 _dropout_thresh(dropout) if dropout > 0.0 else 0,
-                *seed_args(name, seed, q), torch.cuda.current_stream().cuda_stream)
+                *head_args(name, h, heads_global, head0), *seed_args(name, seed, q),
+                torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
@@ -449,7 +475,8 @@ def _bwd_kernel_fn():
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+                      ctypes.c_void_p])
     return fn
 
 
@@ -476,7 +503,7 @@ def _check_bwd_inputs(name, q, k, v, bias, dout, lse, delta, dropout, layout):
 
 
 def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, dropout,
-                         seed, layout):
+                         seed, layout, heads_global=None, head0=0):
     """Check the inputs, allocate dq / dk / dv and launch csrc/flash_bwd.cu
     (a dK / dV launch and a dQ launch) on the current stream. Raises on
     what it does not take and on a failed launch."""
@@ -493,7 +520,8 @@ def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, drop
             dv.data_ptr(), dtype_code(q.dtype), b, h, sq, sk, d, strides,
             float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
-            _dropout_thresh(dropout) if dropout > 0.0 else 0, *seed_args(name, seed, q),
+            _dropout_thresh(dropout) if dropout > 0.0 else 0,
+            *head_args(name, h, heads_global, head0), *seed_args(name, seed, q),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
@@ -503,30 +531,33 @@ def launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale, drop
 
 
 def flash_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False,
-                              sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+                              sm_scale=None, dropout=0.0, seed=0, layout="bhsd",
+                              heads_global=None, head0=0):
     """Plain version of csrc/flash_bwd.cu."""
     return attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal, sm_scale,
-                               dropout, seed, layout, div=True)
+                               dropout, seed, layout, div=True, heads_global=heads_global,
+                               head0=head0)
 
 
 def flash_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=None,
-                        dropout=0.0, seed=0, layout="bhsd"):
+                        dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """Attention backward, any sequence length -> (dq, dk, dv). A CPU
     tensor runs the plain version; a CUDA tensor launches
     csrc/flash_bwd.cu."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal,
-                                         sm_scale, dropout, seed, layout)
+                                         sm_scale, dropout, seed, layout, heads_global,
+                                         head0)
     return launch_attention_bwd(q, k, v, bias, dout, lse, delta, causal, sm_scale,
-                                dropout, seed, layout)
+                                dropout, seed, layout, heads_global, head0)
 
 
 def flash_attention(q, k, v, bias=None, causal=False, sm_scale=None, dropout=0.0,
-                    seed=0, layout="bhsd"):
+                    seed=0, layout="bhsd", heads_global=None, head0=0):
     """Attention forward, any sequence length -> (out, lse). A CPU tensor
     runs the plain version; a CUDA tensor launches csrc/flash_fwd.cu."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, bias, causal, sm_scale, dropout,
-                                     seed, layout)
+                                     seed, layout, heads_global, head0)
     return launch_attention("flash_fwd", q, k, v, bias, causal, sm_scale,
-                            dropout, seed, layout)
+                            dropout, seed, layout, heads_global, head0)

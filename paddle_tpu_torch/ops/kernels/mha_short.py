@@ -33,6 +33,7 @@ from .flash_attention import (
     attention_bwd_plain,
     attention_plain,
     dropout_keep_mask,
+    head_args,
     launch_attention,
     seed_args,
 )
@@ -67,14 +68,14 @@ def short_attention_viable(sq, sk):
 
 
 def short_attention_plain(q, k, v, bias=None, causal=False, sm_scale=None,
-                          dropout=0.0, seed=0, layout="bhsd"):
+                          dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """Plain version of csrc/mha_short_fwd.cu -> (out, lse [b, h, sq])."""
     return attention_plain(q, k, v, bias, causal, sm_scale, dropout, seed,
-                           layout, clamp_max=True)
+                           layout, clamp_max=True, heads_global=heads_global, head0=head0)
 
 
 def short_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
-                               dropout=0.0, seed=0, layout="bhsd"):
+                               dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """The block math of csrc/mha_short_fwd.cu on the CPU -> (out, lse).
     Each key group walks its 64-key tiles (tile i in group i % groups) in
     order with an online softmax in base 2 and float32, its running max
@@ -89,7 +90,8 @@ def short_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
     if layout == "bshd":
         q, k, v = (t.permute(0, 2, 1, 3) for t in (q, k, v))
     scale2 = torch.tensor(sm_scale, dtype=torch.float32) * _LOG2E
-    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device) if dropout > 0.0 else None
+    keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, q.device, heads_global,
+                             head0) if dropout > 0.0 else None
     mul = torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32)
     groups, T = SHORT_FWD_KEY_GROUPS, SHORT_FWD_TILE
     parts = []
@@ -128,7 +130,7 @@ def short_attention_fwd_mirror(q, k, v, bias=None, causal=False, sm_scale=None,
 
 
 def short_attention(q, k, v, bias=None, causal=False, sm_scale=None,
-                    dropout=0.0, seed=0, layout="bhsd"):
+                    dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """Short-sequence attention forward -> (out, lse). A CPU tensor runs
     the plain version. A CUDA tensor launches csrc/mha_short_fwd.cu (the
     tensor cores: 3xTF32 for fp32, bf16 and fp16 with fp32 sums) on the current
@@ -136,25 +138,28 @@ def short_attention(q, k, v, bias=None, causal=False, sm_scale=None,
     among it) and on a failed launch."""
     if q.device.type == "cpu":
         return short_attention_plain(q, k, v, bias, causal, sm_scale, dropout,
-                                     seed, layout)
+                                     seed, layout, heads_global, head0)
     sq, sk = (q.shape[1], k.shape[1]) if layout == "bshd" else (q.shape[2], k.shape[2])
     if not short_attention_viable(sq, sk):
         raise ValueError(f"short attention takes sq, sk <= {MAX_SHORT_SEQ}, "
                          f"got {sq}, {sk}: use flash_attention")
     return launch_attention("mha_short_fwd", q, k, v, bias, causal, sm_scale,
-                            dropout, seed, layout)
+                            dropout, seed, layout, heads_global, head0)
 
 
 def short_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal=False,
-                              sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+                              sm_scale=None, dropout=0.0, seed=0, layout="bhsd",
+                              heads_global=None, head0=0):
     """Plain version of csrc/mha_short_bwd.cu (_bwd_math,
     mha_short.py:149-177) -> (dq, dk, dv)."""
     return attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal, sm_scale,
-                               dropout, seed, layout, div=False)
+                               dropout, seed, layout, div=False, heads_global=heads_global,
+                               head0=head0)
 
 
 def short_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,
-                               sm_scale=None, dropout=0.0, seed=0, layout="bhsd"):
+                               sm_scale=None, dropout=0.0, seed=0, layout="bhsd",
+                               heads_global=None, head0=0):
     """The block math of csrc/mha_short_bwd.cu on the CPU -> (dq, dk, dv):
     every product as the tensor cores make it (`_mma`), p, the keep mask
     and dS in float32 once per pair, p_drop rounded to dO's dtype, dS to
@@ -174,7 +179,7 @@ def short_attention_bwd_mirror(q, k, v, bias, dout, lse, delta, causal=False,
     dp = _mma(dout, v.transpose(-1, -2))
     p_drop = p
     if dropout > 0.0:
-        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device)
+        keep = dropout_keep_mask(seed, b, h, sq, sk, dropout, s.device, heads_global, head0)
         inv = torch.tensor(1.0 / (1.0 - dropout), dtype=torch.float32)
         p_drop = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
@@ -197,12 +202,13 @@ def _bwd_fn():
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_uint,
-                      ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+                      ctypes.c_void_p])
     return fn
 
 
 def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=None,
-                        dropout=0.0, seed=0, layout="bhsd"):
+                        dropout=0.0, seed=0, layout="bhsd", heads_global=None, head0=0):
     """Short-sequence attention backward from the forward's lse and
     delta = rowsum(dO * O) -> (dq, dk, dv). A CPU tensor runs the plain
     version. A CUDA tensor launches csrc/mha_short_bwd.cu (its two
@@ -211,7 +217,7 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
     take and on a failed launch."""
     if q.device.type == "cpu":
         return short_attention_bwd_plain(q, k, v, bias, dout, lse, delta, causal,
-                                         sm_scale, dropout, seed, layout)
+                                         sm_scale, dropout, seed, layout, heads_global, head0)
     name = "mha_short_bwd"
     sq, sk = (q.shape[1], k.shape[1]) if layout == "bshd" else (q.shape[2], k.shape[2])
     if not short_attention_viable(sq, sk):
@@ -230,7 +236,8 @@ def short_attention_bwd(q, k, v, bias, dout, lse, delta, causal=False, sm_scale=
             dv.data_ptr(), scratch.data_ptr(), dtype_code(q.dtype), b, h, sq,
             sk, d, strides, float(sm_scale), int(bool(causal)), int(dropout > 0.0),
             float(_drop_scale(name, dropout)),
-            _dropout_thresh(dropout) if dropout > 0.0 else 0, *seed_args(name, seed, q),
+            _dropout_thresh(dropout) if dropout > 0.0 else 0,
+            *head_args(name, h, heads_global, head0), *seed_args(name, seed, q),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")

@@ -136,6 +136,16 @@ def _scale(ctx, op):
     ctx.out(op, "Out", out)
 
 
+def _product(x, y):
+    """torch.matmul; an fp16 product on the CPU is taken in fp32 and rounded
+    once, as the card's cuBLAS (fp32 accumulation) and XLA's CPU backend
+    take it: torch's own fp16 CPU GEMM is a slow loop on CPUs without native
+    fp16, such as an H100 host's."""
+    if x.dtype == torch.float16 and x.device.type == "cpu":
+        return torch.matmul(x.float(), y.float()).to(torch.float16)
+    return torch.matmul(x, y)
+
+
 @register_op("mul")
 def _mul(ctx, op):
     """Flattening matmul: X flattened to 2-D at x_num_col_dims, Y at
@@ -146,7 +156,7 @@ def _mul(ctx, op):
     x_lead = tuple(x.shape[:xn])
     x2 = x.reshape(int(np.prod(x_lead or (1,))), -1)
     y2 = y.reshape(int(np.prod(y.shape[:yn])), -1)
-    out = torch.matmul(x2, y2)
+    out = _product(x2, y2)
     ctx.out(op, "Out", out.reshape(x_lead + tuple(y.shape[yn:])))
 
 
@@ -162,7 +172,7 @@ def _matmul(ctx, op):
         x = x.transpose(-1, -2)
     if op.attr("transpose_Y", False):
         y = y.transpose(-1, -2)
-    out = torch.matmul(x, y)
+    out = _product(x, y)
     alpha = op.attr("alpha", 1.0)
     if alpha != 1.0:
         out = out * alpha

@@ -525,16 +525,34 @@ def _quantized_keep_prob(p):
     return 1.0 - _drop_threshold(p) / 2.0**32
 
 
-def dropout_keep_mask(seed, p, shape, device, offset=0):
+def dropout_keep_mask(seed, p, shape, device, global_shape=None, starts=None):
     """(keep bool tensor of `shape`, effective keep prob): one murmur-mixed
-    word per element from its flat index and the seed word
-    (`LoweringContext.dropout_seed`: an int, or an int64 device scalar in
-    [0, 2^32) in a static step), kept when the word is >= round(p * 2^32)
-    (nn_ops.py:720-741). `offset` is the flat index of the first element:
-    on a mesh, rank r's rows of the global tensor start at r times its
-    element count."""
-    n = int(np.prod(shape)) if len(shape) else 1
-    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device).reshape(shape)
+    word per element from its flat index in the global tensor and the seed
+    word (`LoweringContext.dropout_seed`: an int, or an int64 device scalar
+    in [0, 2^32) in a static step), kept when the word is >= round(p *
+    2^32) (nn_ops.py:720-741). `global_shape` / `starts`: the tensor the
+    whole mesh computes and where this chunk starts in it, per dim
+    (`LoweringContext.global_place`); by default the chunk is the whole
+    tensor. On a mesh, rank r's rows of a batch-split tensor start at r
+    times its rows, so its indices are the old `offset` one, r times its
+    element count, on."""
+    shape = tuple(int(s) for s in shape)
+    if global_shape is None:
+        global_shape, starts = shape, (0,) * len(shape)
+    n = int(np.prod(shape)) if shape else 1
+    if tuple(global_shape[1:]) == shape[1:] and not any(starts[1:]):
+        # rows of the global tensor: one contiguous run of flat indices
+        first = int(starts[0]) * (n // shape[0]) if shape and shape[0] else 0
+        i = torch.arange(first, first + n, dtype=torch.int64, device=device).reshape(shape)
+    else:
+        i = torch.zeros(shape, dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            view = [1] * len(shape)
+            view[d] = shape[d]
+            ar = torch.arange(starts[d], starts[d] + shape[d], dtype=torch.int64, device=device)
+            i = i + (ar * stride).reshape(view)
+            stride *= int(global_shape[d])
     words = murmur_mix(mul32(i, 0x9E3779B1) ^ seed)
     return words >= _drop_threshold(p), _quantized_keep_prob(p)
 
@@ -553,7 +571,7 @@ def _dropout(ctx, op):
         return
     keep, keep_prob = dropout_keep_mask(ctx.dropout_seed(op.output("Out")[0]), p,
                                         tuple(x.shape), x.device,
-                                        ctx.batch_rank * x.numel())
+                                        *ctx.global_place(op.input("X")[0], x.shape))
     kept = x * (1.0 / keep_prob) if impl == "upscale_in_train" else x
     ctx.out(op, "Out", torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                            device=x.device)))
@@ -569,7 +587,7 @@ def _dropout_grad(ctx, op):
     if rng_name is not None:
         # regenerate the forward's mask bit for bit from the shared rng
         keep, keep_prob = dropout_keep_mask(ctx.dropout_seed(rng_name), p, tuple(dy.shape),
-                                            dy.device, ctx.batch_rank * dy.numel())
+                                            dy.device, *ctx.global_place(rng_name, dy.shape))
     else:
         # a program serialized before mask regeneration: the saved Mask
         mask = ctx.in_(op, "Mask")

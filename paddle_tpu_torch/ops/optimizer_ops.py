@@ -111,8 +111,10 @@ def _lamb(ctx, op):
     m1h = m1n / (1 - b1p.reshape(()))
     m2h = m2n / (1 - b2p.reshape(()))
     update = m1h / (torch.sqrt(m2h) + eps) + op.attr("weight_decay", 0.01) * pf
-    p_norm = torch.sqrt(torch.sum(torch.square(pf)))
-    u_norm = torch.sqrt(torch.sum(torch.square(update)))
+    # a parameter sharded over a model group sums its squares over the group
+    name = op.input("Param")[0]
+    p_norm = torch.sqrt(ctx.model_sum(name, torch.sum(torch.square(pf))))
+    u_norm = torch.sqrt(ctx.model_sum(name, torch.sum(torch.square(update))))
     ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                         torch.ones((), dtype=p_norm.dtype, device=p_norm.device))
     _adam_outputs(ctx, op, p, pf - lr * ratio * update, m1n, m2n)
@@ -249,6 +251,18 @@ def _fused_adamw(ctx, op):
     _fused_adam_family(ctx, op, decay_coeff=op.attr("coeff", 0.01))
 
 
+def _group_norms(ctx, op, tensors):
+    """Each tensor's 2-norm (torch._foreach_norm); a parameter sharded over
+    a model group gets the norm of the whole parameter, its squares summed
+    over the group."""
+    norms = torch._foreach_norm(tensors)
+    if not ctx.model_dims:
+        return norms
+    return [torch.sqrt(ctx.model_sum(n, torch.sum(torch.square(t))))
+            if n in ctx.model_dims else x
+            for n, t, x in zip(op.input("Param"), tensors, norms)]
+
+
 @register_op("fused_lamb", differentiable=False)
 def _fused_lamb(ctx, op):
     """The trust ratio stays per tensor (layer-wise adaptation): the
@@ -266,8 +280,8 @@ def _fused_lamb(ctx, op):
     torch._foreach_add_(den, op.attr("epsilon", 1e-6))
     update = torch._foreach_div(m1h, den)
     torch._foreach_add_(update, torch._foreach_mul(pf, op.attr("weight_decay", 0.01)))
-    p_norm = torch.stack(torch._foreach_norm(pf))
-    u_norm = torch.stack(torch._foreach_norm(update))
+    p_norm = torch.stack(_group_norms(ctx, op, pf))
+    u_norm = torch.stack(_group_norms(ctx, op, update))
     ratio = torch.where((p_norm > 0) & (u_norm > 0), p_norm / u_norm,
                         torch.ones((), dtype=p_norm.dtype, device=p_norm.device))
     step = torch._foreach_mul(update, (lr * ratio).unbind(0))

@@ -205,7 +205,14 @@ class LoweringContext:
     and 1. `seed_slots` is None but in a static step's lowering
     (`SeedSlots`), where `attention_seed`, `dropout_seed` and `next_rng`
     return device words read from the slot table, and `rng_path` is the
-    fold_in data from the run key to this context's key."""
+    fold_in data from the run key to this context's key. Under a mesh
+    whose model axis is larger than 1 (parallel/tensor_parallel.py)
+    `model_group`, `model_rank` and `model_ranks` describe the model group
+    and `model_dims` maps each var sharded over it to its sharded dim:
+    dropout draws its chunk's place in the global mask (`global_place`),
+    attention hashes global heads (`head_shard`) and Lamb sums its norms
+    over the group (`model_sum`); outside one they are None, 0, 1 and
+    empty."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -225,6 +232,10 @@ class LoweringContext:
         self.batch_ranks = 1
         self.seed_slots = None
         self.rng_path = ()
+        self.model_group = None
+        self.model_rank = 0
+        self.model_ranks = 1
+        self.model_dims = {}
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -309,6 +320,44 @@ class LoweringContext:
             return words.to(torch.int64) & _M32
         return prng.dropout_seed(self.rng_for(name))
 
+    def global_place(self, name, shape):
+        """(global shape, per-dim starts) of this rank's value of `name`,
+        of local `shape`, in the tensor the whole mesh computes: dim 0
+        split over the batch group (rank r's rows start at r times its
+        rows), and a dim sharded over the model group its chunk."""
+        shape = tuple(int(s) for s in shape)
+        if not shape:
+            return (), ()
+        gshape, starts = list(shape), [0] * len(shape)
+        gshape[0] *= self.batch_ranks
+        starts[0] = self.batch_rank * shape[0]
+        d = self.model_dims.get(name)
+        if d is not None:
+            gshape[d] *= self.model_ranks
+            starts[d] += self.model_rank * shape[d]
+        return tuple(gshape), tuple(starts)
+
+    def head_shard(self, name, heads, head_dim):
+        """(global head count, first head) of an attention input `name`
+        holding `heads` heads on dim `head_dim`: this rank's chunk of the
+        heads when `name` is sharded there over the model group, else all
+        of them from 0."""
+        if self.model_dims.get(name) == head_dim:
+            return heads * self.model_ranks, self.model_rank * heads
+        return heads, 0
+
+    def model_sum(self, name, value):
+        """`value`, a sum over the elements of `name`, summed over the model
+        group when `name` is sharded over it (a new tensor), else as it
+        is."""
+        if name not in self.model_dims:
+            return value
+        import torch.distributed as dist
+
+        out = value.detach().clone()
+        dist.all_reduce(out, group=self.model_group)
+        return out
+
     def derived(self, data, program=None):
         """A context on the key fold_in(this key, data), with this one's
         device, generator and seed slots (the recompute step's optimizer
@@ -317,7 +366,14 @@ class LoweringContext:
                               prng.fold_in(self.rng_key, data) if self.rng_key else None,
                               self.is_test)
         sub.seed_slots, sub.rng_path = self.seed_slots, self.rng_path + (data,)
+        sub._copy_mesh(self)
         return sub
+
+    def _copy_mesh(self, other):
+        self.batch_group, self.batch_rank, self.batch_ranks = (
+            other.batch_group, other.batch_rank, other.batch_ranks)
+        self.model_group, self.model_rank, self.model_ranks, self.model_dims = (
+            other.model_group, other.model_rank, other.model_ranks, other.model_dims)
 
     def amp_dtype_for(self, op):
         """The AMP compute dtype of this op, or None (fp32)."""
@@ -343,8 +399,7 @@ class LoweringContext:
         sub.recomputed = self.recomputed
         sub.deferred = self.deferred
         sub.crcs = self.crcs
-        sub.batch_group, sub.batch_rank, sub.batch_ranks = (
-            self.batch_group, self.batch_rank, self.batch_ranks)
+        sub._copy_mesh(self)
         sub.seed_slots, sub.rng_path = self.seed_slots, self.rng_path
         return sub
 
@@ -474,7 +529,7 @@ def graph_users(block):
     return users
 
 
-def lower_forward_op(ctx: LoweringContext, op, users):
+def lower_forward_op(ctx: LoweringContext, op, users, lower=lower_op):
     """Lower a forward op of a training step. If its grad is an
     `__auto_grad__` (its tape key is in `users`), it runs under
     enable_grad, with each input that requires grad cut from the graph of
@@ -490,6 +545,9 @@ def lower_forward_op(ctx: LoweringContext, op, users):
     required grad, so the ops after it still record theirs. A `layer_scan`
     lowers each template op of each layer through this function.
 
+    `lower` lowers the op (a tensor-parallel plan passes `lower_op` with
+    its collectives around it, so the graph records them).
+
     Within one step every forward op, and every layer of a scan body,
     records once, so a tape key that is already there can only be two
     ops whose output ids collide: that raises rather than let one
@@ -504,7 +562,7 @@ def lower_forward_op(ctx: LoweringContext, op, users):
         tracked = any(isinstance(t, torch.Tensor) and t.requires_grad
                       for t in (ctx.values.get(n) for n in op.input_arg_names() if n))
         with torch.no_grad():
-            lower_op(ctx, op)
+            lower(ctx, op)
         if tracked:
             stateful = get_op(op.type).stateful_outputs
             for slot, names in op.outputs.items():
@@ -523,7 +581,7 @@ def lower_forward_op(ctx: LoweringContext, op, users):
     ctx.values.update(leaves)
     try:
         with torch.enable_grad():
-            lower_op(ctx, op)
+            lower(ctx, op)
     finally:
         for n, t in saved.items():
             if n not in produced:

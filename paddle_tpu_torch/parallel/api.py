@@ -86,11 +86,12 @@ def compile_distributed(
     the post-pass Program and its mesh plan (the grad reductions, the
     fetch rule, the ZeRO-1 assignment), as the Executor's mesh run
     prepares them. `feed_sig`: (name, shape, dtype) triples; the batch
-    axes must be ('batch',), the only axis the port's mesh has."""
+    axes must be ('batch',): the port's mesh splits feeds over 'batch'
+    alone (the ranks of one model group feed the same rows)."""
     axes = tuple(canonical_axis(a) for a in batch_axes)
     if axes != ("batch",):
         raise NotImplementedError(
-            f"batch_axes {batch_axes}: the port's mesh shards feeds over 'batch' "
-            "alone (ROADMAP Queue 1 items 9b-9c)")
-    return executor._prepare_mesh(program, mesh, [n for n, _, _ in feed_sig],
-                                  list(fetch_names), scope)
+            f"batch_axes {batch_axes}: a feed split over 'model' or 'pipe' (sequence "
+            "parallelism, pipeline microbatches) is not ported yet: the port's mesh "
+            "splits feeds over 'batch' alone (ROADMAP Queue 1 item 9c)")
+    return executor._prepare_mesh(program, mesh, feed_sig, list(fetch_names), scope)

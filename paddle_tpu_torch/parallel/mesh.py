@@ -11,17 +11,22 @@ make its result the one GSPMD gives for the whole batch.
 
 Without an initialized process group the mesh is the degenerate 1x1x1
 `Mesh` with no DeviceMesh: its run is the plain Executor walk, bit for
-bit. Axes other than `batch` wait for their slices: a `model` axis larger
-than 1 raises NotImplementedError naming ROADMAP Queue 1 item 9b, a
-`pipe` axis item 9c.
+bit. A `pipe` axis larger than 1 raises NotImplementedError naming
+ROADMAP Queue 1 item 9c.
 
 Axis contract (as the JAX package's):
 
 - ``batch``: data parallelism. Feeds are per-rank batch shards; gradients
   are averaged over this axis. ZeRO-1 shards optimizer accumulators along
   it.
-- ``model``: everything intra-layer (item 9b).
+- ``model``: everything intra-layer: the program's annotations over it
+  run as Megatron tensor parallelism (parallel/tensor_parallel.py). The
+  ranks of one model group feed the same rows.
 - ``pipe``: pipeline stages (item 9c).
+
+The ranks lay out row-major over (batch, model, pipe): rank
+b * model * pipe + m * pipe + p, so a model group is `model` consecutive
+ranks.
 
 Legacy axis names (``dp``, ``tp``, ``sp``, ``ep``, ``pp``) canonicalize
 as in the JAX package: dp->batch, tp/sp/ep->model, pp->pipe. A
@@ -78,8 +83,6 @@ _LEGACY = {
     "pipe": "pipe",
 }
 
-# the queue item each not-yet-ported axis waits for
-_AXIS_ITEM = {"model": "9b", "pipe": "9c"}
 
 
 class P(tuple):
@@ -199,18 +202,17 @@ def _world():
 
 def build_mesh(batch=None, model=1, pipe=1, device_type=None) -> Mesh:
     """THE mesh: axes ('batch', 'model', 'pipe'), all present. batch=None
-    takes every rank of the default process group (1 without one). A
-    1x1x1 mesh without a process group, or asked for under a larger one,
-    has no DeviceMesh; any other mesh spans the whole group, on
-    `device_type` (default: "cuda" under NCCL, else "cpu")."""
+    takes every rank of the default process group over model * pipe (1
+    without one). A 1x1x1 mesh without a process group, or asked for under
+    a larger one, has no DeviceMesh; any other mesh spans the whole group,
+    on `device_type` (default: "cuda" under NCCL, else "cpu"). pipe > 1
+    raises (ROADMAP Queue 1 item 9c)."""
     model = max(1, int(model))
     pipe = max(1, int(pipe))
-    for axis, size in (("model", model), ("pipe", pipe)):
-        if size > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis}={size}: the port's mesh has the batch axis "
-                f"alone so far ({axis} parallelism is ROADMAP Queue 1 item "
-                f"{_AXIS_ITEM[axis]})")
+    if pipe > 1:
+        raise NotImplementedError(
+            f"a mesh with pipe={pipe}: pipeline stages are not ported yet "
+            "(ROADMAP Queue 1 item 9c)")
     world = _world()
     if batch is None:
         batch = max(1, (world or 1) // (model * pipe))

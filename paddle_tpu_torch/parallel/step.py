@@ -24,6 +24,18 @@ and fetch set, and read by `Executor._run_walk`:
   Lamb's trust ratio needs the whole parameter: its accumulators stay
   replicated.
 
+- autoshard: the shard_propagation pass's planned specs (the Program's
+  `_autoshard_specs`) are merged over the ZeRO-1 flag's assignment; the
+  planner's P('batch') accumulators go the ZeRO-1 way;
+- tensor parallelism: on a mesh whose model axis is larger than 1, the
+  layout plan of parallel/tensor_parallel.py rewrites a clone of the
+  Program and runs every op under its rule. The startup's whole tensors
+  are cut into each rank's chunks as the step first reads them; the scope
+  keeps sharded state as DTensors (Shard(d) on `model`, with ZeRO-1's
+  Shard(0) on `batch`: an accumulator whose model split is on dim 0
+  keeps its model chunk whole); a fetch of a sharded var is gathered
+  along its dim. The ranks of one model group feed the same rows.
+
 Without a DeviceMesh (the 1x1x1 mesh with no process group) the plan adds
 nothing, and the walk is `Executor.run`'s. With a one-rank process group
 every collective runs and changes no bit.
@@ -35,7 +47,9 @@ import numpy as np
 import torch
 
 from ..framework import GRAD_SUFFIX, Parameter
-from .mesh import named_sharding, zero1_accumulators
+from ..ops.registry import lower_forward_op, lower_op
+from ..scope import full_value
+from .mesh import canonicalize_spec, named_sharding, zero1_accumulators
 
 __all__ = ["MeshPlan"]
 
@@ -53,8 +67,16 @@ def _is_dtensor(value) -> bool:
 
 
 class MeshPlan:
-    def __init__(self, mesh, program, fetch_names, zero1=False):
+    def __init__(self, mesh, program, fetch_names, zero1=False, specs=None):
+        """`specs`: planned PartitionSpecs (autoshard) merged over the
+        zero1 flag's."""
         self.mesh = mesh
+        self.tp = None
+        if mesh.shape["model"] > 1 and mesh.device_mesh is not None:
+            from .tensor_parallel import TensorParallelPlan
+
+            self.tp = TensorParallelPlan(mesh, program)
+            program = self.tp.program
         self.program = program
         self.fetch_names = list(fetch_names)
         self.group = mesh.group("batch")
@@ -73,8 +95,12 @@ class MeshPlan:
         # ZeRO-1: the accumulators an element-wise optimizer op updates
         self.zero1 = {}
         self.zero1_ops = {}
-        if zero1 and self.ranks > 1 and self.group is not None:
-            specs = zero1_accumulators(block, state, self.ranks)
+        planned = {n: sp for n, sp in (specs or {}).items()
+                   if tuple(canonicalize_spec(sp))[:1] == ("batch",)}
+        if (zero1 or planned) and self.ranks > 1 and self.group is not None:
+            specs = zero1_accumulators(block, state, self.ranks) if zero1 else {}
+            specs.update(planned)
+            model0 = {n for n, d in (self.tp.state if self.tp else {}).items() if d == 0}
             for op in ops:
                 slots = _ELEMENTWISE.get(op.type)
                 if slots is None:
@@ -82,13 +108,22 @@ class MeshPlan:
                 entries = []
                 for i, (p, g) in enumerate(zip(op.input("Param"), op.input("Grad"))):
                     accs = [op.input(s)[i] for s in slots if op.input(s)]
-                    if accs and all(a in specs for a in accs):
+                    if accs and all(a in specs and a not in model0 for a in accs):
                         entries.append((p, g, op.output("ParamOut")[i]))
                         for a in accs:
                             shape = block._find_var_recursive(a).shape
                             self.zero1[a] = named_sharding(mesh, specs[a], tuple(shape))
                 if entries:
                     self.zero1_ops[id(op)] = entries
+        # every persistable laid out other than replicated: its placements
+        self.placements = {}
+        from torch.distributed.tensor import Replicate, Shard
+
+        for n in set(self.zero1) | set(self.tp.state if self.tp else ()):
+            pl = list(self.zero1.get(n, (Replicate(),) * 3))
+            if self.tp is not None and n in self.tp.state:
+                pl[1] = Shard(self.tp.state[n])
+            self.placements[n] = tuple(pl)
         # each param grad's all-reduce (or reduce-scatter) point: before the
         # first op after its last writer that reads it, else at the end
         params = {v.name for v in block.vars.values()
@@ -115,9 +150,32 @@ class MeshPlan:
         return self.group is not None
 
     def bind(self, ctx):
-        """The LoweringContext's view of the batch group."""
+        """The LoweringContext's view of the batch and model groups."""
         if self.active:
             ctx.batch_group, ctx.batch_rank, ctx.batch_ranks = self.group, self.rank, self.ranks
+        if self.tp is not None:
+            ctx.model_group, ctx.model_rank = self.tp.group, self.tp.rank
+            ctx.model_ranks, ctx.model_dims = self.tp.ranks, self.tp.dims
+
+    def is_sharded(self, name) -> bool:
+        """Whether the scope keeps `name` as a DTensor of this rank's part."""
+        return name in self.placements
+
+    # -- the walk ------------------------------------------------------------
+    def lower_forward(self, ctx, op, users):
+        """A forward op of a training step (lower_forward_op), under its
+        tensor-parallel rule."""
+        if self.tp is None:
+            lower_forward_op(ctx, op, users)
+        else:
+            lower_forward_op(ctx, op, users, lower=self.tp.wrap_lower(lower_op))
+
+    def lower_plain(self, ctx, op):
+        """An op of an inference walk, under its tensor-parallel rule."""
+        if self.tp is None:
+            lower_op(ctx, op)
+        else:
+            self.tp.run(ctx, op, lower_op)
 
     # -- gradients -----------------------------------------------------------
     def before_op(self, values, i):
@@ -174,6 +232,8 @@ class MeshPlan:
     def lower_optimizer(self, ctx, op, lower):
         """Run optimizer `op` through `lower(ctx, op)`; for its ZeRO-1
         parameters on the rank's rows, the new rows all-gathered."""
+        if self.tp is not None:
+            lower = self.tp.wrap_lower(lower)
         entries = self.zero1_ops.get(id(op))
         if entries is None:
             lower(ctx, op)
@@ -194,31 +254,37 @@ class MeshPlan:
                 ctx.values[n] = t
 
     def local_state(self, name, value):
-        """A scope value as this rank's step reads it: a ZeRO-1
-        accumulator's rows (a whole tensor left by an earlier run is
-        resharded here), any other DTensor's whole value."""
-        if name in self.zero1:
+        """A scope value as this rank's step reads it: a sharded var's part
+        (its model chunk, and of that its ZeRO-1 rows; a whole tensor left
+        by the startup or an earlier run is cut here), any other DTensor's
+        whole value."""
+        pl = self.placements.get(name)
+        if pl is not None:
             if _is_dtensor(value):
                 if (value.device_mesh is self.mesh.device_mesh
-                        and tuple(value.placements) == self.zero1[name]):
+                        and tuple(value.placements) == pl):
                     return value.to_local()
-                value = value.full_tensor()
+                value = full_value(value)
             elif not isinstance(value, torch.Tensor):  # a host array
                 value = torch.as_tensor(np.asarray(value))
-            return self._rows(value).clone()
+            if self.tp is not None:
+                value = self.tp.chunk(name, value)
+            if name in self.zero1:
+                value = self._rows(value)
+            return value.clone()
         if _is_dtensor(value):
-            return value.full_tensor()
+            return full_value(value)
         return value
 
     def wrap_state(self, name, value):
-        """A persistable as the scope keeps it: a ZeRO-1 accumulator as a
-        DTensor of this rank's rows."""
-        if name not in self.zero1:
+        """A persistable as the scope keeps it: a sharded var as a DTensor
+        of this rank's part."""
+        pl = self.placements.get(name)
+        if pl is None:
             return value
         from torch.distributed.tensor import DTensor
 
-        return DTensor.from_local(value, self.mesh.device_mesh, self.zero1[name],
-                                  run_check=False)
+        return DTensor.from_local(value, self.mesh.device_mesh, pl, run_check=False)
 
     # -- fetches -------------------------------------------------------------
     def fetch(self, name, value):
@@ -229,7 +295,10 @@ class MeshPlan:
         if name in self.batch_fetch or name in self.zero1 or name in self.scatter:
             parts = [torch.empty_like(value) for _ in range(self.ranks)]
             dist.all_gather(parts, value.contiguous(), group=self.group)
-            return torch.cat(parts, dim=0)
+            value = torch.cat(parts, dim=0)
+            return value if self.tp is None else self.tp.gather(name, value)
+        if self.tp is not None:
+            value = self.tp.gather(name, value)
         out = value.detach().clone()
         if out.dtype == torch.bool:  # true on any rank
             out = out.to(torch.uint8)

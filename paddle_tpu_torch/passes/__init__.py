@@ -34,6 +34,13 @@ order:
                    BuildStrategy.optimizer_overlap): split each fused wave
                    by where its members' grads are final
                    (passes/optimizer_overlap.py)
+  * shard_propagation  OPT-IN (PADDLE_TPU_AUTOSHARD=1 or
+                   BuildStrategy.auto_shard; the variable wins): on a mesh
+                   run over more than one device, the autoshard planner's
+                   spec assignment attached to the clone as
+                   `_autoshard_specs`, which the mesh run places
+                   (passes/shard_propagation.py). Resolved last, and part
+                   of `cache_signature()` only while enabled.
 
 Selection: BuildStrategy knobs (compiler.py) choose the default set; the
 PADDLE_TPU_PASSES environment variable overrides them ("all", "none" / "",
@@ -43,10 +50,9 @@ time and op counts are always-on profiler counters (pass_<name>_us,
 pass_<name>_ops_removed, pass_manager_us, program_ops_before / _after).
 
 Not ported with this module: the IR verifier hook (PADDLE_TPU_VERIFY in
-the JAX package), which needs `analysis/verifier.py` and the static shape
-functions of `ops/shape_fns.py` (ROADMAP Queue 1, item 11); and
-`shard_propagation`, which needs the autoshard planner and a mesh (Queue
-1, item 9).
+the JAX package), which needs the IR verifier of `analysis/verifier.py`
+and the static shape functions of `ops/shape_fns.py` (ROADMAP Queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -78,11 +84,16 @@ _PASS_ORDER: list[str] = []  # registration order == execution order
 class PassContext:
     """Per-application context handed to every pass. `scope` is the
     executor's scope when the caller has one (fuse_conv_bn reads the
-    parameter values through it, with `read_scope`); passes tolerate
+    parameter values through it, with `read_scope`); `build_strategy`,
+    `mesh` and `feed_sig` ride along for shard_propagation (the planner
+    needs the run's mesh shape). Passes tolerate all of them being
     None."""
 
-    def __init__(self, scope=None):
+    def __init__(self, scope=None, build_strategy=None, mesh=None, feed_sig=None):
         self.scope = scope
+        self.build_strategy = build_strategy
+        self.mesh = mesh
+        self.feed_sig = feed_sig
         # set by a pass that changed the program without a net change of
         # its op count (layout_opt may only rewrite attrs), so the manager
         # keeps the rewritten clone
@@ -140,8 +151,10 @@ def _opt_in_gates():
     up lazily: the gate modules import this package."""
     from .fuse_layer_scan import enabled as _scan_on
     from .optimizer_overlap import enabled as _overlap_on
+    from .shard_propagation import autoshard_enabled as _autoshard_on
 
-    return {"fuse_layer_scan": _scan_on, "optimizer_overlap": _overlap_on}
+    return {"fuse_layer_scan": _scan_on, "optimizer_overlap": _overlap_on,
+            "shard_propagation": _autoshard_on}
 
 
 def resolve_pass_names(build_strategy=None) -> tuple:
@@ -216,8 +229,11 @@ def apply_program_passes(
     fetch_names,
     build_strategy=None,
     scope=None,
+    mesh=None,
+    feed_sig=None,
 ):
-    """Run the enabled passes over a clone of `program`. Returns
+    """Run the enabled passes over a clone of `program` (`mesh`: the mesh
+    of a CompiledProgram's run, for shard_propagation). Returns
     (program, block, stats): the original objects (stats None) when no
     pass is enabled, or with stats when nothing changed."""
     names = resolve_pass_names(build_strategy)
@@ -228,7 +244,8 @@ def apply_program_passes(
     ops_before = len(block.ops)
     stats = {"ops_before": ops_before, "passes": {}}
     total_removed = 0
-    ctx = PassContext(scope=scope)
+    ctx = PassContext(scope=scope, build_strategy=build_strategy, mesh=mesh,
+                      feed_sig=feed_sig)
     with profiler.time_counter("pass_manager"):
         for name in names:
             fn, _, _ = PASS_REGISTRY[name]
@@ -256,7 +273,8 @@ def apply_program_passes(
 # them), then NHWC layout propagation (on the cleaned graph), then the
 # opt-in layer scan (the backward run must see the raw per-parameter grad
 # producers), then optimizer fusion (on the final op list), then the
-# opt-in overlap split of the fused waves
+# opt-in overlap split of the fused waves; shard_propagation last: it plans
+# on the graph the other rewrites produced, and only while autoshard is on
 from . import const_fold as _const_fold  # noqa: E402,F401
 from . import copy_prop as _copy_prop  # noqa: E402,F401
 from . import dce as _dce  # noqa: E402,F401
@@ -265,3 +283,4 @@ from . import layout_opt as _layout_opt  # noqa: E402,F401
 from . import fuse_layer_scan as _fuse_layer_scan  # noqa: E402,F401
 from . import fuse_optimizer as _fuse_optimizer  # noqa: E402,F401
 from . import optimizer_overlap as _optimizer_overlap  # noqa: E402,F401
+from . import shard_propagation as _shard_propagation  # noqa: E402,F401

@@ -19,12 +19,28 @@ __all__ = ["Scope", "global_scope", "scope_guard", "to_numpy", "full_value"]
 
 
 def full_value(value):
-    """A DTensor's whole value (an all-gather on its mesh); any other value
-    as it is."""
-    full = getattr(value, "full_tensor", None)
-    if full is not None and hasattr(value, "placements"):
-        return full()
-    return value
+    """A DTensor's whole value; any other value as it is. Each sharded
+    mesh dim is all-gathered through its c10d group, the innermost first
+    (the inverse of DTensor's left-to-right sharding): DTensor.full_tensor
+    goes through the functional collectives, which crash under gloo with
+    CUDA tensors (torch 2.11)."""
+    if not hasattr(value, "placements") or not hasattr(value, "to_local"):
+        return value
+    if not all(pl.is_shard() or pl.is_replicate() for pl in value.placements):
+        return value.full_tensor()
+    import torch.distributed as dist
+
+    mesh = value.device_mesh
+    out = value.to_local()
+    for i in reversed(range(mesh.ndim)):
+        pl = value.placements[i]
+        if not pl.is_shard():
+            continue
+        group = mesh.get_group(i)
+        parts = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, out.contiguous(), group=group)
+        out = torch.cat(parts, dim=pl.dim)
+    return out
 
 
 def to_numpy(value) -> np.ndarray:

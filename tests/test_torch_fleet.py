@@ -8,11 +8,22 @@ and the worker spawn command and environment name the port's server, the
 card by default, and no JAX variable.
 
 Nothing here spawns a worker: the subprocess fleets are
-tests/test_torch_fleet_serving.py."""
+tests/test_torch_fleet_serving.py.
+
+The collective fleet (paddle_tpu_torch/incubate/fleet/, the last section):
+tests/test_fleet.py's three tests on the port. The role makers read the
+PADDLE_* contract as the JAX ones do; the single-process flow's losses
+(fleet.init, distributed_optimizer(SGD), minimize, 3 steps from the JAX
+startup's values) match the JAX package's at rtol 1e-5, and under a
+one-rank gloo group (the fleet path: a CompiledProgram over the
+strategy's mesh) equal the plain walk's bit for bit; the port's launcher
+spawns its workers with the contract's env."""
 
 import socket
 import sys
 import time
+
+import numpy as np
 
 import pytest
 from hypothesis import given, settings
@@ -534,3 +545,181 @@ def test_main_is_the_jax_cli(monkeypatch):
     assert seen["port"][1]["worker_device"] == "cuda"
     with pytest.raises(SystemExit):
         tfleet.main(["--model-dir", "M", "--device", "tpu"])
+
+
+# -- the collective fleet (incubate/fleet) -----------------------------------------
+
+
+def test_collective_role_maker_env_contract(monkeypatch):
+    from paddle_tpu.incubate.fleet.base import role_maker as jrm
+
+    from paddle_tpu_torch.incubate.fleet.base import role_maker as trm
+
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "2")
+    monkeypatch.setenv("PADDLE_TRAINER_ENDPOINTS", "10.0.0.1:6170,10.0.0.2:6170,10.0.0.3:6170")
+    monkeypatch.setenv("TRAINING_ROLE", "TRAINER")
+    answers = []
+    for rm_mod in (trm, jrm):
+        rm = rm_mod.PaddleCloudRoleMaker()
+        rm.generate_role()
+        answers.append((rm.worker_index(), rm.worker_num(), rm.is_first_worker(),
+                        rm.is_worker(), rm.get_trainer_endpoints()))
+    assert answers[0] == answers[1] == (2, 3, False, True, ["10.0.0.1:6170", "10.0.0.2:6170",
+                                                           "10.0.0.3:6170"])
+    monkeypatch.setenv("TRAINING_ROLE", "PSERVER")
+    rm = trm.PaddleCloudRoleMaker()
+    rm.generate_role()
+    assert rm.is_server() and not rm.is_worker()
+    ud = trm.UserDefinedRoleMaker(current_id=1, worker_num=2)
+    assert ud.get_trainer_endpoints() == ["127.0.0.1:6170", "127.0.0.1:6171"]
+    assert ud.worker_index() == 1 and not ud.is_first_worker()
+
+
+def _fleet_flow(pkg, opt_name="sgd"):
+    """(main, startup, loss, strategy, fleet) of the flow in `pkg`'s fleet."""
+    import importlib
+
+    fluid = importlib.import_module(pkg)
+    coll = importlib.import_module(pkg + ".incubate.fleet.collective")
+    rmm = importlib.import_module(pkg + ".incubate.fleet.base.role_maker")
+    rm = rmm.UserDefinedRoleMaker(current_id=0, role=rmm.Role.WORKER, worker_num=1)
+    coll.fleet.init(rm)
+    assert coll.fleet.is_first_worker() and coll.fleet.worker_num() == 1
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 3
+    with fluid.program_guard(main, startup), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [8])
+        y = fluid.layers.data("y", [1])
+        pred = fluid.layers.fc(x, 1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        strategy = coll.DistributedStrategy()
+        opt = coll.fleet.distributed_optimizer(fluid.optimizer.SGD(0.1), strategy)
+        assert isinstance(opt, coll.CollectiveOptimizer)
+        opt.minimize(loss)
+    assert main._fleet_strategy is strategy
+    return fluid, main, startup, loss, strategy
+
+
+def _fleet_feeds():
+    """One batch, three steps (the loss must fall)."""
+    rng = np.random.RandomState(0)
+    return [(rng.randn(16, 8).astype("float32"), rng.randn(16, 1).astype("float32"))] * 3
+
+
+def _port_fleet_losses(init):
+    import torch
+
+    fluid, main, startup, loss, _ = _fleet_flow("paddle_tpu_torch")
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    for n, v in init.items():
+        scope.set(n, torch.from_numpy(v.copy()))
+    losses = [float(exe.run(main, feed={"x": xv, "y": yv}, fetch_list=[loss], scope=scope)[0]
+                    .reshape(-1)[0]) for xv, yv in _fleet_feeds()]
+    return losses, "_fleet_compiled" in main.__dict__
+
+
+def test_collective_fleet_single_process_flow_matches_jax(tmp_path):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    jfluid, jmain, jstartup, jloss, _ = _fleet_flow("paddle_tpu")
+    exe = jfluid.Executor(jfluid.CPUPlace())
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        exe.run(jstartup)
+        init = {v.name: np.asarray(scope.get(v.name)) for v in jmain.list_vars()
+                if v.persistable and scope.has(v.name) and scope.get(v.name) is not None}
+        # 8 virtual CPU devices: the JAX fleet path runs the strategy's mesh
+        j_losses = [float(np.asarray(exe.run(jmain, feed={"x": xv, "y": yv},
+                                             fetch_list=[jloss])[0]).reshape(-1)[0])
+                    for xv, yv in _fleet_feeds()]
+    plain, via_fleet = _port_fleet_losses(init)
+    assert not via_fleet  # no process group: the plain walk
+    # run_repeated refuses a fleet program, as the JAX one does
+    tfluid, tmain, tstartup, tloss, _ = _fleet_flow("paddle_tpu_torch")
+    with pytest.raises(TypeError, match="fleet"):
+        tfluid.Executor(tfluid.CPUPlace()).run_repeated(tmain, fetch_list=[tloss], steps=2)
+    np.testing.assert_allclose(plain, j_losses, rtol=1e-5)
+    assert plain[-1] < plain[0]
+    # under a process group the fleet path runs: a CompiledProgram over the
+    # strategy's mesh, bit-equal to the plain walk on one rank
+    old = tmesh.current_mesh()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        grouped, via_fleet = _port_fleet_losses(init)
+    finally:
+        dist.destroy_process_group()
+        tmesh.set_current_mesh(old)
+    assert via_fleet and grouped == plain
+
+
+def test_collective_launcher_spawns_with_env(tmp_path):
+    import os
+
+    from paddle_tpu_torch.distributed.launch import _parse_args, launch
+
+    script = tmp_path / "probe.py"
+    script.write_text("import os\n"
+                      "print(os.environ['PADDLE_TRAINER_ID'], os.environ['PADDLE_TRAINERS_NUM'],"
+                      " os.environ['PADDLE_CURRENT_ENDPOINT'])\n")
+    logd = str(tmp_path / "logs")
+    assert launch(_parse_args(["--nproc_per_node", "2", "--log_dir", logd, str(script)])) == 0
+    outs = sorted(os.listdir(logd))
+    assert outs == ["workerlog.0", "workerlog.1"]
+    lines = [open(os.path.join(logd, f)).read().strip() for f in outs]
+    assert lines[0].startswith("0 2 127.0.0.1:6170")
+    assert lines[1].startswith("1 2 127.0.0.1:6171")
+
+
+def test_collective_strategy_refuses_the_knobs_the_mesh_step_lacks():
+    from paddle_tpu.incubate.fleet.collective import DistributedStrategy as JStrategy
+    from paddle_tpu_torch.incubate.fleet.collective import DistributedStrategy
+
+    st, jst = DistributedStrategy(), JStrategy()
+    knobs = ("use_local_sgd", "nccl_comm_num", "use_hierarchical_allreduce", "use_amp")
+    assert [getattr(st, k) for k in knobs] == [getattr(jst, k) for k in knobs]
+    # the defaults may be set again; any other value names what the mesh
+    # step does instead
+    st.use_local_sgd, st.nccl_comm_num, st.use_hierarchical_allreduce = False, 1, False
+    for name, value, says in (("use_local_sgd", True, "every step"),
+                              ("nccl_comm_num", 2, "one communicator"),
+                              ("use_hierarchical_allreduce", True, "flat all-reduce")):
+        with pytest.raises(NotImplementedError, match=says):
+            setattr(st, name, value)
+        assert getattr(st, name) == getattr(jst, name)
+    st.use_amp = True
+    st.tp = 2
+    assert st.use_amp and st.tp == 2
+
+
+def test_collective_fleet_program_follows_a_new_process_group(tmp_path):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.parallel import mesh as tmesh
+
+    fluid, main, startup, loss, _ = _fleet_flow("paddle_tpu_torch")
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    xv, yv = _fleet_feeds()[0]
+    old = tmesh.current_mesh()
+    seen = []
+    try:
+        for i in range(2):
+            dist.init_process_group("gloo", init_method=f"file://{tmp_path / f'store{i}'}",
+                                    rank=0, world_size=1)
+            try:
+                exe.run(main, feed={"x": xv, "y": yv}, fetch_list=[loss], scope=scope)
+                group, _, cp = main._fleet_compiled
+                assert group is dist.group.WORLD
+                seen.append(cp)
+            finally:
+                dist.destroy_process_group()
+    finally:
+        tmesh.set_current_mesh(old)
+    # the second group gets its own CompiledProgram over its own mesh
+    assert seen[0] is not seen[1]

@@ -235,7 +235,7 @@ def test_passes_and_compiler_load_neither_jax_nor_paddle_tpu():
         f"paddle_tpu_torch.passes.{p.stem}"
         for p in sorted((ROOT / "paddle_tpu_torch" / "passes").glob("*.py"))
         if p.stem != "__init__"]
-    assert len(mods) == 10
+    assert len(mods) == 11  # shard_propagation is the eleventh
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -291,7 +291,7 @@ def test_resilience_modules_load_neither_jax_nor_paddle_tpu(tmp_path, monkeypatc
              for p in sorted((pkg / d).glob("*.py"))]
     mods = sorted({"paddle_tpu_torch." + ".".join(
         f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
-    assert len(mods) == 11
+    assert len(mods) == 17  # with the planner's modules, __main__ among them
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -324,17 +324,18 @@ def test_resilience_modules_load_neither_jax_nor_paddle_tpu(tmp_path, monkeypatc
 
 
 def test_parallel_and_compiler_load_neither_jax_nor_paddle_tpu():
-    """parallel/ (the mesh, its api and the mesh step's plan) and
-    compiler.py (CompiledProgram): the port's own copies, importing
-    neither package; a CompiledProgram's entry points run on the card
-    unless the caller asks for the CPU."""
+    """parallel/ (the mesh, its api, the mesh step's plan and the
+    tensor-parallel layout plan) and compiler.py (CompiledProgram): the
+    port's own copies, importing neither package; a CompiledProgram's
+    entry points run on the card unless the caller asks for the CPU."""
     pkg = ROOT / "paddle_tpu_torch"
     files = sorted((pkg / "parallel").glob("*.py")) + [pkg / "compiler.py"]
     mods = sorted({"paddle_tpu_torch." + ".".join(
         f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
     assert mods == ["paddle_tpu_torch.compiler", "paddle_tpu_torch.parallel",
                     "paddle_tpu_torch.parallel.api", "paddle_tpu_torch.parallel.mesh",
-                    "paddle_tpu_torch.parallel.step"]
+                    "paddle_tpu_torch.parallel.step",
+                    "paddle_tpu_torch.parallel.tensor_parallel"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -379,6 +380,40 @@ def test_static_step_loads_neither_jax_nor_paddle_tpu_nor_the_dygraph_jit():
         "(l,) = exe.run_repeated(main, feed={'x': np.ones((4, 3), 'float32')},\n"
         "                        fetch_list=[loss], steps=3, scope=scope)\n"
         "assert l.shape == (3, 1)\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_fleet_analysis_and_autoshard_load_neither_jax_nor_paddle_tpu_nor_cuda():
+    """incubate/fleet/ (role makers, the collective fleet), analysis/,
+    autoshard/ and the shard_propagation pass import neither package; and
+    importing paddle_tpu_torch.autoshard and planning a Program leaves
+    torch.cuda uninitialized (the JAX package's no-device-in-autoshard
+    rule)."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = (sorted((pkg / "incubate" / "fleet").rglob("*.py"))
+             + sorted((pkg / "analysis").glob("*.py")) + sorted((pkg / "autoshard").glob("*.py"))
+             + [pkg / "passes" / "shard_propagation.py"])
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if m.startswith("torch.cuda")] == []
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import paddle_tpu_torch.autoshard as autoshard\n"
+        "import paddle_tpu_torch.incubate.fleet.collective\n"
+        "from paddle_tpu_torch.autoshard.__main__ import build_program\n"
+        "program, feeds = build_program('bert')\n"
+        "plan = autoshard.plan_program(program, autoshard.Topology(chips=8), feeds=feeds)\n"
+        "assert plan.cost.feasible\n"
+        "assert not torch.cuda.is_initialized()\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )

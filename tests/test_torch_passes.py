@@ -228,8 +228,11 @@ def test_resnet50_eval_clone_folds_like_jax():
 
 
 def test_registry_has_the_passes():
+    # the opt-in passes: the overlap split, the layer scan and (since the
+    # autoshard planner is ported) shard_propagation
     assert set(PASS_REGISTRY) == set(DEFAULT_PASSES) | {"optimizer_overlap",
-                                                        "fuse_layer_scan"}
+                                                        "fuse_layer_scan",
+                                                        "shard_propagation"}
     assert resolve_pass_names() == DEFAULT_PASSES
 
 
