@@ -121,7 +121,7 @@
             placeholder and served in-process by a batch-of-1 server
             (max_queue 16) and a coalescing one (10 ms window, buckets 1..64,
             max_queue 256, every bucket prewarmed); 64 client threads in a
-            closed loop, 256 one-row requests of seeded lengths a server
+            closed loop, 128 one-row requests of seeded lengths a server
             (a shed request sent again after its Retry-After):
             requests/s, p50, p99, requests a dispatch over the run (>= 1.5
             or the run fails) beside serve_batch_size_p50, dispatches, padded rows, 12 short forward launches a
@@ -152,7 +152,7 @@
             registry-less server's, with X-Model alt to alt's predictor.run
             and within 1e-3 of alt on the CPU; an unknown X-Model 404
             NoSuchModel. (b) 32 bulk clients on alt and 8 gold on main in two
-            processes, closed loops of 128 requests a class (a shed sent
+            processes, closed loops of 64 requests a class (a shed sent
             again after its Retry-After); a first round with all 40 clients
             connecting at once, reported (replies by code, p50, slowest);
             then each class's clients started over 1 s: every reply 200,
@@ -332,19 +332,42 @@
             one-device walk at 5b's card-vs-CPU gates, #1, #7 and #8
             launched 12, 12 and 26 times a step on each rank (rank 1's
             attention over heads 6-11 of 12); each rank's step p50
-24. result  a `{"kernels": [...]}` JSON line (each attention kernel with its
-            seed-pointer launches and its half-head launches of phase 3), the
+24. sequence  sequence and expert parallelism (sequence_phase), under
+            deterministic algorithms: (a) ring attention alone (b 1, 12 heads,
+            s 8192, d 64, n 4; fp32 and bf16, causal and not, a key bias,
+            dropout 0 and 0.1): one pass launches #3 and #4-#5 once a chunk
+            pair (10 causal), out, lse and grads against ring_attention_plain
+            at phase 3's gates, with dropout 0 against one whole #3 / #4-#5
+            launch, with dropout two passes bit-equal; s 1000 (chunks of 250).
+            (b)-(d) on two processes sharing the card over gloo (a batch 1 x
+            model 2 mesh, CUDA tensors, the ring's hops staged through pinned
+            host memory; started with phase 23, they import meanwhile), 3
+            steps an arm: (b) BERT-base pretraining (fp32,
+            max_position 4096, b 1, s 4096, hidden dropout 0.1, Adam) with
+            PADDLE_TPU_SP_MODE unset, so the auto-default takes the ring: 12
+            ring dispatches a step on each rank, 24 #3, 24 #4-#5 and 26 #8;
+            (c) the same under PADDLE_TPU_SP_MODE=ulysses, its losses within
+            rtol 1e-4 of (b)'s; (d) the MoE model of tests/test_moe_layer.py at
+            Transformer-base width (d 512, d_ff 2048, 8 experts, k 2, capacity
+            2.0, 4096 tokens, Adam), 4 experts a rank. Each arm against its
+            one-device walk at 5b's card-vs-CPU gates, every parameter but the
+            experts replicated and bit-identical on both ranks; each arm's step
+            p50 beside the walk's
+25. result  a `{"kernels": [...]}` JSON line (each attention kernel with its
+            seed-pointer launches and its half-head launches of phase 3, and
+            the flash kernels with phase 24 (a)'s ring passes), the
             nvidia-smi line, and last `{"ok": true, "device": {...}}`
 
 Each main path (serve, train, amp, full, fp16, long, fused, resnet,
 transformer, decode, recompute, scan, conv, serve_b1, serve_coalesced,
 serve_registry, serve_fleet, dygraph, data, resilience, mesh, repeated,
-collective) runs with every
+collective, sequence) runs with every
 launch count set to 0 just before it and read just after (serve_fleet: each
 worker's counts read from its /healthz before and after, the difference taken;
 data: each BERT arm's counts, summed; resilience: each step's counts in every
 arm and worker attempt, summed; mesh: the three mesh arms; collective: its
-three arms and (e)'s two ranks, summed; repeated: the
+three arms and (e)'s two ranks, summed; sequence: (b)-(d) on both
+ranks, summed; repeated: the
 walks and each static step's discovery and capture, its replays read from
 torch.profiler); a kernel
 of the path that was not launched fails the run, and so does any launch
@@ -386,6 +409,8 @@ Run from the root of a checkout:
                                            # --only repeated); never prints ok
     python3 chip_smoke.py --phase 23       # phases 1 and 23 alone (also
                                            # --only collective); never prints ok
+    python3 chip_smoke.py --phase 24       # phases 1 and 24 alone (also
+                                           # --only sequence); never prints ok
 
 Imports torch, numpy, the standard library and paddle_tpu_torch only.
 """
@@ -436,11 +461,11 @@ PARITY_STEPS = 3  # card vs CPU steps of the 2-layer BERT at base width
 # with the batch, not the depth. Two rows, so that a fault that mixes rows
 # or misplaces a row's bias or padding shows against the CPU
 CPU_REF_BATCH = 2
-# the requests of a timed closed loop: phase 14a's (a server, 4 a client),
-# 16 (b)'s (a QoS class) and 17 (b)'s (a replica count). 16's and 17's are
-# fewer than before the collective phase: the script's time limit, not the
-# gates, set them
-SERVE_REQUESTS, QOS_REQUESTS, FLEET_REQUESTS = 256, 128, 128
+# the requests of a timed closed loop: phase 14a's (a server, 2 a client),
+# 16 (b)'s (a QoS class) and 17 (b)'s (a replica count). 14a's and 16's are
+# fewer than before the sequence phase, 16's and 17's than before the
+# collective phase: the script's time limit, not the gates, set them
+SERVE_REQUESTS, QOS_REQUESTS, FLEET_REQUESTS = 128, 64, 128
 LR = 1e-4
 FULL_LR = 1e-3  # Lamb's learning rate in the full-pretraining path (5c)
 # card vs CPU after PARITY_STEPS Adam steps: the losses within a relative
@@ -651,20 +676,23 @@ def main():
                     "never prints the ok line")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--only", choices=["dygraph", "data", "resilience", "mesh", "repeated",
-                                       "collective"],
+                                       "collective", "sequence"],
                     help="run phase 1 and this one phase only (phase 18, dygraph; "
                     "phase 19, data; phase 20, resilience; phase 21, mesh; phase 22, "
-                    "repeated; phase 23, collective); never prints the ok line")
-    ap.add_argument("--phase", choices=["18", "19", "20", "21", "22", "23"],
+                    "repeated; phase 23, collective; phase 24, sequence); never prints "
+                    "the ok line")
+    ap.add_argument("--phase", choices=["18", "19", "20", "21", "22", "23", "24"],
                     help="the same as --only, by the phase's number")
     # phase 20's supervised worker: the script re-invoked by the TrainSupervisor
     ap.add_argument("--resilience-worker", metavar="DIR", help=argparse.SUPPRESS)
     # phase 23 (e)'s tensor-parallel ranks
     ap.add_argument("--tp-worker", nargs=2, metavar=("DIR", "RANK"), help=argparse.SUPPRESS)
+    # phase 24 (b)-(d)'s sequence- and expert-parallel ranks
+    ap.add_argument("--seq-worker", nargs=2, metavar=("DIR", "RANK"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.phase:
         args.only = {"18": "dygraph", "19": "data", "20": "resilience", "21": "mesh",
-                     "22": "repeated", "23": "collective"}[args.phase]
+                     "22": "repeated", "23": "collective", "24": "sequence"}[args.phase]
     # whole lines as they come: a run cut by its time limit keeps its log
     sys.stdout.reconfigure(line_buffering=True)
     t_start = time.perf_counter()
@@ -680,6 +708,9 @@ def main():
     if args.tp_worker:
         return tp_worker(args.tp_worker[0], int(args.tp_worker[1]), args.seed,
                          args.cpu_rehearsal)
+    if args.seq_worker:
+        return seq_worker(args.seq_worker[0], int(args.seq_worker[1]), args.seed,
+                          args.cpu_rehearsal)
     kernel_build = None if args.cpu_rehearsal else start_kernel_build()
     import numpy as np
     import torch
@@ -776,6 +807,12 @@ def main():
         print(f"[result] launches on the collective path's run: {launches}")
         print("[result] collective: " + json.dumps(stats, default=str))
         print(f"[result] phase 23 alone passed (no ok line); {smi}")
+        return 0
+    if args.only == "sequence":
+        launches, stats, _ = sequence_phase(args.seed, rehearsal, smi)
+        print(f"[result] launches on the sequence path's run: {launches}")
+        print("[result] sequence: " + json.dumps(stats, default=str))
+        print(f"[result] phase 24 alone passed (no ok line); {smi}")
         return 0
 
     # ---- the passes: notes and the A/B of passes off against on ---------
@@ -3343,12 +3380,24 @@ def main():
     print("[result] repeated: " + json.dumps(repeated_stats, default=str))
 
     elapsed("phase 23")
-    # ---- 23. collective: fleet, ZeRO-1 + autoshard, the model-axis mesh, the planner
-    path_launches["collective"], collective_stats = collective_phase(args.seed, rehearsal, smi)
-    print("[result] collective: " + json.dumps(collective_stats, default=str))
+    # phase 24's ranks import while phase 23 runs
+    seq_started = start_seq_workers(args.seed, rehearsal)
+    try:
+        # ---- 23. collective: fleet, ZeRO-1 + autoshard, the model-axis mesh, the planner
+        path_launches["collective"], collective_stats = collective_phase(args.seed, rehearsal,
+                                                                         smi)
+        print("[result] collective: " + json.dumps(collective_stats, default=str))
 
-    elapsed("phase 24")
-    # ---- 24. result ------------------------------------------------------
+        elapsed("phase 24")
+        # ---- 24. sequence: the ring, Ulysses, the sequence layout, the expert rule
+        path_launches["sequence"], sequence_stats, ring_rows = sequence_phase(
+            args.seed, rehearsal, smi, seq_started)
+        print("[result] sequence: " + json.dumps(sequence_stats, default=str))
+    finally:
+        stop_seq_workers(seq_started)
+
+    elapsed("phase 25")
+    # ---- 25. result ------------------------------------------------------
     sources = {
         "mha_short_fwd": ("paddle_tpu_torch/ops/kernels/csrc/mha_short_fwd.cu",
                           "paddle_tpu/ops/pallas/mha_short.py:383"),
@@ -3401,6 +3450,9 @@ def main():
             "causal_launches": sum(c.get(name, 0) for c in causal_launches.values()),
             "seed_ptr": seed_ptr.get(name, []),
             "half_heads": half_heads.get(name, []),
+            # phase 24: its path's launches; (a)'s ring passes of the flash kernels
+            "sequence_launches": path_launches["sequence"][name],
+            **({"ring": ring_rows} if name in ("flash_fwd", "flash_bwd") else {}),
         })
     require(sorted(r["name"] for r in line) == sorted(kernels.LAUNCHES),
             "the result line must list every kernel")
@@ -4174,7 +4226,7 @@ def fleet_phase(seed, rehearsal, smi):
         fa.stop()
         fleets.remove(fa)
 
-        # (b) throughput by replica count: closed loops of 32 clients, 512
+        # (b) throughput by replica count: closed loops of 32 clients,
         # FLEET_REQUESTS (after 32 to warm each bucket), a 10 ms window, the clients
         # in a process of their own
         tput = {}
@@ -6625,6 +6677,516 @@ def _collective_phase(seed, rehearsal, smi):
     print(f"[time] phase 23 took {stats['wall_s']} s; launches over the collective path: "
           f"{path_launches}")
     return path_launches, stats
+
+
+# phase 24 (a): b, heads, s, head dim, chunks of the ring alone; and the
+# sequence whose chunks (250) are no multiple of the flash kernels' tile
+SEQ_RING, SEQ_RING_ODD = (1, 12, 8192, 64, 4), 1000
+SEQ_STEPS = 3  # phase 24 (b)-(d): steps an arm on the two ranks
+# phase 24 (d): d_model, d_ff, experts, k, capacity factor, tokens
+SEQ_MOE = (512, 2048, 8, 2, 2.0, 4096)
+# phase 24 (c) against (b): the JAX package's ring-vs-Ulysses gate
+# (tests/test_ulysses.py test_fused_op_ulysses_mode_matches_ring)
+ULYSSES_RTOL = 1e-4
+
+
+def sequence_cells(rehearsal):
+    """Phase 24's cells: (the ring alone (b, h, s, d, n), its odd sequence,
+    BERT's (BertConfig, b, s, max_preds), the MoE's (d, d_ff, E, k, cf,
+    tokens)); tiny on the CPU rehearsal."""
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    if rehearsal:
+        cfg = BertConfig.tiny()
+        cfg.attention_dropout = 0.0
+        return (1, 4, 64, 16, 4), 40, (cfg, 1, 32, 5), (16, 32, 4, 2, 2.0, 64)
+    cfg = BertConfig.base()
+    cfg.max_position, cfg.attention_dropout = 4096, 0.0
+    return SEQ_RING, SEQ_RING_ODD, (cfg, 1, 4096, 640), SEQ_MOE
+
+
+def moe_program(fluid, d, d_ff, experts, k, cf, seed):
+    """tests/test_moe_layer.py's model at (d, d_ff, experts): fc -> moe ->
+    residual, mse + 0.01 aux, Adam(LR) -> (main, startup, loss)."""
+    main_p, startup_p = fluid.Program(), fluid.Program()
+    main_p.random_seed = startup_p.random_seed = seed + 24
+    with fluid.program_guard(main_p, startup_p), fluid.unique_name.guard():
+        x = fluid.layers.data("x", [d], dtype="float32")
+        y = fluid.layers.data("y", [d], dtype="float32")
+        h = fluid.layers.fc(x, d, act="relu")
+        m, aux = fluid.layers.moe(h, num_experts=experts, d_ff=d_ff, capacity_factor=cf, k=k)
+        pred = fluid.layers.elementwise_add(h, m)
+        mse = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        loss = fluid.layers.reshape(
+            fluid.layers.elementwise_add(mse, fluid.layers.scale(aux, scale=0.01)), [1])
+        fluid.optimizer.Adam(LR).minimize(loss)
+    return main_p, startup_p, loss
+
+
+def seq_worker(work, rank, seed, rehearsal):
+    """Phase 24's rank `rank` of 2 (`chip_smoke.py --seq-worker DIR RANK`),
+    one of two processes sharing the card over a gloo group (a file://
+    store in DIR), as phase 23 (e)'s: waits for DIR/seq_go, then over a
+    batch 1 x model 2 mesh (a DeviceMesh("cuda")), each arm from its
+    startup state, SEQ_STEPS steps: (b) BERT-base pretraining at s 4096
+    with PADDLE_TPU_SP_MODE unset (the auto ring), (c) the same under
+    PADDLE_TPU_SP_MODE=ulysses, (d) the MoE model. Counts the launches and
+    the dispatch counters a step, hashes the state, gathers it, and on
+    rank 0 runs each one-device walk from the same state. Writes
+    DIR/seq_r{RANK}.json."""
+    import datetime
+    import faulthandler
+    import hashlib
+
+    faulthandler.enable()
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    t_enter = time.perf_counter()
+
+    def say(what):
+        print(f"[seq rank {rank}] {time.perf_counter() - t_enter:.1f} s: {what}", flush=True)
+
+    import numpy as np
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    from paddle_tpu_torch.scope import full_value
+
+    work = Path(work)
+    _, _, (cfg, b, s, p), (d, d_ff, experts, k, cf, tokens) = sequence_cells(rehearsal)
+    bert = collective_program(fluid, cfg, b, s, p, seed)
+    moe = moe_program(fluid, d, d_ff, experts, k, cf, seed)
+    rs = np.random.RandomState(seed + 24)
+    bert_feeds = [bert_pretrain_feed(np, rs, cfg, b, s, p) for _ in range(SEQ_STEPS)]
+    moe_feeds = []
+    for _ in range(SEQ_STEPS):
+        xv = rs.randn(tokens, d).astype("float32")
+        moe_feeds.append({"x": xv, "y": np.tanh(xv)[:, ::-1].copy()})
+    dist.init_process_group("gloo", init_method=f"file://{work / 'seq_store'}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    say("the gloo group is up; waiting for the go file")
+    t_wait, parent = time.perf_counter(), os.getppid()
+    while not (work / "seq_go").exists():
+        require(time.perf_counter() - t_wait < 900, "[seq worker] no go file in 900 s")
+        require(os.getppid() == parent, "[seq worker] the script that started it is gone")
+        time.sleep(0.05)
+    place = fluid.CPUPlace() if rehearsal else fluid.CUDAPlace(0)
+    if not rehearsal:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    mesh = mesh_mod.build_mesh(batch=1, model=2, device_type="cpu" if rehearsal else "cuda")
+    report = dict(rank=rank, mesh=dict(mesh.shape), model_rank=mesh.local_rank("model"),
+                  device_type=mesh.device_type, arms={})
+
+    def start(program):
+        main_p, startup_p, _ = program
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe.run(startup_p, scope=scope)
+        names = sorted(v.name for v in main_p.list_vars()
+                       if v.persistable and scope.has(v.name))
+        return {n: scope.get(n).detach().clone() for n in names}, exe._seed_counter
+
+    def steps(exe, prog, scope, loss, feeds):
+        losses, ms, per_step, dispatch = [], [], [], []
+        for f in feeds:
+            before, c0 = kernels.launch_counts(), dict(profiler.counters())
+            sync()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(prog, feed=dict(f), fetch_list=[loss], scope=scope,
+                            return_numpy=False)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(lv.detach().clone())
+            per_step.append({n: c - before[n] for n, c in kernels.launch_counts().items()})
+            c1 = profiler.counters()
+            dispatch.append({n: c1.get(n, 0) - c0.get(n, 0)
+                             for n in ("attn_dispatch_ring", "attn_dispatch_ulysses")})
+        return losses, ms, per_step, dispatch
+
+    def arm(tag, program, feeds, state0, counter0, mode):
+        main_p, _, loss = program
+        if mode is None:
+            os.environ.pop("PADDLE_TPU_SP_MODE", None)
+        else:
+            os.environ["PADDLE_TPU_SP_MODE"] = mode
+        try:
+            exe, scope = fluid.Executor(place), fluid.Scope()
+            exe._seed_counter = counter0
+            for n, t in state0.items():
+                scope.set(n, t.clone())
+            compiled = fluid.CompiledProgram(main_p).with_data_parallel(loss_name=loss.name)
+            compiled._mesh = mesh
+            kernels.reset_launch_counts()  # this arm's run on this rank
+            losses, ms, per_step, dispatch = steps(exe, compiled, scope, loss, feeds)
+            launches = kernels.launch_counts()
+        finally:
+            os.environ.pop("PADDLE_TPU_SP_MODE", None)
+        values = {n: scope.get(n) for n in state0}
+        sharded = {n: [repr(pl) for pl in v.placements] + [list(v.to_local().shape)]
+                   for n, v in values.items() if hasattr(v, "placements")}
+        hashes = {n: hashlib.sha256(v.detach().reshape(-1).cpu().view(torch.uint8).numpy()
+                                    ).hexdigest()
+                  for n, v in values.items() if n not in sharded}
+        gathered = {n: full_value(v) for n, v in values.items()}
+        dist.barrier()
+        rec = dict(losses=[float(x.reshape(-1)[0]) for x in losses], ms=ms, per_step=per_step,
+                   dispatch=dispatch, launches=launches, sharded=sharded, hashes=hashes,
+                   seed_counter=exe._seed_counter,
+                   placed_on=str(next(iter(gathered.values())).device))
+        say(f"({tag}) {rec['losses']}, {[round(x, 1) for x in ms]} ms")
+        del exe, scope, values, compiled
+        gc.collect()
+        return rec, gathered, losses
+
+    def walk(program, feeds, state0, counter0, gathered, arm_losses):
+        """The one-device walk from the arm's state -> the comparison."""
+        main_p, _, loss = program
+        exe, scope = fluid.Executor(place), fluid.Scope()
+        exe._seed_counter = counter0
+        for n, t in state0.items():
+            scope.set(n, t.clone())
+        plain, plain_ms, per_step, _ = steps(exe, main_p, scope, loss, feeds)
+        worst, worst_name, close, total = 0.0, None, 0, 0
+        for n in state0:
+            require(gathered[n].shape == scope.get(n).shape, f"[seq worker] {n}: shape")
+            diff = (gathered[n].float() - scope.get(n).float()).abs()
+            if float(diff.max()) > worst:
+                worst, worst_name = float(diff.max()), n
+            close += int((diff <= CLOSE_ATOL).sum())
+            total += diff.numel()
+        out = dict(plain_losses=[float(x.reshape(-1)[0]) for x in plain], plain_ms=plain_ms,
+                   plain_per_step=per_step,
+                   loss_rel=max(float((x - y).abs().max() / y.abs().max())
+                                for x, y in zip(arm_losses, plain)),
+                   worst_abs=worst, worst_name=worst_name, far_frac=1 - close / total,
+                   plain_seed_counter=exe._seed_counter)
+        del exe, scope
+        gc.collect()
+        return out
+
+    bert_state, bert_counter = start(bert)
+    for tag, mode in (("b", "ring" if rehearsal else None), ("c", "ulysses")):
+        rec, gathered, losses = arm(tag, bert, bert_feeds, bert_state, bert_counter, mode)
+        if rank == 0:
+            rec.update(walk(bert, bert_feeds, bert_state, bert_counter, gathered, losses))
+            say(f"({tag}) the one-device walk: {rec['plain_losses']}")
+        report["arms"][tag] = rec
+        del gathered, losses
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        dist.barrier()
+    del bert_state
+    moe_state, moe_counter = start(moe)
+    rec, gathered, losses = arm("d", moe, moe_feeds, moe_state, moe_counter, None)
+    if rank == 0:
+        rec.update(walk(moe, moe_feeds, moe_state, moe_counter, gathered, losses))
+        say(f"(d) the one-device walk: {rec['plain_losses']}")
+    report["arms"]["d"] = rec
+    dist.barrier()
+    dist.destroy_process_group()
+    (work / f"seq_r{rank}.json").write_text(json.dumps(report))
+    return 0
+
+
+def start_seq_workers(seed, rehearsal):
+    """Phase 24's two ranks (`chip_smoke.py --seq-worker DIR RANK`), started
+    ahead of the phase so that they import torch and the port and build
+    their Programs while earlier work runs; each waits for DIR/seq_go ->
+    (DIR, processes)."""
+    work = ROOT / "build" / "chip_smoke" / "sequence"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seq-worker", str(work), str(r),
+         "--seed", str(seed)] + (["--cpu-rehearsal"] if rehearsal else []),
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=open(work / f"seq_r{r}.log", "w"), stderr=subprocess.STDOUT) for r in range(2)]
+    return work, procs
+
+
+def stop_seq_workers(started):
+    """Kill what is left of start_seq_workers' processes."""
+    for proc in started[1]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def sequence_phase(seed, rehearsal, smi, started=None):
+    """Phase 24: sequence and expert parallelism on the card -> (launch
+    counts of the sequence path, the phase's result dict, the ring's rows
+    for the kernels line). Under deterministic algorithms (warn_only).
+    (a) the ring alone, in this process, while (b)-(d)'s two ranks (started
+    with phase 23 in the whole script, here otherwise) import:
+    b 1, 12 heads, s 8192, d 64, n 4, fp32 and bf16, causal and not, a key
+    bias (the last 512 keys padded), attention dropout 0 and 0.1: out, lse
+    and the grads against ring_attention_plain at phase 3's gates, with
+    dropout 0 against one whole #3 / #4-#5 launch within the same gates,
+    with dropout two passes bit-equal, one pass's #3 and #4-#5 launches a
+    pair each (10 a pass causal); and s 1000 (chunks of 250). (b)-(d) on
+    two processes sharing the card over gloo (seq_worker): BERT-base
+    pretraining at s 4096 under the auto ring and under Ulysses, and the
+    MoE model at Transformer-base width, each against its one-device walk
+    at 5b's card-vs-CPU gates, the replicated state bit-identical on both
+    ranks, 12 ring or Ulysses dispatches a step on each rank, each rank
+    holding E/2 experts. `started`: start_seq_workers' result, when the
+    ranks were started ahead of the phase."""
+    import torch
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(not rehearsal or deterministic, warn_only=True)
+    started = started or start_seq_workers(seed, rehearsal)
+    try:
+        return _sequence_phase(seed, rehearsal, smi, *started)
+    finally:
+        stop_seq_workers(started)
+        torch.use_deterministic_algorithms(deterministic)
+
+
+def _sequence_phase(seed, rehearsal, smi, work, procs):
+    import torch
+
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.ops.kernels.flash_attention import (
+        attention_delta, flash_attention, flash_attention_bwd)
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cpu" if rehearsal else "cuda")
+    (b, h, s, d, n), s_odd, (cfg, _, _, _), (_, _, me, _, _, _) = sequence_cells(rehearsal)
+    gates, stats, ring_rows = {}, {"card": smi}, []
+
+    def sync():
+        if not rehearsal:
+            torch.cuda.synchronize()
+
+    def timed_ms(fn, iters=3):
+        fn()
+        sync()
+        if rehearsal:
+            t0 = time.perf_counter()
+            fn()
+            return (time.perf_counter() - t0) * 1e3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # queue the launches behind a device-side hold
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def inputs(seq, dtype, gen_seed):
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        q, k, v = (torch.randn(b, h, seq, d, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        dout = (0.25 * torch.randn(b, h, seq, d, generator=gen, device=dev)).to(dtype)
+        bias = torch.zeros(b, seq, device=dev)
+        bias[:, seq - seq // 16:] = -1e4  # BERT's padded keys at the end
+        return q, k, v, dout, bias.contiguous()
+
+    def err(xs, ys):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(xs, ys))
+
+    # ---- (a) the ring alone ----
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            for causal in (False, True):
+                for dropout in (0.0, 0.1):
+                    q, k, v, dout, bias = inputs(s, dtype, seed + 240)
+                    kw = dict(causal=causal, dropout=dropout, seed=seed + 2401, n=n)
+                    pairs = n * (n + 1) // 2 if causal else n * n
+                    kernels.reset_launch_counts()  # one pass of the ring (a check)
+                    out, lse = ra.ring_attention_fwd(q, k, v, bias, **kw)
+                    grads = ra.ring_attention_bwd(q, k, v, bias, dout, out, lse, **kw)
+                    sync()
+                    one_pass = kernels.launch_counts()
+                    tag = f"{dname} {'causal' if causal else 'full'} dropout {dropout}"
+                    if not rehearsal:
+                        gates[f"(a) {tag}: one pass launches #3 and #4-#5 {pairs} times"] = (
+                            one_pass["flash_fwd"] == pairs and one_pass["flash_bwd"] == pairs
+                            and sum(one_pass.values()) == 2 * pairs)
+                    pout, plse = ra.ring_attention_plain(q, k, v, bias, **kw)
+                    pgrads = ra.ring_attention_bwd_plain(q, k, v, bias, dout, out, lse, **kw)
+                    got, want = (out, lse) + grads, (pout, plse) + pgrads
+                    tol = max(kernel_tol(dname, w) for w in want)
+                    e_plain = err(got, want)
+                    gates[f"(a) {tag}: out, lse, dq, dk, dv within {tol} of the plain "
+                          f"ring"] = e_plain <= tol
+                    row = dict(dtype=dname, causal=causal, dropout=dropout, pairs=pairs,
+                               err_plain=e_plain, tol=tol)
+                    if dropout == 0.0:
+                        wout, wlse = flash_attention(q, k, v, bias, causal=causal)
+                        wgrads = flash_attention_bwd(q, k, v, bias, dout, wlse,
+                                                     attention_delta(wout, dout, "bhsd"),
+                                                     causal=causal)
+                        e_whole = err((out,) + grads, (wout,) + wgrads)
+                        gates[f"(a) {tag}: out and the grads within {tol} of one whole "
+                              f"#3 / #4-#5 launch"] = e_whole <= tol
+                        row["err_whole"] = e_whole
+                        if dtype == torch.float32:
+                            row["ms"] = timed_ms(lambda: ra.ring_attention_fwd(q, k, v, bias,
+                                                                               **kw))
+                            row["bwd_ms"] = timed_ms(lambda: ra.ring_attention_bwd(
+                                q, k, v, bias, dout, out, lse, **kw))
+                            row["whole_ms"] = timed_ms(lambda: flash_attention(
+                                q, k, v, bias, causal=causal))
+                            row["whole_bwd_ms"] = timed_ms(lambda: flash_attention_bwd(
+                                q, k, v, bias, dout, wlse,
+                                attention_delta(wout, dout, "bhsd"), causal=causal))
+                        del wout, wlse, wgrads
+                    else:
+                        out2, lse2 = ra.ring_attention_fwd(q, k, v, bias, **kw)
+                        grads2 = ra.ring_attention_bwd(q, k, v, bias, dout, out2, lse2, **kw)
+                        gates[f"(a) {tag}: two passes bit-equal"] = all(
+                            torch.equal(x, y) for x, y in zip((out, lse) + grads,
+                                                               (out2, lse2) + grads2))
+                        del out2, lse2, grads2
+                    ring_rows.append(row)
+                    against = f"{e_plain:.3e} against the plain ring (tol {tol})"
+                    if "err_whole" in row:
+                        against += f", {row['err_whole']:.3e} against one whole launch"
+                    if "ms" in row:
+                        against += (f"; fwd {row['ms']:.3f} ms (one whole #3 "
+                                    f"{row['whole_ms']:.3f}), bwd {row['bwd_ms']:.3f} ms (one "
+                                    f"whole #4-#5 {row['whole_bwd_ms']:.3f}); card {smi}")
+                    print(f"[sequence] (a) ring b {b} h {h} s {s} d {d} n {n} {tag}: {pairs} "
+                          f"pairs; max abs err {against}")
+                    del q, k, v, dout, bias, out, lse, grads, pout, plse, pgrads, got, want
+        # the odd sequence: chunks of s_odd / n, no multiple of the 64-row tile
+        q, k, v, dout, bias = inputs(s_odd, torch.float32, seed + 242)
+        kw = dict(causal=True, dropout=0.1, seed=seed + 2421, n=n)
+        out, lse = ra.ring_attention_fwd(q, k, v, bias, **kw)
+        grads = ra.ring_attention_bwd(q, k, v, bias, dout, out, lse, **kw)
+        want = ra.ring_attention_plain(q, k, v, bias, **kw) + \
+            ra.ring_attention_bwd_plain(q, k, v, bias, dout, out, lse, **kw)
+        e_odd = err((out, lse) + grads, want)
+        gates[f"(a) s {s_odd} (chunks of {s_odd // n}), causal, dropout 0.1: within "
+              f"{TOL['float32']} of the plain ring"] = e_odd <= TOL["float32"]
+        ring_rows.append(dict(dtype="float32", causal=True, dropout=0.1, s=s_odd,
+                              err_plain=e_odd))
+        print(f"[sequence] (a) ring s {s_odd} n {n} (chunks of {s_odd // n}) causal dropout "
+              f"0.1: max abs err {e_odd:.3e} against the plain ring")
+        del q, k, v, dout, bias, out, lse, grads, want
+        if not rehearsal:
+            torch.cuda.empty_cache()
+        stats["a_wall_s"] = round(time.perf_counter() - t_phase, 1)
+
+        # ---- (b)-(d) on the two ranks ----
+        (work / "seq_go").write_text("go")
+        t_go = time.perf_counter()
+        for proc in procs:
+            proc.wait(timeout=900)
+        stats["ranks_wall_s"] = round(time.perf_counter() - t_go, 1)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    logs = [(work / f"seq_r{r}.log").read_text() for r in range(2)]
+    require(all(proc.returncode == 0 for proc in procs),
+            "[sequence] a rank failed: " + " | ".join(
+                f"rank {r} exit {proc.returncode}: {logs[r][-3000:]}"
+                for r, proc in enumerate(procs)))
+    reps = [json.loads((work / f"seq_r{r}.json").read_text()) for r in range(2)]
+    zero = {name: 0 for name in kernels.LAUNCHES}
+    layers_n = cfg.num_layers
+    ln = 2 * layers_n + 2
+    want_steps = {
+        "b": dict(zero, flash_fwd=2 * layers_n, flash_bwd=2 * layers_n, layer_norm_bwd=ln),
+        "c": dict(zero, flash_fwd=layers_n, flash_bwd=layers_n, layer_norm_bwd=ln),
+        "d": dict(zero)}
+    want_dispatch = {"b": {"attn_dispatch_ring": layers_n, "attn_dispatch_ulysses": 0},
+                     "c": {"attn_dispatch_ring": 0, "attn_dispatch_ulysses": layers_n},
+                     "d": {"attn_dispatch_ring": 0, "attn_dispatch_ulysses": 0}}
+    gates["(b)-(d) a batch 1 x model 2 mesh, rank r at model coordinate r"] = all(
+        rep["mesh"] == {"batch": 1, "model": 2, "pipe": 1} and rep["model_rank"] == rep["rank"]
+        and (rehearsal or rep["device_type"] == "cuda") for rep in reps)
+    labels = {"b": "(b) BERT-base s 4096, the auto ring", "c": "(c) the same under Ulysses",
+              "d": "(d) the MoE model"}
+    path = dict(zero)
+    for tag, label in labels.items():
+        recs = [rep["arms"][tag] for rep in reps]
+        r0 = recs[0]
+        gates[f"{label}: the dispatch counters a step on each rank"] = all(
+            dd == want_dispatch[tag] for rec in recs for dd in rec["dispatch"])
+        if not rehearsal:
+            gates[f"{label}: the kernels' launches a step on each rank"] = all(
+                c == want_steps[tag] for rec in recs for c in rec["per_step"])
+        gates[f"{label}: the replicated state bit-identical across the model group"] = (
+            len(r0["hashes"]) > 0 and r0["hashes"] == recs[1]["hashes"])
+        gates[f"{label}: both ranks fetched the same losses"] = r0["losses"] == recs[1]["losses"]
+        gates[f"{label}: losses within {LOSS_RTOL} of the one-device walk, every persistable "
+              f"within {2 * LR * SEQ_STEPS}, all but {CLOSE_FRAC} of the elements within "
+              f"{CLOSE_ATOL}"] = (r0["loss_rel"] <= LOSS_RTOL
+                                  and r0["worst_abs"] <= 2 * LR * SEQ_STEPS
+                                  and r0["far_frac"] <= CLOSE_FRAC)
+        if tag != "d":
+            gates[f"{label}: every parameter replicated (the sequence layout)"] = \
+                not r0["sharded"] and not recs[1]["sharded"]
+        gates[f"{label}: the seed counter as the walk's"] = (
+            r0["seed_counter"] == r0["plain_seed_counter"] == recs[1]["seed_counter"])
+        for name in zero:
+            path[name] += sum(rec["launches"][name] for rec in recs)
+        p50 = [statistics.median(rec["ms"][1:]) for rec in recs]
+        plain_p50 = statistics.median(r0["plain_ms"][1:])
+        stats[tag] = dict(losses=r0["losses"], plain_losses=r0["plain_losses"],
+                          loss_rel=r0["loss_rel"], worst_abs=r0["worst_abs"],
+                          worst_name=r0["worst_name"], far_frac=r0["far_frac"],
+                          sharded=len(r0["sharded"]), replicated=len(r0["hashes"]),
+                          launches=[rec["launches"] for rec in recs],
+                          ms=[[round(x, 3) for x in rec["ms"]] for rec in recs],
+                          plain_ms=[round(x, 3) for x in r0["plain_ms"]],
+                          p50_ms=[round(x, 3) for x in p50], plain_p50_ms=round(plain_p50, 3))
+        print(f"[sequence] {label} ({SEQ_STEPS} steps on two processes sharing the card over "
+              f"gloo): losses {r0['losses']} against the one-device walk's "
+              f"{r0['plain_losses']} (max rel {r0['loss_rel']:.3e}); persistables max abs "
+              f"diff {r0['worst_abs']:.3e} ({r0['worst_name']}), {r0['far_frac']:.3e} of the "
+              f"elements beyond {CLOSE_ATOL}; {len(r0['sharded'])} state vars sharded, "
+              f"{len(r0['hashes'])} replicated and bit-identical on both ranks; launches "
+              f"{[rec['launches'] for rec in recs]}; dispatch a step {r0['dispatch'][0]}")
+        print(f"[sequence] {label}: step p50 over steps 2-{SEQ_STEPS}: rank 0 {p50[0]:.2f} ms, "
+              f"rank 1 {p50[1]:.2f} ms (both ranks on one card, the hops and collectives "
+              f"staged through the host by gloo); the one-device walk {plain_p50:.2f} ms; "
+              f"card {smi}")
+    b_rec, c_rec = reps[0]["arms"]["b"], reps[0]["arms"]["c"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(c_rec["losses"], b_rec["losses"]))
+    gates[f"(c) the Ulysses losses within rtol {ULYSSES_RTOL} of the ring's"] = \
+        rel <= ULYSSES_RTOL
+    stats["c"]["rel_to_ring"] = rel
+    experts = {n: sh for n, sh in reps[0]["arms"]["d"]["sharded"].items()}
+    gates[f"(d) each rank holds {me // 2} of {me} experts (w1, b1, w2, b2 and their moments "
+          f"Shard(0) on model)"] = (
+        len(experts) == 12 and all(sh[:2] == ["Replicate()", "Shard(dim=0)"]
+                                   and sh[-1][0] == me // 2 for sh in experts.values())
+        and experts == reps[1]["arms"]["d"]["sharded"])
+    if not rehearsal:
+        for name in ("flash_fwd", "flash_bwd", "layer_norm_bwd"):
+            gates[f"the sequence path launched {name}"] = path[name] > 0
+    print(f"[sequence] launches on the sequence path (both ranks, (b)-(d)): #1 "
+          f"{path['mha_short_fwd']}, #3 {path['flash_fwd']}, #4/#5 {path['flash_bwd']}, #7 "
+          f"{path['mha_short_bwd']}, #8 {path['layer_norm_bwd']}")
+    shutil.rmtree(work, ignore_errors=True)
+    stats["gates"] = gates
+    stats["ring"] = ring_rows
+    failed = [g for g, ok in gates.items() if not ok]
+    print(f"[sequence] gates: {gates}")
+    require(not failed, f"[sequence] gates failed: {failed}")
+    stats["wall_s"] = round(time.perf_counter() - t_phase, 1)
+    print(f"[time] phase 24 took {stats['wall_s']} s ((a) {stats['a_wall_s']} s, the ranks "
+          f"{stats['ranks_wall_s']} s from go); launches over the sequence path: {path}")
+    return path, stats, ring_rows
 
 
 REPEAT_STEPS, REPEAT_HEAD = 10, 3  # phase 22: steps a window; run() calls before the split one

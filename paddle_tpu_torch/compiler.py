@@ -43,7 +43,7 @@ bit. `Executor.run_repeated` of a CompiledProgram (`_run_repeated`) runs
 the mesh step's static step: on the card one captured CUDA graph, the
 plan's collectives inside it, replayed N times. A `pipe` axis larger
 than 1 and `with_pipeline` raise NotImplementedError naming ROADMAP
-Queue 1 item 9c.
+Queue 1 item 9d.
 """
 
 from __future__ import annotations
@@ -166,7 +166,7 @@ class CompiledProgram:
                       tensor_parallel=1):
         raise NotImplementedError(
             "CompiledProgram.with_pipeline: pipeline execution is not ported yet "
-            "(ROADMAP Queue 1 item 9c)")
+            "(ROADMAP Queue 1 item 9d)")
 
     def _get_mesh(self):
         if self._mesh is None:

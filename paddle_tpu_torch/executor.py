@@ -350,7 +350,7 @@ def _lower_step(ctx, program, block, feed_names, fetch_names, plan, training):
         if plan is not None and plan.tp is not None:
             raise NotImplementedError(
                 "RecomputeOptimizer over a model axis larger than 1 is not ported yet "
-                "(ROADMAP Queue 1 item 9c)")
+                "(ROADMAP Queue 1 item 9d)")
         return _run_recompute(ctx, program, block, list(feed_names), fetch_names, plan)
     if training:
         _run_training(ctx, block, plan)
@@ -493,9 +493,10 @@ class Executor:
                       build_strategy=None, zero1=False):
         """A CompiledProgram's post-pass Program and its MeshPlan
         (parallel/step.py), the plan kept on the post-pass Program per
-        mesh signature, zero1 flag and fetch names. `feed_sig`: this rank's
-        (name, shape, dtype) feed triples; the passes see the global batch
-        (dim 0 times the batch axis), as the JAX executor's do
+        mesh signature, zero1 flag, fetch names and PADDLE_TPU_SP_MODE.
+        `feed_sig`: this rank's (name, shape, dtype) feed triples; the
+        passes see the global batch (dim 0 times the batch axis), as the
+        JAX executor's do
         (executor.py:657 there). The shard_propagation pass's planned specs
         (`_autoshard_specs`, autoshard on) are merged over the zero1 flag's
         assignment (executor.py:733-743 in the JAX package)."""
@@ -512,7 +513,7 @@ class Executor:
                                       feed_sig=feed_sig)
         plans = passed.__dict__.setdefault("_mesh_plans", {})
         key = (sig, id(mesh.device_mesh), passed._version, len(passed.global_block().ops),
-               tuple(fetch_names))
+               tuple(fetch_names), os.environ.get("PADDLE_TPU_SP_MODE"))
         plan = plans.get(key)
         if plan is None:
             auto = dict(getattr(passed, "_autoshard_specs", None) or {})
@@ -755,7 +756,7 @@ class Executor:
             if plan.tp is not None:
                 raise NotImplementedError(
                     "run_repeated over a model axis larger than 1 is not ported yet "
-                    "(ROADMAP Queue 1 item 9c): use run()")
+                    "(ROADMAP Queue 1 item 9d): use run()")
             program = plan.program
         else:
             program = self._passed_program(program, feed, fetch_names, scope,

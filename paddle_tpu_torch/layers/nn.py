@@ -13,6 +13,7 @@ from ..param_attr import ParamAttr
 
 __all__ = [
     "fc",
+    "moe",
     "embedding",
     "layer_norm",
     "elementwise_add",
@@ -100,6 +101,53 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None, act=Non
         helper.append_op(type="sum", inputs={"X": mul_results}, outputs={"Out": [pre_bias]})
     pre_act = helper.append_bias_op(pre_bias, bias_attr, size, num_flatten_dims)
     return helper.append_activation(pre_act)
+
+
+def moe(input, num_experts, d_ff, capacity_factor=1.25, k=2, param_attr=None, name=None,
+        ep_axis="ep"):
+    """Mixture-of-experts FFN layer (GShard top-k dense dispatch; the JAX
+    package's layers.moe). The expert parameters are annotated to shard
+    their leading (expert) dim over the `ep_axis` mesh axis (`model`); on
+    a mesh whose model axis is larger than 1 the layout plan's expert rule
+    runs each rank's experts (parallel/tensor_parallel.py). Returns (out,
+    aux_loss): add `aux_loss` (shape [1], the load-balance loss) to the
+    training objective."""
+    import copy
+
+    from ..parallel import P, shard_parameter
+
+    helper = LayerHelper("moe", name=name)
+    d = int(input.shape[-1])
+
+    def pattr(suffix):
+        # one param_attr names FIVE parameters: suffix each so a named
+        # ParamAttr does not alias them onto one variable
+        a = ParamAttr._to_attr(param_attr)
+        if a and a.name:
+            a = copy.copy(a)
+            a.name = f"{a.name}.{suffix}"
+        return a
+
+    gate = helper.create_parameter(pattr("gate"), [d, num_experts], dtype=input.dtype)
+    w1 = helper.create_parameter(pattr("w1"), [num_experts, d, d_ff], dtype=input.dtype)
+    b1 = helper.create_parameter(pattr("b1"), [num_experts, d_ff], dtype=input.dtype,
+                                 is_bias=True)
+    w2 = helper.create_parameter(pattr("w2"), [num_experts, d_ff, d], dtype=input.dtype)
+    b2 = helper.create_parameter(pattr("b2"), [num_experts, d], dtype=input.dtype,
+                                 is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype, input.shape)
+    aux = helper.create_variable_for_type_inference(input.dtype, (1,))
+    helper.append_op(
+        type="moe_ffn",
+        inputs={"X": [input], "Gate": [gate.name], "W1": [w1.name], "B1": [b1.name],
+                "W2": [w2.name], "B2": [b2.name]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": float(capacity_factor), "k": int(k)},
+    )
+    prog = helper.main_program
+    for p_ in (w1, b1, w2, b2):
+        shard_parameter(prog, p_.name, P(ep_axis))
+    return out, aux
 
 
 def embedding(input, size, is_sparse=False, is_distributed=False, padding_idx=None,

@@ -22,11 +22,27 @@ the global batch, so the seed shifts by r * (local batch * H) *
 of H (`LoweringContext.head_shard`), which the kernels take as
 `heads_global` / `head0`, since the offset of a local (batch, head)
 index from its global one depends on the batch row.
+
+Sequence parallelism (after the JAX op, fused_ops.py:253-363 there): on a
+mesh whose `model` axis is larger than 1, `sequence_parallel_mode` picks
+the formulation from PADDLE_TPU_SP_MODE = ring | ulysses | off; unset, the
+ring once the sequence is at least RING_MIN_SEQ and divides by the axis.
+The layout plan (parallel/tensor_parallel.py) then shards the sequence
+over `model`, and this lowering, given q / k / v sharded on the sequence
+dim, runs the ring across the model group (ops/ring_attention.py,
+counter `attn_dispatch_ring`) or Ulysses (parallel/ulysses.py,
+`attn_dispatch_ulysses`). Within a ring launch the (batch * head) index
+is launch-local, as in the JAX package; the seed carries the batch rank's
+shift as above.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+from .. import profiler
 
 from .kernels.flash_attention import attention_delta, flash_attention, flash_attention_bwd
 from .kernels.mha_short import short_attention, short_attention_bwd, short_attention_viable
@@ -65,6 +81,38 @@ def _kernel_pair_fn(fwd, bwd, name):
 ShortAttention = _kernel_pair_fn(short_attention, short_attention_bwd, "ShortAttention")
 FlashAttention = _kernel_pair_fn(flash_attention, flash_attention_bwd, "FlashAttention")
 
+# the JAX package's rule for which formulation runs (its dispatch table's
+# ring_min_seq): the sequence length from which the ring is the default on a
+# model axis larger than 1. It is not a speed measured on this card.
+RING_MIN_SEQ = 4096
+
+
+def sequence_parallel_mode(seq_q, seq_k, model_n, env=None):
+    """The sequence-parallel formulation of an attention of sequence
+    lengths (seq_q, seq_k) on a model axis of `model_n` ranks: "ring",
+    "ulysses" or None (none: the axis stays tensor / expert parallelism).
+    PADDLE_TPU_SP_MODE (read from `env`, default os.environ) = ring |
+    ulysses selects one, off (or empty) none; unset, the ring when
+    model_n > 1 and seq_q >= RING_MIN_SEQ and both lengths divide by
+    model_n. Raises ValueError for another value, and for an explicit mode
+    whose sequence the axis does not divide."""
+    raw = (os.environ if env is None else env).get("PADDLE_TPU_SP_MODE")
+    mode = (raw or "").strip().lower()
+    if mode in ("off", "none", "0"):
+        mode = ""
+    if mode and mode not in ("ring", "ulysses"):
+        raise ValueError(f"PADDLE_TPU_SP_MODE={mode!r}: expected 'ring', 'ulysses' or 'off'")
+    if model_n <= 1:
+        return None
+    divisible = seq_q % model_n == 0 and seq_k % model_n == 0
+    if raw is None:
+        return "ring" if seq_q >= RING_MIN_SEQ and divisible else None
+    if mode and not divisible:
+        raise ValueError(
+            f"sequence length {seq_q}/{seq_k} not divisible by the model axis ({model_n}) "
+            f"- pad the sequence or resize the mesh for PADDLE_TPU_SP_MODE={mode}")
+    return mode or None
+
 
 @register_op("fused_multihead_attention", no_grad_inputs=("KeyBias",))
 def _fused_mha(ctx, op):
@@ -87,7 +135,27 @@ def _fused_mha(ctx, op):
     if bias is not None:
         bias = bias.detach().to(torch.float32).contiguous()
     seq_axis = 1 if layout == "bshd" else 2
+    if ctx.sequence_parallel and ctx.model_dims.get(op.input("Q")[0]) == seq_axis:
+        ctx.out(op, "Out", _sequence_parallel(ctx, q, k, v, bias, causal, sm_scale, dropout,
+                                              seed, layout))
+        return
     fn = (ShortAttention if short_attention_viable(q.shape[seq_axis], k.shape[seq_axis])
           else FlashAttention)
     ctx.out(op, "Out", fn.apply(q, k, v, bias, causal, sm_scale, dropout, seed, layout,
                                 heads, head0))
+
+
+def _sequence_parallel(ctx, q, k, v, bias, causal, sm_scale, dropout, seed, layout):
+    """Attention on this rank's sequence chunk of the model group: the ring
+    or Ulysses (`ctx.sequence_parallel`)."""
+    if ctx.sequence_parallel == "ulysses":
+        from ..parallel.ulysses import ulysses_attention
+
+        profiler.bump_counter("attn_dispatch_ulysses")
+        return ulysses_attention(q, k, v, ctx.model_group, bias=bias, causal=causal,
+                                 sm_scale=sm_scale, dropout=dropout, seed=seed, layout=layout)
+    from .ring_attention import ring_attention
+
+    profiler.bump_counter("attn_dispatch_ring")
+    return ring_attention(q, k, v, bias=bias, causal=causal, sm_scale=sm_scale,
+                          dropout=dropout, seed=seed, layout=layout, group=ctx.model_group)

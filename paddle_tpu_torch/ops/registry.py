@@ -212,7 +212,10 @@ class LoweringContext:
     dropout draws its chunk's place in the global mask (`global_place`),
     attention hashes global heads (`head_shard`) and Lamb sums its norms
     over the group (`model_sum`); outside one they are None, 0, 1 and
-    empty."""
+    empty. `sequence_parallel` is the layout plan's sequence-parallel mode
+    ("ring" or "ulysses"; None: the tensor-parallel layout), under which
+    `model_dims` holds vars sharded on their sequence dim and attention on
+    them runs across the model group."""
 
     def __init__(self, program=None, device=None, generator=None, rng_key=None,
                  is_test=False):
@@ -236,6 +239,7 @@ class LoweringContext:
         self.model_rank = 0
         self.model_ranks = 1
         self.model_dims = {}
+        self.sequence_parallel = None
         # the bf16 compute policy of contrib.mixed_precision, read from the
         # program as the JAX package reads it (registry.py:183-189 there):
         # the product ops cast their float inputs to amp_dtype unless
@@ -374,6 +378,7 @@ class LoweringContext:
             other.batch_group, other.batch_rank, other.batch_ranks)
         self.model_group, self.model_rank, self.model_ranks, self.model_dims = (
             other.model_group, other.model_rank, other.model_ranks, other.model_dims)
+        self.sequence_parallel = other.sequence_parallel
 
     def amp_dtype_for(self, op):
         """The AMP compute dtype of this op, or None (fp32)."""

@@ -93,5 +93,5 @@ def compile_distributed(
         raise NotImplementedError(
             f"batch_axes {batch_axes}: a feed split over 'model' or 'pipe' (sequence "
             "parallelism, pipeline microbatches) is not ported yet: the port's mesh "
-            "splits feeds over 'batch' alone (ROADMAP Queue 1 item 9c)")
+            "splits feeds over 'batch' alone (ROADMAP Queue 1 item 9d)")
     return executor._prepare_mesh(program, mesh, feed_sig, list(fetch_names), scope)

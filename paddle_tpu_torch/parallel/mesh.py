@@ -12,7 +12,7 @@ make its result the one GSPMD gives for the whole batch.
 Without an initialized process group the mesh is the degenerate 1x1x1
 `Mesh` with no DeviceMesh: its run is the plain Executor walk, bit for
 bit. A `pipe` axis larger than 1 raises NotImplementedError naming
-ROADMAP Queue 1 item 9c.
+ROADMAP Queue 1 item 9d.
 
 Axis contract (as the JAX package's):
 
@@ -22,7 +22,7 @@ Axis contract (as the JAX package's):
 - ``model``: everything intra-layer: the program's annotations over it
   run as Megatron tensor parallelism (parallel/tensor_parallel.py). The
   ranks of one model group feed the same rows.
-- ``pipe``: pipeline stages (item 9c).
+- ``pipe``: pipeline stages (item 9d).
 
 The ranks lay out row-major over (batch, model, pipe): rank
 b * model * pipe + m * pipe + p, so a model group is `model` consecutive
@@ -206,13 +206,13 @@ def build_mesh(batch=None, model=1, pipe=1, device_type=None) -> Mesh:
     without one). A 1x1x1 mesh without a process group, or asked for under
     a larger one, has no DeviceMesh; any other mesh spans the whole group,
     on `device_type` (default: "cuda" under NCCL, else "cpu"). pipe > 1
-    raises (ROADMAP Queue 1 item 9c)."""
+    raises (ROADMAP Queue 1 item 9d)."""
     model = max(1, int(model))
     pipe = max(1, int(pipe))
     if pipe > 1:
         raise NotImplementedError(
             f"a mesh with pipe={pipe}: pipeline stages are not ported yet "
-            "(ROADMAP Queue 1 item 9c)")
+            "(ROADMAP Queue 1 item 9d)")
     world = _world()
     if batch is None:
         batch = max(1, (world or 1) // (model * pipe))
@@ -460,7 +460,7 @@ def zero1_accumulators(block, state_names, axis_size) -> dict:
 
 def pipe_shardable_state(block, state_names, pipe_size,
                          stateful_fwd=(), model_dim0=()) -> dict:
-    """ZeRO over 'pipe' for pipeline programs (item 9c runs them): master
+    """ZeRO over 'pipe' for pipeline programs (item 9d runs them): master
     params and their accumulators sharded 1/pipe at rest."""
     if pipe_size <= 1:
         return {}

@@ -34,7 +34,10 @@ and fetch set, and read by `Executor._run_walk`:
   keeps sharded state as DTensors (Shard(d) on `model`, with ZeRO-1's
   Shard(0) on `batch`: an accumulator whose model split is on dim 0
   keeps its model chunk whole); a fetch of a sharded var is gathered
-  along its dim. The ranks of one model group feed the same rows.
+  along its dim. The ranks of one model group feed the same rows. Under
+  the sequence-parallel mode the plan's sequence layout shards vars on
+  their sequence dim over `model` instead, and every parameter but the
+  expert-sharded ones of `moe_ffn` stays replicated.
 
 Without a DeviceMesh (the 1x1x1 mesh with no process group) the plan adds
 nothing, and the walk is `Executor.run`'s. With a one-rank process group
@@ -156,6 +159,7 @@ class MeshPlan:
         if self.tp is not None:
             ctx.model_group, ctx.model_rank = self.tp.group, self.tp.rank
             ctx.model_ranks, ctx.model_dims = self.tp.ranks, self.tp.dims
+            ctx.sequence_parallel = self.tp.sequence
 
     def is_sharded(self, name) -> bool:
         """Whether the scope keeps `name` as a DTensor of this rank's part."""

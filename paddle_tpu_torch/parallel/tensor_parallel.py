@@ -55,8 +55,43 @@ lower=)`), where its graph records them. Replicated parameters
 rank of a model group and stay bit-identical there; sharded parameters'
 grads are averaged over the batch group alone (parallel/step.py).
 
+The sequence layout. When the sequence-parallel mode is on for the run
+(`ops.fused_ops.sequence_parallel_mode` of the Program's attention ops:
+PADDLE_TPU_SP_MODE = ring | ulysses, or unset with a sequence of at least
+RING_MIN_SEQ), the `model` axis carries the sequence, not Megatron's
+heads (context parallelism). A var is then *sharded on its sequence dim*
+(each rank its contiguous chunk of the sequence); the Program's `model`
+weight annotations are not applied, so every parameter is replicated on
+the model group. The ranks of a model group still feed the same rows: a
+feed [b, s, ...] of the attention's sequence length s is cut to the
+rank's chunk where a rule first needs it. The rules:
+
+- local, keeping the layout: `lookup_table` of sequence-sharded ids,
+  element-wise ops, `scale`, `dropout` (at the chunk's global place),
+  `layer_norm` over dims after the sequence (`layer_norm_grad` all-reduces
+  its Scale / Bias grads over the group), `mul` / `matmul` by a
+  replicated weight, `gelu`, and `reshape2` / `transpose2` that keep the
+  sequence dim whole. A replicated parameter enters through
+  `CopyToModel`, so its grad is the group's sum;
+- `fused_multihead_attention` on sequence-sharded q / k / v runs the ring
+  or Ulysses across the model group (its key bias cut to the chunk);
+- gather: every other op that reads a sequence-sharded var gathers it
+  (the [CLS] slice, the MLM gather over flattened positions, the loss
+  reductions). Where GSPMD keeps the weights tp-sharded under sequence
+  parallelism, the port replicates them: the numbers are the same, the
+  memory is not (ROADMAP Queue 3).
+
+The expert rule, in either layout. `moe_ffn` reads its expert-sharded
+W1 / B1 / W2 / B2 (annotated `P(ep)`, the expert dim over `model`) and
+replicated tokens (gathered first under the sequence layout, since
+capacity and positions count every token): every rank routes all tokens
+with the replicated gate, runs the FFNs of its E/m experts, and
+all-reduces its partial combine at once (ops/moe_ops.py). The expert
+params' grads stay local shards, averaged over the batch group alone.
+
 The plan rewrites a clone of the post-pass Program (reshape attrs), never
-the user's Program, and the Executor keys it on the mesh signature.
+the user's Program, and the Executor keys it on the mesh signature and
+PADDLE_TPU_SP_MODE.
 """
 
 from __future__ import annotations
@@ -137,6 +172,8 @@ _UNARY = frozenset({"relu", "gelu", "tanh", "sigmoid", "sign", "sqrt", "square",
                     "cast", "assign", "clip", "dropout"})
 _BINARY = frozenset({"elementwise_add", "elementwise_sub", "elementwise_mul",
                      "elementwise_div", "elementwise_max"})
+# the ops that may read a whole sequence feed, cut to the rank's chunk there
+_SEQ_FEED_READERS = _UNARY | _BINARY | {"lookup_table", "mul", "matmul", "layer_norm"}
 # optimizer updates that are element-wise given the trust ratio's norms
 _OPTIMIZERS = frozenset({"sgd", "momentum", "adam", "adamw", "lamb", "fused_sgd",
                          "fused_momentum", "fused_adam", "fused_adamw", "fused_lamb"})
@@ -148,6 +185,35 @@ def _grad_base(name):
     i = name.find(GRAD_SUFFIX)
     rest = name[i + len(GRAD_SUFFIX):] if i > 0 else None
     return name[:i] if rest is not None and (not rest or rest.startswith("@")) else None
+
+
+def _sequence_mode(block, m):
+    """(mode, sequence length) of the sequence layout on a model axis of m
+    ranks: the mode `sequence_parallel_mode` gives the Program's attention
+    ops ("ring", "ulysses"; None: the tensor-parallel layout). Raises
+    ValueError where the attention ops disagree."""
+    from ..ops.fused_ops import sequence_parallel_mode
+
+    found = set()
+    for op in block.ops:
+        if op.type != "fused_multihead_attention":
+            continue
+        sd = 1 if (op.attr("layout", "bhsd") or "bhsd") == "bshd" else 2
+        q = block._find_var_recursive(op.input("Q")[0])
+        k = block._find_var_recursive(op.input("K")[0])
+        sq, sk = int(q.shape[sd]), int(k.shape[sd])
+        found.add((sequence_parallel_mode(sq, sk, m), sq))
+    modes = {mode for mode, _ in found}
+    if len(modes) > 1:
+        raise ValueError(f"the attention ops of one Program take different sequence-parallel "
+                         f"modes {sorted(map(str, modes))}: give PADDLE_TPU_SP_MODE")
+    if not found or not modes - {None}:
+        return None, None
+    lengths = {sq for _, sq in found}
+    if len(lengths) > 1:
+        raise NotImplementedError(f"sequence parallelism over attention ops of sequence "
+                                  f"lengths {sorted(lengths)}")
+    return modes.pop(), lengths.pop()
 
 
 class _Rule:
@@ -173,6 +239,8 @@ class TensorParallelPlan:
         from ..passes import _clone_for_passes
 
         self.ranks = mesh.shape["model"]
+        self.sequence, self.seq_len = _sequence_mode(program.global_block(), self.ranks)
+        self.whole_seq = {}  # feeds with the sequence dim, cut where a rule needs them
         self.group = mesh.group("model")
         self.rank = mesh.local_rank("model")
         clone = _clone_for_passes(program)
@@ -201,9 +269,16 @@ class TensorParallelPlan:
 
     def _annotate_state(self, program, block):
         m = self.ranks
+        experts = {n for op in block.ops if op.type == "moe_ffn"
+                   for slot in ("W1", "B1", "W2", "B2") for n in op.input(slot)}
+        if self.sequence:
+            for v in block.vars.values():
+                shape = tuple(v.shape or ())
+                if getattr(v, "is_data", False) and len(shape) >= 2 and shape[1] == self.seq_len:
+                    self.whole_seq[v.name] = 1
         for name, spec in (program._sharding_specs or {}).items():
             v = block._find_var_recursive(name)
-            if v is None or not v.persistable:
+            if v is None or not v.persistable or (self.sequence and name not in experts):
                 continue
             for d, el in enumerate(canonicalize_spec(spec)):
                 axes = el if isinstance(el, tuple) else (el,)
@@ -243,6 +318,11 @@ class TensorParallelPlan:
     def _rule(self, op):
         ins = [n for n in op.input_arg_names() if n]
         sharded_in = {n: self.dims[n] for n in ins if n in self.dims}
+        cut = {}
+        if self.sequence and op.type in _SEQ_FEED_READERS:
+            cut = {n: self.whole_seq[n] for n in ins if n in self.whole_seq}
+            sharded_in.update(cut)
+            self.dims.update(cut)
         if op.type == "__auto_grad__":
             rule = self._auto_grad(op)
         elif not sharded_in:
@@ -260,6 +340,14 @@ class TensorParallelPlan:
             if want is not None and got is None and rule.kind != "auto_grad":
                 rule.chunk_out[n] = want
                 self.dims[n] = want
+        for n, d in cut.items():
+            # a whole feed: cut to the rank's chunk for a local rule, read
+            # as it is where the rule gathers
+            self.dims.pop(n, None)
+            if rule.kind == "gather" or rule.inputs.get(n, ("chunk",))[0] != "chunk":
+                rule.inputs.pop(n, None)
+            else:
+                rule.inputs[n] = ("chunk", d)
         if rule.kind in ("plain", "auto_grad") and not rule.chunk_out and not rule.inputs:
             return None
         return rule
@@ -317,6 +405,12 @@ class TensorParallelPlan:
         t = op.type
         x = op.input("X")[0] if op.input("X") else None
         dx = self.dim(x)
+        if t == "moe_ffn":
+            return self._expert(op, sharded_in)
+        if self.sequence:
+            rule = self._sequence_rule(op, sharded_in, x, dx)
+            if rule is not None:
+                return rule
         if t in ("mul", "matmul"):
             return self._product(op, sharded_in)
         if t in _UNARY and set(sharded_in) == {x}:
@@ -383,6 +477,76 @@ class TensorParallelPlan:
                             self.dims[n] = self._target(n)
             return _Rule("local")
         return self._gather_rule(op, sharded_in)
+
+    def _sequence_rule(self, op, sharded_in, x, dx):
+        """The sequence layout's own rules (None: the shared rules decide)."""
+        t = op.type
+        if t == "lookup_table":
+            ids, w = op.input("Ids")[0], op.input("W")[0]
+            if set(sharded_in) == {ids}:
+                rule = _Rule("local")
+                rule.inputs = {w: ("copy",)}
+                self._set_outputs(op, self.dim(ids))
+                return rule
+            return self._gather_rule(op, sharded_in)
+        if t in ("layer_norm", "layer_norm_grad"):
+            rows = [n for slot in ("X", "Mean", "Variance", "GRAD_Y") for n in op.input(slot)]
+            d = dx
+            if d is not None and d < op.attr("begin_norm_axis", 1) and \
+                    set(sharded_in) <= set(rows) and all(self.dim(n) == d for n in rows):
+                rule = _Rule("local")
+                if t == "layer_norm":
+                    rule.inputs = {n: ("copy",) for slot in ("Scale", "Bias")
+                                   for n in op.input(slot) if n}
+                    self._set_outputs(op, d)
+                else:
+                    self._set_outputs(op, d, slots=("IGRAD_X",))
+                    rule.reduce_out = [n for slot in ("IGRAD_Scale", "IGRAD_Bias")
+                                       for n in op.output(slot) if n]
+                    for n in rule.reduce_out:
+                        self.dims.pop(n, None)
+                return rule
+            return self._gather_rule(op, sharded_in)
+        if t in ("mul", "matmul") and op.input("Y")[0] not in sharded_in and dx is not None:
+            y = op.input("Y")[0]
+            rx, ry = len(self._shape(x) or ()), len(self._shape(y) or ())
+            if t == "mul":
+                local = ry == 2 and op.attr("y_num_col_dims", 1) == 1 and \
+                    dx < op.attr("x_num_col_dims", 1)
+            else:
+                local = ry == 2 and not op.attr("transpose_X", False) and dx <= rx - 2
+            if local:
+                rule = _Rule("local")
+                rule.inputs = {y: ("copy",)}
+                self._set_outputs(op, dx)
+                return rule
+            return self._gather_rule(op, sharded_in)
+        if t == "fused_multihead_attention":
+            sd = 1 if (op.attr("layout", "bhsd") or "bhsd") == "bshd" else 2
+            qkv = [op.input(s_)[0] for s_ in ("Q", "K", "V")]
+            if all(self.dim(n) == sd for n in qkv):
+                rule = _Rule("local")
+                for n in op.input("KeyBias"):
+                    if n and self.dim(n) is None:
+                        rule.inputs[n] = ("chunk", 1)
+                    elif n and self.dim(n) != 1:
+                        return self._gather_rule(op, sharded_in)
+                self._set_outputs(op, sd)
+                return rule
+            return self._gather_rule(op, sharded_in)
+        return None
+
+    def _expert(self, op, sharded_in):
+        """moe_ffn: the tokens whole (gathered when sequence-sharded), the
+        expert params as they are laid out; outputs replicated."""
+        rule = _Rule("expert")
+        experts = [n for slot in ("W1", "B1", "W2", "B2") for n in op.input(slot)]
+        for n, d in sharded_in.items():
+            if n in experts and d == 0:
+                continue
+            rule.inputs[n] = ("gather", d)
+        self._set_outputs(op, None)
+        return rule
 
     def _product(self, op, sharded_in):
         x, y = op.input("X")[0], op.input("Y")[0]
@@ -482,7 +646,9 @@ class TensorParallelPlan:
             return None
         lead = int(np.prod(xs[:d])) if d else 1
         k, acc = 0, 1
-        while k < len(os_) and acc < lead:
+        # past the dims that hold the leading ones, and past size-1 dims there
+        # (a batch of 1 reshaped [1, s, h] -> [1, s, nh, dh])
+        while k < len(os_) and (acc < lead or (os_[k] == 1 and xs[d] != 1)):
             acc *= os_[k]
             k += 1
         if acc != lead or k >= len(os_):

@@ -334,14 +334,43 @@ def test_parallel_and_compiler_load_neither_jax_nor_paddle_tpu():
         f.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__") for f in files})
     assert mods == ["paddle_tpu_torch.compiler", "paddle_tpu_torch.parallel",
                     "paddle_tpu_torch.parallel.api", "paddle_tpu_torch.parallel.mesh",
-                    "paddle_tpu_torch.parallel.step",
-                    "paddle_tpu_torch.parallel.tensor_parallel"]
+                    "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.parallel.step",
+                    "paddle_tpu_torch.parallel.tensor_parallel",
+                    "paddle_tpu_torch.parallel.ulysses"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import paddle_tpu_torch\n"
         "assert paddle_tpu_torch.CompiledProgram is paddle_tpu_torch.compiler.CompiledProgram\n"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
+        " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    assert [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+            if _forbidden(m)] == []
+
+
+def test_sequence_and_expert_modules_load_neither_jax_nor_paddle_tpu():
+    """Ring attention, Ulysses, mixture of experts and the moe_ffn op: the
+    port's own copies, importing neither package; a ring or Ulysses given
+    CPU tensors runs the kernels' plain versions."""
+    pkg = ROOT / "paddle_tpu_torch"
+    files = [pkg / "ops" / "ring_attention.py", pkg / "parallel" / "ulysses.py",
+             pkg / "parallel" / "moe.py", pkg / "ops" / "moe_ops.py"]
+    mods = ["paddle_tpu_torch.ops.ring_attention", "paddle_tpu_torch.parallel.ulysses",
+            "paddle_tpu_torch.parallel.moe", "paddle_tpu_torch.ops.moe_ops"]
+    code = (
+        "import importlib, sys, torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from paddle_tpu_torch.ops.ring_attention import ring_attention\n"
+        "q = torch.randn(1, 2, 8, 4)\n"
+        "assert ring_attention(q, q, q, axis_size=2).shape == q.shape\n"
         "print(sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'paddle_tpu', 'tools')"
         " or m.startswith(('jax.', 'jaxlib.', 'paddle_tpu.', 'tools.'))))\n"
     )

@@ -282,14 +282,14 @@ def test_later_items_raise_and_knobs_match_jax():
     # without a process group it needs one, as a batch axis does
     with pytest.raises(ValueError, match="process group"):
         tmesh.build_mesh(batch=1, model=2)
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="item 9d"):
         tmesh.build_mesh(batch=1, pipe=2)
     with pytest.raises(ValueError, match="process group"):
         tmesh.build_mesh(batch=2)
     main, startup = tfluid.Program(), tfluid.Program()
     loss, _ = _build(tfluid, main, startup)
     cp = tfluid.CompiledProgram(main)
-    with pytest.raises(NotImplementedError, match="item 9c"):
+    with pytest.raises(NotImplementedError, match="item 9d"):
         cp.with_pipeline(loss_name=loss.name, num_stages=2)
     # item 12 is ported: run_repeated of a CompiledProgram checks its steps
     # as the JAX one does (tests/test_torch_run_repeated.py runs it)
@@ -365,8 +365,8 @@ def test_compile_distributed_and_api_surface():
     # a pred fetch averages nothing: the parameter grads meet before their readers
     grads = sorted(n for names in plan.reduce_at.values() for n in names)
     assert grads == sorted(p.name + "@GRAD" for p in main.all_parameters())
-    # a feed split over 'model' waits for item 9c
-    with pytest.raises(NotImplementedError, match="9c"):
+    # a feed split over 'model' waits for item 9d
+    with pytest.raises(NotImplementedError, match="9d"):
         tapi.compile_distributed(exe, main, mesh, [], [], scope, batch_axes=("batch", "tp"))
 
 
